@@ -1,0 +1,158 @@
+"""The port's ops against the JAX package's, on the CPU: anchors, box math,
+input normalisation and the plain greedy NMS (against the XLA scan and the
+Pallas kernel in interpret mode).  Inputs are made with numpy from a seed
+and handed to both."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from videoyolo_tpu.data.transforms import to_normalized as jax_to_normalized
+from videoyolo_tpu.ops import anchors as jax_anchors
+from videoyolo_tpu.ops import bbox as jax_bbox
+from videoyolo_tpu.ops.nms import _nms_single as jax_nms_single
+from videoyolo_tpu.ops.pallas_nms import nms_scan_pallas
+from videoyolo_torch.data.transforms import to_normalized
+from videoyolo_torch.ops import anchors, bbox
+from videoyolo_torch.ops.nms import _nms_single, box_nms, nms_greedy_plain
+from videoyolo_torch.ops.nms_kernel import nms_greedy
+
+torch.set_num_threads(2)
+
+
+def _boxes(rs, shape, scale=50.0):
+    xy = rs.rand(*shape, 2).astype(np.float32) * scale
+    wh = rs.rand(*shape, 2).astype(np.float32) * 0.8 * scale + 5
+    return np.concatenate([xy, xy + wh], -1)
+
+
+def _sorted_candidates(b, k, n_classes, seed):
+    """(B, K, 6) rows in descending, tie-free score order."""
+    rs = np.random.RandomState(seed)
+    scores = np.sort(rs.rand(b, k))[:, ::-1].astype(np.float32)
+    ids = rs.randint(0, n_classes, (b, k)).astype(np.float32)
+    return np.concatenate([ids[..., None], scores[..., None], _boxes(rs, (b, k))], -1)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (13, 13)])
+def test_grid_offsets(hw):
+    ours = anchors.grid_offsets(*hw, "cpu").numpy()
+    np.testing.assert_allclose(ours, jax_anchors.grid_offsets(*hw), rtol=0, atol=1e-6)
+    assert anchors.DEFAULT_ANCHORS == jax_anchors.DEFAULT_ANCHORS
+    assert anchors.DEFAULT_STRIDES == jax_anchors.DEFAULT_STRIDES
+
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+def test_pairwise_iou(offset):
+    rs = np.random.RandomState(0)
+    a, b = _boxes(rs, (2, 7)), _boxes(rs, (2, 5))
+    a[0, 0] = b[0, 0]  # identical pair: IoU 1
+    ours = bbox.pairwise_iou(torch.from_numpy(a), torch.from_numpy(b), offset=offset).numpy()
+    ref = np.asarray(jax_bbox.pairwise_iou(jnp.asarray(a), jnp.asarray(b), offset=offset))
+    assert ours.shape == (2, 7, 5)
+    np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_corner_center_roundtrip():
+    rs = np.random.RandomState(1)
+    a = _boxes(rs, (3, 4))
+    for ours_fn, ref_fn in (
+        (bbox.corner_to_center, jax_bbox.corner_to_center),
+        (bbox.center_to_corner, jax_bbox.center_to_corner),
+    ):
+        ours = ours_fn(torch.from_numpy(a)).numpy()
+        np.testing.assert_allclose(ours, np.asarray(ref_fn(jnp.asarray(a))), rtol=1e-6, atol=1e-6)
+    parts = bbox.corner_to_center(torch.from_numpy(a), split=True)
+    assert len(parts) == 4 and parts[0].shape == (3, 4, 1)
+
+
+def test_to_normalized_bit_equal():
+    img = np.random.RandomState(2).randint(0, 256, (2, 5, 6, 3)).astype(np.uint8)
+    ours = to_normalized(torch.from_numpy(img)).numpy()
+    np.testing.assert_array_equal(ours, jax_to_normalized(img))
+    assert to_normalized(torch.from_numpy(img), dtype=torch.bfloat16).dtype == torch.bfloat16
+
+
+def _jax_nms(dets, thresh, valid, topk, post, force, presorted):
+    fn = lambda d: jax_nms_single(d, thresh, valid, topk, post, force, presorted)  # noqa: E731
+    return np.asarray(jax.vmap(fn)(jnp.asarray(dets)))
+
+
+# (name, topk, post_nms, force_suppress, presorted, mutate)
+NMS_CASES = [
+    ("presorted", -1, 100, False, True, None),
+    ("presorted_all_rows", -1, -1, False, True, None),
+    ("force_suppress", -1, 100, True, True, None),
+    ("below_valid_thresh", -1, -1, False, True, "low_scores"),
+    ("negative_ids", -1, 100, False, True, "neg_ids"),
+    ("identical_boxes", -1, -1, False, True, "identical"),
+    ("topk_unsorted", 30, 20, False, False, "shuffle"),
+    ("topk_force_invalid", 25, -1, True, False, "shuffle_low"),
+]
+
+
+def _case_dets(mutate, seed=0):
+    dets = _sorted_candidates(3, 45, 4, seed)
+    rs = np.random.RandomState(seed + 100)
+    if mutate in ("low_scores", "shuffle_low"):
+        dets[:, -8:, 1] = 0.001  # below valid_thresh
+        dets[:, 3, 1] = 0.01  # exactly at it: invalid (strict >)
+    if mutate == "neg_ids":
+        dets[:, ::5, 0] = -1.0
+    if mutate == "identical":
+        dets[:, :, 2:6] = dets[:, :1, 2:6]
+    if mutate in ("shuffle", "shuffle_low"):
+        dets = dets[:, rs.permutation(dets.shape[1])]
+    return np.ascontiguousarray(dets)
+
+
+@pytest.mark.parametrize("case", NMS_CASES, ids=[c[0] for c in NMS_CASES])
+def test_plain_nms_matches_jax(case):
+    _, topk, post, force, presorted, mutate = case
+    dets = _case_dets(mutate)
+    ours, keep = _nms_single(torch.from_numpy(dets), 0.45, 0.01, topk, post, force, presorted)
+    ref = _jax_nms(dets, 0.45, 0.01, topk, post, force, presorted)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    # box_nms on a CPU tensor is the plain version
+    np.testing.assert_array_equal(
+        box_nms(torch.from_numpy(dets), 0.45, 0.01, topk, post, force, presorted).numpy(), ref
+    )
+    assert keep.dtype == torch.bool and keep.shape == (3, topk if topk > 0 else 45)
+    if post <= 0:  # every kept row is in the output
+        assert (keep.sum(1).numpy() == (ref[..., 0] >= 0).sum(1)).all()
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_plain_nms_keep_matches_pallas_kernel(force):
+    dets = _case_dets("low_scores", seed=3)
+    dets[:, 1::7, 0] = -1.0
+    ref_keep = np.asarray(
+        nms_scan_pallas(jnp.asarray(dets), force_suppress=force, interpret=True)
+    )
+    packed, keep = nms_greedy_plain(torch.from_numpy(dets), 0.45, 0.01, -1, force)
+    np.testing.assert_array_equal(keep.numpy(), ref_keep > 0)
+    kept_rows = [dets[b][ref_keep[b] > 0] for b in range(dets.shape[0])]
+    for b, rows in enumerate(kept_rows):
+        np.testing.assert_array_equal(packed[b, : len(rows)].numpy(), rows)
+        assert (packed[b, len(rows):].numpy() == -1).all()
+
+
+def test_plain_nms_single_row_and_thresholds():
+    dets = _sorted_candidates(2, 1, 3, 4)
+    packed, keep = nms_greedy_plain(torch.from_numpy(dets), 0.45, 0.01, 100, False)
+    assert packed.shape == (2, 1, 6) and keep.all()
+    np.testing.assert_array_equal(packed.numpy(), dets)
+    # IoU exactly at the threshold does not suppress (strict >): two boxes
+    # of area 2 overlapping in area 1 have IoU 1/3
+    two = np.array([[[0, 0.9, 0, 0, 2, 1], [0, 0.8, 1, 0, 3, 1]]], np.float32)
+    _, keep = nms_greedy_plain(torch.from_numpy(two), float(np.float32(1 / 3)), 0.01, -1, False)
+    ref = _jax_nms(two, float(np.float32(1 / 3)), 0.01, -1, -1, False, True)
+    assert keep.numpy().tolist() == [[True, True]] and (ref[0, :, 0] >= 0).all()
+
+
+def test_kernel_entry_raises_on_cpu_tensor():
+    dets = torch.from_numpy(_sorted_candidates(1, 8, 2, 5))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms_greedy(dets)
+    assert nms_greedy.launches == 0

@@ -1,0 +1,89 @@
+"""The detect step as an object (port of detect_yolo3.py:494-502).
+
+`Detector` builds the model from a `YoloConfig`, takes the JAX package's
+variables (nested numpy dicts) or a seeded random init, and maps an image
+batch to detections: forward, two-stage top-k, greedy NMS (the CUDA kernel
+on the card), boxes clipped to the image.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .data.transforms import MEAN, STD, to_normalized
+from .device import resolve_device
+from .models.factory import YoloConfig, build_model
+from .models.layers import init_weights
+from .models.s2d import pad_stem_cin
+from .models.yolo3 import postprocess
+from .utils.flax_bridge import flax_to_state_dict
+
+NMS_THRESH = 0.45
+NMS_TOPK = 400
+
+
+class Detector:
+    """images (B, S, S, 3), uint8 in [0, 255] or already normalised float
+    -> (ids (B,100,1), scores (B,100,1), boxes (B,100,4) clipped to [0, S]),
+    torch tensors on the detector's device.  Padding rows have id and score
+    -1 and, after the clip, boxes of 0, as in the JAX package.
+
+    `variables`: the JAX package's variables; a standard 3-channel stem is
+    refolded when `cfg.pad_stem`.  None: seeded random weights.
+    `dtype` (when given) replaces `cfg.dtype`.  `device` None means CUDA, and
+    raises where there is none."""
+
+    def __init__(
+        self,
+        cfg: YoloConfig,
+        variables: Optional[Dict] = None,
+        *,
+        dtype: Optional[torch.dtype] = None,
+        data_shape: int = 416,
+        device=None,
+        seed: int = 0,
+    ):
+        self.device = resolve_device(device)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        self.dtype = cfg.dtype or torch.float32
+        self.data_shape = data_shape
+        model = build_model(cfg)
+        if variables is None:
+            init_weights(model, torch.Generator().manual_seed(seed))
+        else:
+            stem = variables["params"]["backbone"]["conv0"]["Conv_0"]["kernel"]
+            if cfg.pad_stem and np.shape(stem)[2] == 3:
+                variables = pad_stem_cin(variables, prefix="backbone")
+            model.load_state_dict(flax_to_state_dict(variables), strict=True)
+        self.model = model.eval().to(self.device, memory_format=torch.channels_last)
+        self._mean = torch.tensor(MEAN, dtype=torch.float32, device=self.device)
+        self._std = torch.tensor(STD, dtype=torch.float32, device=self.device)
+
+    @torch.inference_mode()
+    def __call__(self, images):
+        x = torch.as_tensor(images).to(self.device)
+        s = self.data_shape
+        if x.dim() != 4 or tuple(x.shape[1:]) != (s, s, 3):
+            raise ValueError(f"expected images (B, {s}, {s}, 3), got {tuple(x.shape)}")
+        if x.dtype == torch.uint8:
+            x = to_normalized(x, self._mean, self._std, self.dtype)
+        boxes, scores = self.model(x.to(self.dtype))
+        ids, sc, bb = postprocess(boxes, scores, nms_thresh=NMS_THRESH, nms_topk=NMS_TOPK)
+        return ids, sc, bb.clamp(0, s)
+
+
+def collect_boxes(out_dict, file, ids_i, sc_i, bb_i, shape):
+    """One image's detections (numpy) -> the normalised [[cls, score,
+    x1..y2]] entries of the prediction files (port of
+    detect_yolo3.py:_collect_boxes)."""
+    valid = np.where(ids_i.flat >= 0)[0]
+    box = bb_i[valid, :] / shape  # normalise
+    cls = ids_i.flat[valid].astype(int)
+    score = sc_i.flat[valid]
+    out_dict.setdefault(file, [])
+    for c, s, b in zip(cls, score, box):
+        out_dict[file].append([int(c), float(s)] + [float(v) for v in b])
