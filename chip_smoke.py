@@ -10,12 +10,14 @@ Phases; any failure exits non-zero:
   2. build: the NMS kernel (videoyolo_torch/csrc/nms.cu) with nvcc, sm_90a;
   3. kernel vs plain: the NMS kernel against ops/nms.py:nms_greedy_plain on
      the card, at the main path's shape and on edge cases: keep masks and
-     packed rows must be equal bit for bit;
+     packed rows (with and without the keep mask written) must be equal bit
+     for bit;
   4. slice: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16) at
      416 px with seeded random weights answers requests of B=1, 8 and 128;
      the kernel's launch count must rise by one per request, the outputs
      must be in range, and the B=128 detections must equal the plain NMS's
-     on the same candidates; then the detect step's times;
+     on the same candidates; then the detect step's times, and one request
+     through the entry point `python -m videoyolo_torch.detect`;
   5. reference: the same weights in float32 on the card and on the CPU agree
      on a small input;
   6. profile: the device's busy share and top kernels of the step at B=128
@@ -34,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from videoyolo_torch import detect
 from videoyolo_torch.data.transforms import to_normalized
 from videoyolo_torch.models.factory import YoloConfig
 from videoyolo_torch.models.yolo3 import select_topk_candidates
@@ -101,14 +104,15 @@ def kernel_cases(rs):
     ]
 
 
-def nms_bound(cands: torch.Tensor, m: int, force: bool):
+def nms_bound(cands: torch.Tensor, m: int, force: bool, keep: bool):
     """Least time (ms) an H100 could take for the NMS of these candidates:
-    bytes (each input read once, each output written once) over HBM
-    bandwidth vs the float work these candidates need (areas, and the IoU
-    of every upper-triangle pair that the class test lets through) over the
-    float32 peak.  Returns (ms, "bytes" | "operations")."""
+    bytes (each input read once, each output written once: the packed rows,
+    and the keep mask when `keep`) over HBM bandwidth vs the float work these
+    candidates need (areas, and the IoU of every upper-triangle pair that the
+    class test lets through) over the float32 peak.  Returns (ms, "bytes" |
+    "operations")."""
     b, k, _ = cands.shape
-    nbytes = b * k * 6 * 4 + b * m * 6 * 4 + b * k * 4
+    nbytes = b * k * 6 * 4 + b * m * 6 * 4 + (b * k * 4 if keep else 0)
     ids = cands[..., 0]
     pairs = torch.ones(k, k, dtype=torch.bool, device=cands.device).triu(1)[None]
     if not force:
@@ -158,19 +162,23 @@ def main() -> int:
     for name, dets, post, force in cases:
         d = torch.from_numpy(np.ascontiguousarray(dets)).to(dev)
         packed, keep = nms_greedy(d, NMS_THRESH, VALID_THRESH, post, force)
+        packed_only, no_keep = nms_greedy(d, NMS_THRESH, VALID_THRESH, post, force, return_keep=False)
         ref_packed, ref_keep = nms_greedy_plain(d, NMS_THRESH, VALID_THRESH, post, force)
         torch.cuda.synchronize()
         check(torch.equal(keep.bool(), ref_keep), f"{name}: keep masks differ")
         check(torch.equal(packed, ref_packed), f"{name}: packed rows differ")
+        check(no_keep is None and torch.equal(packed_only, ref_packed),
+              f"{name}: packed rows differ without the keep mask")
         max_err = max(max_err, float((packed - ref_packed).abs().max()))
         print(
             f"nms {name}: B={d.shape[0]} K={d.shape[1]} force={force}: "
             f"{float(keep.sum(1).float().mean()):.1f} kept/image, equal"
         )
+    # timed as the main path calls it (box_nms): no keep mask written
     d = torch.from_numpy(np.ascontiguousarray(cases[0][1])).to(dev)
-    k_ms = median_ms(lambda: nms_greedy(d, NMS_THRESH, VALID_THRESH, POST_NMS), 50)
+    k_ms = median_ms(lambda: nms_greedy(d, NMS_THRESH, VALID_THRESH, POST_NMS, return_keep=False), 50)
     p_ms = median_ms(lambda: nms_greedy_plain(d, NMS_THRESH, VALID_THRESH, POST_NMS), 20)
-    b_ms, b_by = nms_bound(d, POST_NMS, False)
+    b_ms, b_by = nms_bound(d, POST_NMS, False, keep=False)
     print(
         f"nms synthetic B=128 K=400 on {card}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
         f"bound {b_ms:.5f} ms ({b_by})"
@@ -224,9 +232,11 @@ def main() -> int:
     print(f"B=128 request: detections equal the plain NMS's on the same candidates "
           f"({int(ref_keep.sum())} kept of {ref_keep.numel()})")
 
-    k_ms = median_ms(lambda: nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS), 50)
+    k_ms = median_ms(
+        lambda: nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS, return_keep=False), 50
+    )
     p_ms = median_ms(lambda: nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS), 20)
-    b_ms, b_by = nms_bound(cands, POST_NMS, False)
+    b_ms, b_by = nms_bound(cands, POST_NMS, False, keep=False)
     print(
         f"nms model candidates B=128 K={cands.shape[1]} on {card}: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})"
@@ -244,6 +254,20 @@ def main() -> int:
         f"NMS kernel {k_ms:.4f})"
     )
     print(f"detect B=1 at {SIZE} px bf16 on {card}: {t1:.3f} ms/request")
+
+    # the entry point, as a user runs it: one request of 8 images
+    before = nms_greedy.launches
+    preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
+                         "--seed", "1"])
+    check(nms_greedy.launches - before == 1,
+          f"entry point: {nms_greedy.launches - before} NMS kernel launches for 1 request")
+    check(len(preds) == 8, f"entry point: detections for {len(preds)} of 8 images")
+    entries = [e for v in preds.values() for e in v]
+    check(bool(entries) and all(
+        0 <= e[0] < NUM_CLASSES and VALID_THRESH < e[1] <= 1 and all(0 <= v <= 1 for v in e[2:])
+        for e in entries
+    ), "entry point: detections out of range")
+    print(f"entry point: {len(entries)} normalised detections over 8 images, in range")
 
     # 5. reference: float32 on the card vs float32 on the CPU, same weights
     cfg32 = YoloConfig(num_classes=NUM_CLASSES, pad_stem=True)

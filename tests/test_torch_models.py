@@ -322,7 +322,5 @@ def test_factory_surface():
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg)
-    with pytest.raises(ValueError):
-        build_model(YoloConfig(num_classes=2, s2d_stem=True, pad_stem=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m(torch.zeros(1, 32, 32, 3))  # train mode

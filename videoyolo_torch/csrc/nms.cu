@@ -1,8 +1,10 @@
 // Greedy class-aware NMS over score-sorted candidates, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel videoyolo_tpu/ops/pallas_nms.py:nms_scan_pallas
-// (body _nms_kernel) and the front-pack that followed it in
-// videoyolo_tpu/ops/nms.py:_nms_single (argsort of ~keep).  Plain PyTorch
+// Ports the TPU kernel videoyolo_tpu/ops/pallas_nms.py:nms_scan_pallas (body
+// _nms_kernel), to whose keep mask it is bit-equal.  On the JAX package's
+// main path that kernel is off: there the greedy scan runs as XLA's loop in
+// videoyolo_tpu/ops/nms.py:_nms_single, followed by the front-pack (argsort
+// of ~keep); this kernel does the scan and the pack both.  Plain PyTorch
 // version: videoyolo_torch/ops/nms.py:nms_greedy_plain; Python wrapper:
 // videoyolo_torch/ops/nms_kernel.py:nms_greedy.
 //
@@ -15,8 +17,9 @@
 //   out: the kept rows, in order, in the first slots of M rows; -1 rows after.
 //
 // Bound on an H100 (main path B=128, K=400, M=100): the kernel reads
-// 128*400*6*4 B = 1.2 MB and writes 0.3 MB of packed rows (plus the 0.2 MB
-// keep mask), under 1 us at 3.35 TB/s.  The IoU work is at most K(K-1)/2
+// 128*400*6*4 B = 1.2 MB and writes 0.3 MB of packed rows, under 1 us at
+// 3.35 TB/s; the (B, K) keep mask (0.2 MB) is written only when asked for,
+// and the main path does not ask.  The IoU work is at most K(K-1)/2
 // pairs per image, about 10 M pair evaluations in all, and only the
 // same-class ones in the class-aware mode.  Neither is the limit: the greedy
 // scan is a chain of up to K dependent steps per image, so the kernel is
@@ -142,13 +145,13 @@ nms_greedy_kernel(const float* __restrict__ dets, float* __restrict__ out,
   }
   __syncthreads();
 
-  int* kp = keep_out + static_cast<size_t>(blockIdx.x) * K;
+  int* kp = keep_out ? keep_out + static_cast<size_t>(blockIdx.x) * K : nullptr;
   float* o = out + static_cast<size_t>(blockIdx.x) * M * 6;
   for (int j = threadIdx.x; j < K; j += blockDim.x) {
     const uint32_t word = keep_words[j >> 5];
     const int bit = j & 31;
     const int kept = (word >> bit) & 1u;
-    kp[j] = kept;
+    if (kp) kp[j] = kept;
     if (kept) {
       const int slot = word_offset[j >> 5] + __popc(word & ((1u << bit) - 1u));
       if (slot < M) {
@@ -163,8 +166,9 @@ nms_greedy_kernel(const float* __restrict__ dets, float* __restrict__ out,
 
 }  // namespace
 
-// dets (B, K, 6) f32, out (B, M, 6) f32, keep (B, K) i32, all contiguous on
-// the current device.  Returns the CUDA error of the launch (0 on success).
+// dets (B, K, 6) f32, out (B, M, 6) f32, keep (B, K) i32 or null (not
+// written), all contiguous on the current device.  Returns the CUDA error of
+// the launch (0 on success).
 extern "C" int nms_greedy_launch(const void* dets, void* out, void* keep, int B, int K,
                                  int M, float overlap_thresh, float valid_thresh,
                                  int force_suppress, void* stream) {

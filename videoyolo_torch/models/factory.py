@@ -1,14 +1,13 @@
 """Model factory (port of videoyolo_tpu/models/factory.py).
 
-`YoloConfig` keeps every field of the JAX package's, so a config reads the
-same in both.  This slice builds the 2D YOLOv3 / Darknet-53 detector; the
-temporal, motion-stream and 3D branches raise and name the ROADMAP slice
-that brings them.
+This slice builds the 2D YOLOv3 / Darknet-53 detector; the temporal,
+motion-stream and 3D branches raise and name the ROADMAP slice that brings
+them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional
 
 from .yolo3 import YOLOv3
 
@@ -20,52 +19,26 @@ _FAMILIES = "YOLOv3Temporal and the other backbones come with slice 5, see ROADM
 
 @dataclass(frozen=True)
 class YoloConfig:
-    """The JAX package's config surface; `dtype` is a torch dtype (None:
-    float32)."""
+    """The fields of the JAX package's config that this slice builds or
+    raises on; the others come with the slices that read them.  `dtype` is
+    a torch dtype (None: float32)."""
 
     num_classes: int
     k: Optional[int] = None  # temporal window size
-    k_join_type: Optional[str] = None  # max | mean | cat
-    k_join_pos: Optional[str] = None  # early | late
-    block_conv_type: str = "2"  # '2' | '3' | '21'
-    rnn_pos: Optional[str] = None  # late | out
-    corr_pos: Optional[str] = None  # early | late
-    corr_d: Optional[int] = None
     motion_stream: Optional[str] = None  # flownet | r21d
-    add_type: Optional[str] = None  # stream gating: add | mul
     agnostic: bool = False
     new_model: bool = False
-    hierarchical: Sequence[int] = (1, 1, 1, 1, 1)
-    h_join_type: Optional[str] = None  # max | conv
     temporal: bool = False
     t_out: bool = False
-    conv_types: Sequence[int] = (2, 2, 2, 2, 2, 2)
-    funnel_time: bool = False
     remat: bool = False
     s2d_stem: bool = False
     pad_stem: bool = False  # zero-pad the RGB input to 4 channels
     dtype: object = None
 
-    def validate(self):
-        if self.s2d_stem and self.pad_stem:
-            raise ValueError("s2d_stem already reshapes the input to 12 channels; pad_stem does not compose with it")
-        if self.k is not None and self.k > 1:
-            if self.k_join_type not in (None, "max", "mean", "cat"):
-                raise ValueError(f"k_join_type {self.k_join_type!r}")
-            if self.k_join_pos not in (None, "early", "late"):
-                raise ValueError(f"k_join_pos {self.k_join_pos!r}")
-        if self.block_conv_type not in ("2", "3", "21"):
-            raise ValueError(f"block_conv_type {self.block_conv_type!r}")
-        if self.motion_stream == "flownet" and self.k != 3:
-            raise ValueError("flownet stream requires k=3")
-        if self.motion_stream == "r21d" and self.k not in (9, 33):
-            raise ValueError("r21d stream requires k in {9, 33}")
-
 
 def build_model(cfg: YoloConfig) -> YOLOv3:
     """Config -> model instance (in training mode, as torch builds modules:
     call `.eval()` to detect)."""
-    cfg.validate()
     if cfg.motion_stream:
         raise NotImplementedError(f"two-stream backbones: {_FAMILIES}")
     if cfg.temporal or cfg.t_out:

@@ -45,16 +45,12 @@ class ConvBNLeaky(nn.Module):
         features: int,
         kernel: int = 3,
         stride: int = 1,
-        padding: int | str = "auto",
-        quant=False,
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if quant:
-            raise NotImplementedError("int8 cells come with slice 3 (int8 serving), see ROADMAP.md")
-        pad = kernel // 2 if padding == "auto" else padding
         self.Conv_0 = nn.Conv2d(
-            in_channels, features, kernel, stride=stride, padding=pad, bias=False, dtype=dtype
+            in_channels, features, kernel, stride=stride, padding=kernel // 2, bias=False,
+            dtype=dtype,
         )
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 

@@ -128,7 +128,6 @@ class YOLOv3(nn.Module):
         remat=False,
         s2d_stem: bool = False,
         pad_stem: bool = False,
-        quant=False,
         return_levels: bool = False,
         dtype: Optional[torch.dtype] = None,
     ):
@@ -140,7 +139,7 @@ class YOLOv3(nn.Module):
         self.return_levels = return_levels
         self.dtype = dtype or torch.float32
         if use_backbone:
-            self.backbone = Darknet53(s2d_stem=s2d_stem, pad_stem=pad_stem, quant=quant, dtype=dtype)
+            self.backbone = Darknet53(s2d_stem=s2d_stem, pad_stem=pad_stem, dtype=dtype)
             route_channels = DARKNET53_CHANNELS[-3:]
 
         # deep -> shallow (anchors and strides reversed)

@@ -119,5 +119,8 @@ def box_nms(
     in the kernel (after the sort, when there is one); on a CPU tensor in
     the plain version."""
     top = _candidates(dets, valid_thresh, topk, presorted)
-    scan = nms_greedy_plain if top.device.type == "cpu" else nms_greedy
-    return scan(top.contiguous(), overlap_thresh, valid_thresh, post_nms, force_suppress)[0]
+    if top.device.type == "cpu":
+        return nms_greedy_plain(top, overlap_thresh, valid_thresh, post_nms, force_suppress)[0]
+    return nms_greedy(
+        top.contiguous(), overlap_thresh, valid_thresh, post_nms, force_suppress, return_keep=False
+    )[0]

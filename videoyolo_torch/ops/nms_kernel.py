@@ -1,8 +1,9 @@
 """ctypes wrapper of the greedy-NMS CUDA kernel (`csrc/nms.cu`).
 
-The kernel replaces the TPU kernel `videoyolo_tpu/ops/pallas_nms.py:
-nms_scan_pallas` and also does the front-pack that followed it.  Its plain
-PyTorch version is `ops/nms.py:nms_greedy_plain`.
+The kernel ports the TPU kernel `videoyolo_tpu/ops/pallas_nms.py:
+nms_scan_pallas` (bit-equal keep mask) and also does the front-pack that
+follows the greedy scan in the JAX package's `ops/nms.py:_nms_single`.  Its
+plain PyTorch version is `ops/nms.py:nms_greedy_plain`.
 
 The shared library is compiled with nvcc for `sm_90a` on first use, into
 `videoyolo_torch/_build/` (named after a hash of the source and the flags, so
@@ -81,6 +82,7 @@ def nms_greedy(
     valid_thresh: float = 0.01,
     post_nms: int = 100,
     force_suppress: bool = False,
+    return_keep: bool = True,
 ):
     """Greedy NMS on score-sorted candidates, on the card.
 
@@ -88,8 +90,9 @@ def nms_greedy(
     x2, y2) in descending score order, 1 <= K <= 1024.  Returns
     `(packed (B, M, 6) float32, keep (B, K) int32)` with M = min(post_nms, K)
     (K when post_nms <= 0): the kept rows front-packed in score order and
-    padded with -1 rows, and the greedy keep mask.  Launches on the current
-    stream and does not synchronise; `nms_greedy.launches` counts launches."""
+    padded with -1 rows, and the greedy keep mask (None, and not written,
+    when `return_keep` is false).  Launches on the current stream and does
+    not synchronise; `nms_greedy.launches` counts launches."""
     if dets.device.type != "cuda":
         raise ValueError(
             f"nms_greedy runs on CUDA tensors only (got {dets.device}); "
@@ -104,11 +107,11 @@ def nms_greedy(
         raise ValueError(f"nms_greedy takes B >= 1 and 1 <= K <= {MAX_K}, got B={b}, K={k}")
     m = min(post_nms, k) if post_nms > 0 else k
     packed = torch.empty((b, m, 6), dtype=torch.float32, device=dets.device)
-    keep = torch.empty((b, k), dtype=torch.int32, device=dets.device)
+    keep = torch.empty((b, k), dtype=torch.int32, device=dets.device) if return_keep else None
     fn = _library().nms_greedy_launch
     with torch.cuda.device(dets.device):
         err = fn(
-            dets.data_ptr(), packed.data_ptr(), keep.data_ptr(), b, k, m,
+            dets.data_ptr(), packed.data_ptr(), None if keep is None else keep.data_ptr(), b, k, m,
             overlap_thresh, valid_thresh, int(force_suppress),
             torch.cuda.current_stream(dets.device).cuda_stream,
         )
