@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detect path on one NVIDIA card and hold its
+"""Drive the PyTorch port's detect paths on one NVIDIA card and hold its
 kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
@@ -7,21 +7,36 @@ kernels against their plain PyTorch versions.
 Phases; any failure exits non-zero:
   1. device: the card's name and power limit, torch and CUDA versions, the
      TF32 switches (set off, so float32 means float32);
-  2. build: the NMS kernel (videoyolo_torch/csrc/nms.cu) with nvcc, sm_90a;
-  3. kernel vs plain: the NMS kernel against ops/nms.py:nms_greedy_plain on
-     the card, at the main path's shape and on edge cases: keep masks and
-     packed rows (with and without the keep mask written) must be equal bit
-     for bit;
-  4. slice: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16) at
+  2. build: the NMS kernel (videoyolo_torch/csrc/nms.cu) and the cost-volume
+     kernel (videoyolo_torch/csrc/correlation.cu), one nvcc each, started
+     together, for sm_90a;
+  3. kernels vs plain, on the card: the NMS kernel against
+     ops/nms.py:nms_greedy_plain at the main path's shape and on edge cases
+     (keep masks and packed rows, with and without the keep mask written,
+     equal bit for bit); the cost-volume kernel against
+     ops/correlation.py:correlation_plain in float32 at the three levels of
+     slice 2 and on edge cases (allclose rtol=atol=1e-5: the same products,
+     summed over C in another order);
+  4. slice 1: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16) at
      416 px with seeded random weights answers requests of B=1, 8 and 128;
-     the kernel's launch count must rise by one per request, the outputs
+     the NMS kernel's launch count must rise by one per request, the outputs
      must be in range, and the B=128 detections must equal the plain NMS's
      on the same candidates; then the detect step's times, and one request
      through the entry point `python -m videoyolo_torch.detect`;
-  5. reference: the same weights in float32 on the card and on the CPU agree
-     on a small input;
-  6. profile: the device's busy share and top kernels of the step at B=128
-     and at B=1.
+  5. slice 2: Detector(YoloConfig(num_classes=20, k=3, k_join_pos="late",
+     corr_pos="early", corr_d=4), bf16) at 416 px with seeded random weights
+     answers requests of B=1, 8 and 32 windows of 3 frames; the cost-volume
+     kernel must launch 6 times per request and the NMS kernel once, the
+     outputs must be in range, the kernel must match its plain version on
+     the model's own routes (and round to the same bf16 or its neighbour),
+     and the bf16 head on the kernel's routes must agree with the head on
+     the plain version's routes within a stated tolerance; then the step's
+     times, the kernel's time per level against its plain version and its
+     bound, and one request through the entry point with the temporal flags;
+  6. reference: the same weights in float32 on the card and on the CPU agree
+     on a small input, for slice 1 and slice 2;
+  7. profile: the device's busy share and top kernels of slice 1's step at
+     B=128 and B=1, and of slice 2's at B=32.
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -32,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -40,7 +56,9 @@ from videoyolo_torch import detect
 from videoyolo_torch.data.transforms import to_normalized
 from videoyolo_torch.models.factory import YoloConfig
 from videoyolo_torch.models.yolo3 import select_topk_candidates
-from videoyolo_torch.ops import nms_kernel
+from videoyolo_torch.ops import correlation_kernel, nms_kernel
+from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
+from videoyolo_torch.ops.correlation_kernel import cost_volume
 from videoyolo_torch.ops.nms import nms_greedy_plain
 from videoyolo_torch.ops.nms_kernel import nms_greedy
 from videoyolo_torch.profiling import cuda_time_ms
@@ -51,6 +69,21 @@ NUM_CLASSES = 20
 POST_NMS = 100
 VALID_THRESH = 0.01
 REQUEST_BATCHES = (1, 8, 128)
+# slice 2: windows of 3 frames, the correlation on the routes (d=4)
+WINDOW = 3
+SLICE2 = dict(num_classes=NUM_CLASSES, k=WINDOW, k_join_pos="late", corr_pos="early", corr_d=4)
+WINDOW_BATCHES = (1, 8, 32)
+CORR_LAUNCHES = 6  # per request: two cost volumes at each of three levels
+CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # the same products, summed over C in another order
+# slice 2, kernel vs plain correlation under the bf16 model.  The head sees
+# the routes in bf16, where the two differ only where a float32 value lies
+# within its rounding difference of a bf16 rounding step: such a value
+# lands on the neighbouring bf16 (checked exactly).  The random weights'
+# head amplifies each such step (its activations grow through the blocks;
+# raw boxes reach 1e12 px), so many outputs move a little.  Tolerances on
+# the max and the mean abs difference, boxes clipped to the image as the
+# Detector returns them; measured at about 2.5x (max) and 5x (mean) below
+HEAD_TOL = dict(boxes=dict(max=64.0, mean=0.2), scores=dict(max=0.1, mean=1e-3))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -59,6 +92,11 @@ F32_FLOPS = 67e12
 # 2 min, 2 sub, 2 clamp, mul, add, sub, max, div, compare)
 AREA_OPS = 5
 IOU_OPS = 14
+INT8_OPS = 1979e12  # dense int8 tensor-core peak
+# K3, still to port (videoyolo_tpu/ops/pallas_conv.py:116): the int8 3x3/s2
+# downsample cells it takes in the B=128, 416-px int8 detect step (input
+# rows <= 208, videoyolo_tpu/models/layers.py:149-160), as (input H = W, C, F)
+K3_CELLS = ((208, 64, 128), (104, 128, 256), (52, 256, 512), (26, 512, 1024))
 
 
 def fail(msg: str):
@@ -104,6 +142,24 @@ def kernel_cases(rs):
     ]
 
 
+# (name, B, H, W, C, d, stride2): the three levels of slice 2 at B=32, then
+# edge cases; every pair is two frames of a (B, 3, H, W, C) window, taken by
+# their batch stride as the Corr layer passes them
+CORR_CASES = [
+    ("level1_52x52x256", 32, 52, 52, 256, 4, 1),
+    ("level2_26x26x512", 32, 26, 26, 512, 4, 1),
+    ("level3_13x13x1024", 32, 13, 13, 1024, 4, 1),
+    ("d2", 8, 26, 26, 512, 2, 1),
+    ("d4_stride2", 8, 26, 26, 512, 4, 2),
+    ("flownetc_d20_stride2", 4, 64, 64, 32, 20, 2),
+    ("d0", 8, 26, 26, 512, 0, 1),
+    ("B1", 1, 52, 52, 256, 4, 1),
+    ("13x11", 4, 13, 11, 64, 4, 1),
+    ("C1", 4, 20, 20, 1, 4, 1),
+    ("C3", 4, 20, 20, 3, 4, 1),
+]
+
+
 def nms_bound(cands: torch.Tensor, m: int, force: bool, keep: bool):
     """Least time (ms) an H100 could take for the NMS of these candidates:
     bytes (each input read once, each output written once: the packed rows,
@@ -122,41 +178,101 @@ def nms_bound(cands: torch.Tensor, m: int, force: bool, keep: bool):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def corr_times(b, h, w, c, d, stride2):
+    """(bytes time, operations time) in ms of one cost volume on an H100:
+    f1 and f2 read once and the (B, H, W, D) output written once, against a
+    multiply and an add for every product whose f2 pixel lies inside the
+    image (the zero padding needs none) and a divide per output."""
+    steps = d // stride2
+    offsets = [i * stride2 for i in range(-steps, steps + 1)]
+    n_disp = len(offsets) ** 2
+    nbytes = (2 * b * h * w * c + b * h * w * n_disp) * 4
+    inside = sum(max(0, h - abs(dy)) for dy in offsets) * sum(max(0, w - abs(dx)) for dx in offsets)
+    ops = 2 * b * c * inside + b * h * w * n_disp
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def int8_downsample_bound(b=128):
+    """K3's bound per cell, computed from shapes (the kernel is not ported
+    yet): the space-to-depth int8 input (B, H/2, W/2, 4C), the int8 output
+    (B, H/2, W/2, F) and the packed int8 weights (4, 4C, F) each moved once,
+    against the 3x3 conv's 2*9*C*F int8 operations per output pixel (not
+    the packed taps' structural zeros) over the int8 peak.  Returns [(cell,
+    ms, "bytes" | "operations")]."""
+    out = []
+    for h, c, f in K3_CELLS:
+        pix = b * (h // 2) ** 2
+        nbytes = pix * 4 * c + pix * f + 16 * c * f
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * pix * 9 * c * f / INT8_OPS
+        out.append((f"{h}x{h}x{c}->{f}", max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
 def median_ms(fn, iters, warmup=3):
     return statistics.median(cuda_time_ms(fn, iters=iters, warmup=warmup))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
+def plain_corr(corr, x):
+    """The Corr layer (keep='all') with the plain correlation in the
+    kernel's place: the time-folded frames, then each cost volume."""
+    b, t, h, w, c = x.shape
+    x32 = x.float()
+    mid = t // 2
+    vols = [correlation_plain(x32[:, i], x32[:, mid], corr.d, 1, 1, 1) for i in range(t) if i != mid]
+    return torch.cat([x32.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)] + vols, dim=-1)
 
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()} limit)"
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}; "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
-    )
 
-    # 2. build
+def bf16_steps(a, b):
+    """How many bf16 rounding steps apart two float32 tensors round, per
+    element (the bf16 bit patterns read as ordered integers)."""
+    def ordered(x):
+        bits = x.bfloat16().view(torch.int16).int()
+        return torch.where(bits < 0, -32768 - bits, bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_detections(label, outs, batches):
+    """Range checks of a Detector's outputs (ids, scores, boxes per request)."""
+    for (ids, sc, bb), b in zip(outs, batches):
+        check(ids.shape == sc.shape == (b, POST_NMS, 1), f"{label} B={b}: ids/scores {tuple(ids.shape)}")
+        check(bb.shape == (b, POST_NMS, 4), f"{label} B={b}: boxes {tuple(bb.shape)}")
+        check(all(bool(torch.isfinite(t).all()) for t in (ids, sc, bb)), f"{label} B={b}: non-finite output")
+        check(bool(((ids >= -1) & (ids < NUM_CLASSES) & (ids == ids.round())).all()), f"{label} B={b}: ids")
+        kept = ids >= 0
+        check(bool(((sc > VALID_THRESH) & (sc <= 1))[kept].all()), f"{label} B={b}: kept scores")
+        check(bool((sc[~kept] == -1).all()), f"{label} B={b}: padding scores")
+        check(bool(((bb >= 0) & (bb <= SIZE)).all()), f"{label} B={b}: boxes outside [0, {SIZE}]")
+        n = int(kept.sum())
+        check(n > 0, f"{label} B={b}: no detections")
+        print(f"{label} request B={b}: {n} detections ({n / b:.1f} each), outputs in range")
+
+
+def check_entry_point(preds, n):
+    check(len(preds) == n, f"entry point: detections for {len(preds)} of {n} inputs")
+    entries = [e for v in preds.values() for e in v]
+    check(bool(entries) and all(
+        0 <= e[0] < NUM_CLASSES and VALID_THRESH < e[1] <= 1 and all(0 <= v <= 1 for v in e[2:])
+        for e in entries
+    ), "entry point: detections out of range")
+    return entries
+
+
+def build_kernels():
+    """Both kernels, one nvcc each, started together."""
     t0 = time.perf_counter()
-    lib, ptxas = nms_kernel.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(lambda k: k.build(), (nms_kernel, correlation_kernel)))
+    print(f"built {', '.join(lib.name for lib, _ in builds)} in {time.perf_counter() - t0:.1f} s")
+    for lib, ptxas in builds:
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+                print(f"  ptxas {lib.name.split('_')[0]}: {line.strip()}")
 
-    # 3. the kernel against its plain version
-    rs = np.random.RandomState(0)
+
+def check_nms_kernel(rs, dev, card):
+    """Phase 3, NMS: bit for bit against the plain version.  Returns (max
+    abs error, cases)."""
     max_err = 0.0
     cases = kernel_cases(rs)
     for name, dets, post, force in cases:
@@ -183,8 +299,32 @@ def main() -> int:
         f"nms synthetic B=128 K=400 on {card}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
         f"bound {b_ms:.5f} ms ({b_by})"
     )
+    return max_err, len(cases)
 
-    # 4. the slice: the port's detect path at 416 px, bf16
+
+def check_corr_kernel(dev):
+    """Phase 3, cost volume: allclose to the plain version in float32 on
+    every case of CORR_CASES.  Returns the max abs error."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    for name, b, h, w, c, d, s2 in CORR_CASES:
+        window = torch.randn(b, WINDOW, h, w, c, generator=gen, device=dev)
+        f1, f2 = window[:, 0], window[:, 1]
+        out = cost_volume(f1, f2, d, s2)
+        ref = correlation_plain(f1, f2, d, 1, 1, s2)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(out.shape == ref.shape == (b, h, w, num_corr_channels(d, s2)),
+              f"cost volume {name}: shape {tuple(out.shape)}")
+        check(bool(torch.allclose(out, ref, **CORR_TOL)), f"cost volume {name}: max abs error {err}")
+        max_err = max(max_err, err)
+        print(f"cost volume {name}: B={b} {h}x{w}x{c} d={d} stride2={s2}: max abs error {err:.3g}, allclose")
+    return max_err
+
+
+def serve_slice1(rs, dev, card, nms_ms):
+    """Phase 4.  Returns (detector, B=128 batch, B=1 batch, NMS launches,
+    NMS kernel and plain ms on the model's candidates, max abs error)."""
     t0 = time.perf_counter()
     det = Detector(
         YoloConfig(num_classes=NUM_CLASSES, pad_stem=True), dtype=torch.bfloat16,
@@ -197,19 +337,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = nms_greedy.launches
     check(launches == len(requests), f"NMS kernel launches {launches}, requests {len(requests)}")
-    for (ids, sc, bb), x in zip(outs, requests):
-        b = x.shape[0]
-        check(ids.shape == sc.shape == (b, POST_NMS, 1), f"B={b}: ids/scores {tuple(ids.shape)}")
-        check(bb.shape == (b, POST_NMS, 4), f"B={b}: boxes {tuple(bb.shape)}")
-        check(all(bool(torch.isfinite(t).all()) for t in (ids, sc, bb)), f"B={b}: non-finite output")
-        check(bool(((ids >= -1) & (ids < NUM_CLASSES) & (ids == ids.round())).all()), f"B={b}: ids")
-        kept = ids >= 0
-        check(bool(((sc > VALID_THRESH) & (sc <= 1))[kept].all()), f"B={b}: kept scores")
-        check(bool((sc[~kept] == -1).all()), f"B={b}: padding scores")
-        check(bool(((bb >= 0) & (bb <= SIZE)).all()), f"B={b}: boxes outside [0, {SIZE}]")
-        n = int(kept.sum())
-        check(n > 0, f"B={b}: no detections")
-        print(f"request B={b}: {n} detections ({n / b:.1f}/image), outputs in range")
+    check_detections("slice 1", outs, REQUEST_BATCHES)
     print(f"NMS kernel launches over {len(requests)} requests: {launches}")
 
     # the B=128 request again, step by step: plain NMS on the same candidates
@@ -228,7 +356,7 @@ def main() -> int:
         and torch.equal(bb, ref_packed[..., 2:6].clamp(0, SIZE)),
         "B=128 request: detections differ from the plain NMS on the same candidates",
     )
-    max_err = max(max_err, float((packed - ref_packed).abs().max()))
+    max_err = float((packed - ref_packed).abs().max())
     print(f"B=128 request: detections equal the plain NMS's on the same candidates "
           f"({int(ref_keep.sum())} kept of {ref_keep.numel()})")
 
@@ -241,6 +369,7 @@ def main() -> int:
         f"nms model candidates B=128 K={cands.shape[1]} on {card}: kernel {k_ms:.4f} ms, "
         f"plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})"
     )
+    nms_ms.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
     x1 = torch.from_numpy(requests[0]).to(dev)
     with torch.inference_mode():
@@ -261,36 +390,145 @@ def main() -> int:
                          "--seed", "1"])
     check(nms_greedy.launches - before == 1,
           f"entry point: {nms_greedy.launches - before} NMS kernel launches for 1 request")
-    check(len(preds) == 8, f"entry point: detections for {len(preds)} of 8 images")
-    entries = [e for v in preds.values() for e in v]
-    check(bool(entries) and all(
-        0 <= e[0] < NUM_CLASSES and VALID_THRESH < e[1] <= 1 and all(0 <= v <= 1 for v in e[2:])
-        for e in entries
-    ), "entry point: detections out of range")
+    entries = check_entry_point(preds, 8)
     print(f"entry point: {len(entries)} normalised detections over 8 images, in range")
+    return det, x128, x1, launches, max_err
 
-    # 5. reference: float32 on the card vs float32 on the CPU, same weights
-    cfg32 = YoloConfig(num_classes=NUM_CLASSES, pad_stem=True)
-    small = torch.from_numpy(rs.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8))
-    raw = []
-    for device in ("cuda", "cpu"):
-        d32 = Detector(cfg32, data_shape=128, device=device, seed=0)
+
+def serve_slice2(rs, dev, card):
+    """Phase 5.  Returns (detector, B=32 windows, cost-volume and NMS
+    launches over the requests, the cost volume's figures, max abs error)."""
+    t0 = time.perf_counter()
+    det = Detector(YoloConfig(**SLICE2), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0)
+    print(f"slice 2 Detector built on {det.device} in {time.perf_counter() - t0:.1f} s")
+    requests = [
+        rs.randint(0, 256, (b, WINDOW, SIZE, SIZE, 3)).astype(np.uint8) for b in WINDOW_BATCHES
+    ]
+    cost_volume.launches = 0
+    nms_greedy.launches = 0
+    outs = [det(x) for x in requests]
+    torch.cuda.synchronize()
+    corr_launches, nms_launches = cost_volume.launches, nms_greedy.launches
+    check(corr_launches == CORR_LAUNCHES * len(requests),
+          f"slice 2: cost-volume kernel launches {corr_launches} over {len(requests)} requests")
+    check(nms_launches == len(requests),
+          f"slice 2: NMS kernel launches {nms_launches} over {len(requests)} requests")
+    check_detections("slice 2", outs, WINDOW_BATCHES)
+    print(f"slice 2 kernel launches over {len(requests)} requests: cost volume {corr_launches}, "
+          f"NMS {nms_launches}")
+
+    # the B=32 request again, step by step: the kernel's routes against the
+    # plain version's, and the head on each
+    m = det.model
+    x32 = torch.from_numpy(requests[-1]).to(dev)
+    max_err = 0.0
+    with torch.inference_mode():
+        xn = to_normalized(x32, dtype=det.dtype)
+        frames = m.frame_routes(xn)
+        k_routes = [m.corr(r) for r in frames]
+        p_routes = [plain_corr(m.corr, r) for r in frames]
+        for level, (kr, pr) in enumerate(zip(k_routes, p_routes)):
+            err = float((kr - pr).abs().max())
+            check(bool(torch.allclose(kr, pr, **CORR_TOL)),
+                  f"slice 2 level {level} routes: kernel vs plain max abs error {err}")
+            max_err = max(max_err, err)
+            print(f"slice 2 B=32 level {level} route {tuple(kr.shape)} float32: kernel vs plain "
+                  f"max abs error {err:.3g}, allclose")
+        steps = [bf16_steps(kr, pr) for kr, pr in zip(k_routes, p_routes)]
+        flips = [int((st > 0).sum()) for st in steps]
+        check(all(int(st.max()) <= 1 for st in steps),
+              "slice 2 B=32 routes: a kernel value rounds more than one bf16 step from the plain one")
+        print(f"slice 2 B=32 routes in bf16: {sum(flips)} of {sum(r.numel() for r in k_routes)} values "
+              f"round to the neighbouring bf16 with the kernel (per level {flips}), the rest to the same")
+        heads = [m.head(k_routes), m.head(p_routes)]
+    for i, name in enumerate(("boxes", "scores")):
+        kern, plain = (h[i].clamp(0, SIZE) if name == "boxes" else h[i] for h in heads)
+        err = (kern - plain).abs()
+        e_max, e_mean, tol = float(err.max()), float(err.mean()), HEAD_TOL[name]
+        print(f"slice 2 B=32 {name} {tuple(kern.shape)}, kernel vs plain routes: max abs {e_max:.3g} "
+              f"(tol {tol['max']}), mean abs {e_mean:.3g} (tol {tol['mean']}), "
+              f"{float((err == 0).float().mean()):.4f} equal")
+        check(e_max <= tol["max"] and e_mean <= tol["mean"],
+              f"slice 2 B=32 {name}: kernel vs plain routes, max {e_max}, mean {e_mean}")
+
+    # times: the step, the forward, and the kernel per level on the model's routes
+    x1 = torch.from_numpy(requests[0]).to(dev)
+    with torch.inference_mode():
+        t_fwd = median_ms(lambda: m(xn), 10)
+    t32 = median_ms(lambda: det(x32), 10)
+    t1 = median_ms(lambda: det(x1), 30, warmup=5)
+    levels = []
+    for r in frames:
+        b, _, h, w, c = r.shape
         with torch.inference_mode():
-            raw.append([t.cpu() for t in d32.model(to_normalized(small.to(device)))])
-    for name, a, r in zip(("boxes", "scores"), raw[0], raw[1]):
-        err = float((a - r).abs().max())
-        check(bool(torch.allclose(a, r, rtol=1e-3, atol=1e-3)),
-              f"float32 {name} on the card vs the CPU: max error {err}")
-        print(f"reference: float32 {name} card vs CPU at 128 px: max abs error {err:.3g} "
-              "(allclose rtol=atol=1e-3: other conv algorithms, other summation orders)")
+            f = r.float()  # the frames as the Corr layer hands them over
+            f1, f2 = f[:, 0], f[:, 1]
+            k_ms = median_ms(lambda: cost_volume(f1, f2, SLICE2["corr_d"], 1), 50)
+            p_ms = median_ms(lambda: correlation_plain(f1, f2, SLICE2["corr_d"], 1, 1, 1), 10)
+        t_bytes, t_ops = corr_times(b, h, w, c, SLICE2["corr_d"], 1)
+        levels.append(dict(shape=[b, h, w, c], ms=k_ms, plain_ms=p_ms, bytes_ms=t_bytes, ops_ms=t_ops))
+        print(
+            f"cost volume B={b} {h}x{w}x{c} d={SLICE2['corr_d']} on {card}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
+            f"operations {t_ops:.4f})"
+        )
+    per_request = 2  # two cost volumes per level and request
+    figures = dict(
+        ms=per_request * sum(lv["ms"] for lv in levels),
+        plain_ms=per_request * sum(lv["plain_ms"] for lv in levels),
+        bound_ms=per_request * sum(max(lv["bytes_ms"], lv["ops_ms"]) for lv in levels),
+        bound_by=("bytes" if sum(lv["bytes_ms"] for lv in levels) >= sum(lv["ops_ms"] for lv in levels)
+                  else "operations"),
+        levels=levels,
+    )
+    print(
+        f"slice 2 B=32 windows of {WINDOW} at {SIZE} px bf16 on {card}: {32 / t32 * 1e3:.1f} windows/s, "
+        f"{32 * WINDOW / t32 * 1e3:.1f} frames/s ({t32:.3f} ms/request: forward {t_fwd:.3f}, "
+        f"cost volume {figures['ms']:.4f} over {CORR_LAUNCHES} launches)"
+    )
+    print(f"slice 2 B=1 window at {SIZE} px bf16 on {card}: {t1:.3f} ms/request")
 
-    # 6. profile of the detect step: device busy share, launches, top kernels
+    # the entry point, as a user runs it: one request of 8 windows
+    before = cost_volume.launches, nms_greedy.launches
+    preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
+                         "--seed", "1", "--window", str(WINDOW), "--k_join_pos", "late",
+                         "--corr_pos", "early", "--corr_d", str(SLICE2["corr_d"])])
+    made = cost_volume.launches - before[0], nms_greedy.launches - before[1]
+    check(made == (CORR_LAUNCHES, 1), f"slice 2 entry point: launches (cost volume, NMS) {made}")
+    entries = check_entry_point(preds, 8)
+    print(f"slice 2 entry point: {len(entries)} normalised detections over 8 windows, in range, "
+          f"{made[0]} cost-volume and {made[1]} NMS launches")
+    return det, x32, corr_launches, nms_launches, figures, max_err
+
+
+def check_reference(rs):
+    """Phase 6: float32 on the card vs on the CPU, same weights."""
+    for label, cfg, shape in (
+        ("slice 1", YoloConfig(num_classes=NUM_CLASSES, pad_stem=True), (2, 128, 128, 3)),
+        ("slice 2", YoloConfig(**SLICE2), (1, WINDOW, 128, 128, 3)),
+    ):
+        small = torch.from_numpy(rs.randint(0, 256, shape).astype(np.uint8))
+        raw = []
+        for device in ("cuda", "cpu"):
+            d32 = Detector(cfg, data_shape=128, device=device, seed=0)
+            with torch.inference_mode():
+                raw.append([t.cpu() for t in d32.model(to_normalized(small.to(device)))])
+        for name, a, r in zip(("boxes", "scores"), raw[0], raw[1]):
+            err = float((a - r).abs().max())
+            check(bool(torch.allclose(a, r, rtol=1e-3, atol=1e-3)),
+                  f"{label} float32 {name} on the card vs the CPU: max error {err}")
+            print(f"reference {label}: float32 {name} card vs CPU at 128 px: max abs error {err:.3g} "
+                  "(allclose rtol=atol=1e-3: other conv algorithms, other summation orders)")
+
+
+def profile_steps(steps, card):
+    """Phase 7: device busy share, launches and top kernels of each step."""
     from torch.profiler import ProfilerActivity, profile
 
-    for label, x, steps, top in (("B=128", x128, 3, 8), ("B=1", x1, 20, 4)):
+    for label, det, x, n, top in steps:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(n):
                 det(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -300,29 +538,96 @@ def main() -> int:
             print(f"profile {label}: the profiler recorded no device time; busy share not measured")
             continue
         print(
-            f"profile {label} x{steps} on {card} (profiler on): wall {wall_ms / steps:.3f} ms/step, "
-            f"device busy {busy_ms / steps:.3f} ms/step, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
-            f"{sum(e.count for e in events) // steps} device ops/step"
+            f"profile {label} x{n} on {card} (profiler on): wall {wall_ms / n:.3f} ms/step, "
+            f"device busy {busy_ms / n:.3f} ms/step, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, "
+            f"{sum(e.count for e in events) // n} device ops/step"
         )
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-            print(f"  {e.self_device_time_total / 1e3 / steps:9.3f} ms/step  "
-                  f"{e.count // steps:4d}x  {e.key[:90]}")
+            print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step  "
+                  f"{e.count // n:4d}x  {e.key[:90]}")
 
-    kernels = [{
-        "name": "nms_greedy",
-        "route": "cuda",
-        "source": "videoyolo_torch/csrc/nms.cu",
-        "replaces": "videoyolo_tpu/ops/pallas_nms.py:99",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-        "match": True,
-        "cases": len(cases) + 1,
-    }]
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()} limit)"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}; "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    )
+
+    # 2. build
+    build_kernels()
+    k3 = int8_downsample_bound()
+    print("K3 (int8 downsample, still to port) bound at B=128, computed from shapes, not measured: "
+          + ", ".join(f"{cell} {ms:.4f} ms ({by})" for cell, ms, by in k3)
+          + f"; {sum(ms for _, ms, _ in k3):.4f} ms per step")
+
+    # 3. the kernels against their plain versions
+    rs = np.random.RandomState(0)
+    nms_err, nms_cases = check_nms_kernel(rs, dev, card)
+    corr_err = check_corr_kernel(dev)
+
+    # 4. slice 1: the detect path at 416 px, bf16
+    nms_ms = {}
+    det1, x128, x1, nms_launches, err = serve_slice1(rs, dev, card, nms_ms)
+    nms_err = max(nms_err, err)
+
+    # 5. slice 2: YOLOv3T windows with early correlation at 416 px, bf16
+    det2, x32, corr_launches, nms_launches2, corr, err = serve_slice2(rs, dev, card)
+    corr_err = max(corr_err, err)
+
+    # 6. reference
+    check_reference(rs)
+
+    # 7. profile
+    profile_steps([("slice 1 B=128", det1, x128, 3, 8), ("slice 1 B=1", det1, x1, 20, 4),
+                   ("slice 2 B=32", det2, x32, 3, 10)], card)
+
+    kernels = [
+        {
+            "name": "nms_greedy",
+            "route": "cuda",
+            "source": "videoyolo_torch/csrc/nms.cu",
+            "replaces": "videoyolo_tpu/ops/pallas_nms.py:99",
+            "launches": nms_launches,
+            "max_abs_err": nms_err,
+            **nms_ms,
+            "library_ms": None,
+            "match": True,
+            "cases": nms_cases + 1,
+            "launches_slice2": nms_launches2,
+        },
+        {
+            "name": "cost_volume",
+            "route": "cuda",
+            "source": "videoyolo_torch/csrc/correlation.cu",
+            "replaces": "videoyolo_tpu/ops/pallas_correlation.py:63",
+            "launches": corr_launches,
+            "max_abs_err": corr_err,
+            "ms": corr["ms"],
+            "plain_ms": corr["plain_ms"],
+            "bound_ms": corr["bound_ms"],
+            "bound_by": corr["bound_by"],
+            "library_ms": None,
+            "match": True,
+            "cases": len(CORR_CASES) + 3,
+            "per": f"one B=32 request: {CORR_LAUNCHES} launches",
+            "levels": corr["levels"],
+        },
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -313,7 +313,7 @@ def test_factory_surface():
     head = yolo3_no_backbone(["a", "b"])
     assert not head.use_backbone and head.output2.num_classes == 2
     for cfg in (
-        YoloConfig(num_classes=2, k=3),
+        YoloConfig(num_classes=2, k=3, rnn_pos="out"),
         YoloConfig(num_classes=2, temporal=True),
         YoloConfig(num_classes=2, new_model=True),
         YoloConfig(num_classes=2, k=3, motion_stream="flownet"),

@@ -1,7 +1,9 @@
 """The port's ops against the JAX package's, on the CPU: anchors, box math,
 input normalisation and the plain greedy NMS (against the XLA scan and the
-Pallas kernel in interpret mode).  Inputs are made with numpy from a seed
-and handed to both."""
+Pallas kernel in interpret mode); the kernel wrappers' CPU guards and the
+cost-volume kernel's work plan.  Inputs are made with numpy from a seed and
+handed to both.  The correlation op is held against JAX in
+tests/test_torch_temporal.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,8 @@ from videoyolo_tpu.ops import bbox as jax_bbox
 from videoyolo_tpu.ops.nms import _nms_single as jax_nms_single
 from videoyolo_tpu.ops.pallas_nms import nms_scan_pallas
 from videoyolo_torch.data.transforms import to_normalized
-from videoyolo_torch.ops import anchors, bbox
+from videoyolo_torch.ops import anchors, bbox, correlation_kernel
+from videoyolo_torch.ops.correlation_kernel import cost_volume
 from videoyolo_torch.ops.nms import _nms_single, box_nms, nms_greedy_plain
 from videoyolo_torch.ops.nms_kernel import nms_greedy
 
@@ -156,3 +159,29 @@ def test_kernel_entry_raises_on_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         nms_greedy(dets)
     assert nms_greedy.launches == 0
+    f = torch.zeros(2, 5, 6, 4)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cost_volume(f, f, 2)
+    assert cost_volume.launches == 0
+
+
+@pytest.mark.parametrize("c", [1, 3, 32, 256, 1024])
+@pytest.mark.parametrize("d,stride2", [(0, 1), (1, 1), (2, 1), (4, 1), (4, 2), (20, 2), (20, 1),
+                                       (40, 1), (7, 3), (500, 250)])
+def test_cost_volume_plan(c, d, stride2):
+    """The cost-volume kernel's work plan: each CTA's displacements are one
+    run of output channels, fit its accumulators, and its staged chunk fits
+    the shared memory the kernel asks for (the kernel refuses a plan that
+    does not, so the plan is held here, where no card is)."""
+    k = correlation_kernel
+    steps = 2 * (d // stride2) + 1
+    gx, gy, chunk, nacc = k.plan(c, d, stride2)
+    assert 1 <= gx <= steps and 1 <= gy <= steps and (gx == steps or gy == 1)
+    assert gx * gy <= nacc and nacc in k.ACCUMULATORS
+    assert 1 <= chunk <= c and (chunk >= min(c, k.MIN_CHUNK) or gx * gy == 1)
+    halo = (k.TILE_H + (gy - 1) * stride2) * (k.TILE_W + (gx - 1) * stride2) | 1
+    staged = chunk * (k.THREADS + 1 + halo) * 4
+    results = k.THREADS * (gx * gy | 1) * 4
+    assert max(staged, results) <= k.SMEM_BYTES
+    if (c, d, stride2) == (256, 4, 1):  # the main path: 3 groups of 3 dy rows
+        assert (gx, gy, nacc) == (9, 3, 27)

@@ -161,11 +161,12 @@ def test_no_cpu_drift_without_cuda():
 
 def test_import_leaves_jax_out():
     """Importing every module of the port, its entry point and the kernel
-    wrapper (with no nvcc on PATH) loads no jax, flax or videoyolo_tpu.  A
+    wrappers (with no nvcc on PATH) loads no jax, flax or videoyolo_tpu.  A
     subprocess: this test process imported jax already."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import videoyolo_torch, videoyolo_torch.detect, videoyolo_torch.ops.nms_kernel\n"
+        "import videoyolo_torch.ops.correlation_kernel\n"
         "for m in pkgutil.walk_packages(videoyolo_torch.__path__, 'videoyolo_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'videoyolo_tpu')]\n"

@@ -2,12 +2,18 @@
 
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 \
         --num_requests 3 --seed 0 [--device cpu] [--dtype bf16|f32] [--out preds.json]
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
+        --window 3,1 --k_join_pos late --corr_pos early --corr_d 4   # YOLOv3T windows
 
 The model takes seeded random weights.  Each request is a batch of uint8
-images drawn from the seed; the command prints one summary line per request
-and, with --out, writes the detections as {image name: [[cls, score, x1, y1,
-x2, y2], ...]} with normalised boxes.  Reading an image directory is deferred
-(see ROADMAP.md).
+images drawn from the seed or, with `--window k[,stride]` and k > 1, a batch
+of k-frame windows: window i takes every stride-th frame from frame i of a
+seeded synthetic clip, so neighbouring windows share frames as they do in a
+video.  The temporal flags are those of detect_yolo3.py (`--corr_d` counts
+only with `--corr_pos`).  The command prints one summary line per request
+and, with --out, writes the detections as {image or window name: [[cls,
+score, x1, y1, x2, y2], ...]} with normalised boxes.  Reading an image
+directory is deferred (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,31 +40,55 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None, help="default: cuda (raises without a GPU)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--out", default=None, help="write the detections as JSON")
+    p.add_argument("--window", default="1,1", help="temporal window size of frames and stride")
+    p.add_argument("--k_join_type", default=None, help="way to fuse k: max, mean or cat")
+    p.add_argument("--k_join_pos", default=None, help="position of the k fuse: early or late")
+    p.add_argument("--corr_pos", default=None, help="position of the correlation: early or late")
+    p.add_argument("--corr_d", type=int, default=4, help="the d of the correlation")
     return p.parse_args(argv)
+
+
+def _requests(rs, num, b, s, k, stride):
+    """Each request's uint8 batch: (B, S, S, 3) images, or (B, k, S, S, 3)
+    windows over a synthetic clip when k > 1."""
+    for _ in range(num):
+        if k == 1:
+            yield rs.randint(0, 256, (b, s, s, 3)).astype(np.uint8)
+            continue
+        span = (k - 1) * stride + 1
+        clip = rs.randint(0, 256, (b + span - 1, s, s, 3)).astype(np.uint8)
+        yield np.stack([clip[i : i + span : stride] for i in range(b)])
 
 
 def main(argv=None):
     args = parse_args(argv)
+    k, stride = ([int(w) for w in args.window.split(",")] + [1])[:2]
+    temporal = k > 1
+    cfg = YoloConfig(
+        num_classes=NUM_CLASSES, pad_stem=True,
+        k=k if temporal else None,
+        k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
+        corr_d=args.corr_d if args.corr_pos else None,
+    )
     det = Detector(
-        YoloConfig(num_classes=NUM_CLASSES, pad_stem=True),
-        dtype=DTYPES[args.dtype], data_shape=args.data_shape,
+        cfg, dtype=DTYPES[args.dtype], data_shape=args.data_shape,
         device=args.device, seed=args.seed,
     )
     rs = np.random.RandomState(args.seed)
     s = args.data_shape
+    name = "window" if temporal else "image"
     preds = {}
-    for r in range(args.num_requests):
-        images = rs.randint(0, 256, (args.batch_size, s, s, 3)).astype(np.uint8)
+    for r, batch in enumerate(_requests(rs, args.num_requests, args.batch_size, s, k, stride)):
         t0 = time.perf_counter()
-        ids, sc, bb = (a.cpu().numpy() for a in det(images))
+        ids, sc, bb = (a.cpu().numpy() for a in det(batch))
         ms = (time.perf_counter() - t0) * 1e3
         n_det = int((ids >= 0).sum())
         print(
             f"request {r}: batch {args.batch_size} at {s} px on {det.device}: "
-            f"{n_det} detections ({n_det / args.batch_size:.1f}/image), {ms:.1f} ms"
+            f"{n_det} detections ({n_det / args.batch_size:.1f}/{name}), {ms:.1f} ms"
         )
         for i in range(args.batch_size):
-            collect_boxes(preds, f"request{r}/image{i:04d}", ids[i], sc[i], bb[i], s)
+            collect_boxes(preds, f"request{r}/{name}{i:04d}", ids[i], sc[i], bb[i], s)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(preds, f)

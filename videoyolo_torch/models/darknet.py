@@ -1,4 +1,4 @@
-"""DarkNet-53 backbone (port of videoyolo_tpu/models/darknet.py:80-194).
+"""DarkNet-53 backbone (port of videoyolo_tpu/models/darknet.py:80-211).
 
 Organised, as in the JAX package, into stages that return the
 stride-8/16/32 FPN routes directly.
@@ -72,7 +72,7 @@ class Darknet53(nn.Module):
     ):
         super().__init__()
         if remat_stages:
-            raise NotImplementedError(f"rematerialisation is training work (slice 2), {_ROADMAP}")
+            raise NotImplementedError(f"rematerialisation is training work (slice 4), {_ROADMAP}")
         if s2d_stem:
             raise NotImplementedError(f"the space-to-depth stem is deferred, {_ROADMAP}")
         if quant:
@@ -94,3 +94,22 @@ class Darknet53(nn.Module):
             if i >= 2:  # the last three stages are the FPN routes
                 routes.append(x.permute(0, 2, 3, 1))
         return tuple(routes)
+
+
+class Darknet53Stage1(nn.Module):
+    """The first FPN slice on its own (darknet.py:197-211), as the temporal
+    models route the stages separately: conv0 (3-channel stem) and the
+    64/128/256-channel groups.  Input (B, H, W, 3) NHWC -> (B, H/8, W/8, 256)
+    NHWC."""
+
+    def __init__(self, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dtype = dtype or torch.float32
+        self.conv0 = ConvBNLeaky(3, 32, kernel=3, dtype=dtype)
+        self.stage1 = DarknetStage(32, 64, 1, dtype=dtype)
+        self.stage2 = DarknetStage(64, 128, 2, dtype=dtype)
+        self.stage3 = DarknetStage(128, 256, 8, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
+        return self.stage3(self.stage2(self.stage1(x))).permute(0, 2, 3, 1)

@@ -1,8 +1,9 @@
-"""Model factory (port of videoyolo_tpu/models/factory.py).
+"""Model factory (port of videoyolo_tpu/models/factory.py:25-154).
 
-This slice builds the 2D YOLOv3 / Darknet-53 detector; the temporal,
-motion-stream and 3D branches raise and name the ROADMAP slice that brings
-them.
+It builds the 2D YOLOv3 / Darknet-53 detector and, for k > 1, the YOLOv3T
+window model with the JAX factory's defaults (k_join_type "max", k_join_pos
+"early"; pad_stem is ignored there, as in JAX).  The motion-stream, 3D and
+YOLOv3Temporal branches raise and name the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -10,10 +11,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .yolo3 import YOLOv3
+from .yolo3_temporal import YOLOv3T
 
 __all__ = ["YoloConfig", "build_model", "yolo3_darknet53", "yolo3_no_backbone"]
 
-_TEMPORAL = "temporal windows, correlation and streaming come with slice 4, see ROADMAP.md"
 _FAMILIES = "YOLOv3Temporal and the other backbones come with slice 5, see ROADMAP.md"
 
 
@@ -25,6 +26,12 @@ class YoloConfig:
 
     num_classes: int
     k: Optional[int] = None  # temporal window size
+    k_join_type: Optional[str] = None  # max | mean | cat
+    k_join_pos: Optional[str] = None  # early | late
+    block_conv_type: str = "2"  # '2' | '3' | '21'
+    rnn_pos: Optional[str] = None  # late | out
+    corr_pos: Optional[str] = None  # early | late
+    corr_d: Optional[int] = None
     motion_stream: Optional[str] = None  # flownet | r21d
     agnostic: bool = False
     new_model: bool = False
@@ -36,7 +43,7 @@ class YoloConfig:
     dtype: object = None
 
 
-def build_model(cfg: YoloConfig) -> YOLOv3:
+def build_model(cfg: YoloConfig):
     """Config -> model instance (in training mode, as torch builds modules:
     call `.eval()` to detect)."""
     if cfg.motion_stream:
@@ -46,7 +53,18 @@ def build_model(cfg: YoloConfig) -> YOLOv3:
     if cfg.new_model:
         raise NotImplementedError(f"3D and hierarchical darknets: {_FAMILIES}")
     if cfg.k is not None and cfg.k > 1:
-        raise NotImplementedError(f"YOLOv3T windows: {_TEMPORAL}")
+        return YOLOv3T(
+            num_classes=cfg.num_classes,
+            k=cfg.k,
+            k_join_type=cfg.k_join_type or "max",
+            k_join_pos=cfg.k_join_pos or "early",
+            block_conv_type=cfg.block_conv_type,
+            rnn_pos=cfg.rnn_pos,
+            corr_pos=cfg.corr_pos,
+            corr_d=cfg.corr_d,
+            agnostic=cfg.agnostic,
+            dtype=cfg.dtype,
+        )
     return YOLOv3(
         num_classes=cfg.num_classes, agnostic=cfg.agnostic, remat=cfg.remat,
         s2d_stem=cfg.s2d_stem, pad_stem=cfg.pad_stem, dtype=cfg.dtype,

@@ -133,7 +133,7 @@ class YOLOv3(nn.Module):
     ):
         super().__init__()
         if remat:
-            raise NotImplementedError("rematerialisation is training work (slice 2), see ROADMAP.md")
+            raise NotImplementedError("rematerialisation is training work (slice 4), see ROADMAP.md")
         self.agnostic = agnostic
         self.use_backbone = use_backbone
         self.return_levels = return_levels
@@ -166,7 +166,7 @@ class YOLOv3(nn.Module):
     def forward(self, x):
         if self.training:
             raise NotImplementedError(
-                "the train-mode forward comes with slice 2 (training), see ROADMAP.md; call .eval()"
+                "the train-mode forward comes with slice 4 (training), see ROADMAP.md; call .eval()"
             )
         routes = self.backbone(x) if self.use_backbone else tuple(x)
         if len(routes) != 3:

@@ -5,61 +5,29 @@ nms_scan_pallas` (bit-equal keep mask) and also does the front-pack that
 follows the greedy scan in the JAX package's `ops/nms.py:_nms_single`.  Its
 plain PyTorch version is `ops/nms.py:nms_greedy_plain`.
 
-The shared library is compiled with nvcc for `sm_90a` on first use, into
-`videoyolo_torch/_build/` (named after a hash of the source and the flags, so
-an edited source builds anew), and bound with ctypes.  Importing this module
-needs neither nvcc nor a GPU.
+The shared library is built by `ops/cuda_build.py` on first use and bound
+with ctypes.  Importing this module needs neither nvcc nor a GPU.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "nms.cu"
-BUILD_DIR = _PKG / "_build"
+from . import cuda_build
+
+SOURCE = cuda_build.PKG / "csrc" / "nms.cu"
 # -fmad=false: no FMA contraction, so every IoU rounds as the plain version's
 # separate multiply / add / divide do, and `iou > thresh` flips no bit
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+NVCC_FLAGS = ("-fmad=false",)
 MAX_K = 1024  # one warp holds the keep mask: 32 words of 32 bits
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the NMS kernel builds only where the CUDA toolkit is")
-    return path
-
-
-def build() -> tuple[Path, str]:
-    """Compile `csrc/nms.cu` unless this source was built already.
-
-    Returns the library's path and what ptxas reported (registers, shared
-    memory, spills; empty when the library was already there)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libnms_{key}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"libnms_{key}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stderr
+def build():
+    """Compile `csrc/nms.cu` unless it was built already: (library path,
+    ptxas report)."""
+    return cuda_build.build(SOURCE, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)

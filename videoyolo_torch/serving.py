@@ -2,8 +2,9 @@
 
 `Detector` builds the model from a `YoloConfig`, takes the JAX package's
 variables (nested numpy dicts) or a seeded random init, and maps an image
-batch to detections: forward, two-stage top-k, greedy NMS (the CUDA kernel
-on the card), boxes clipped to the image.
+batch, or a batch of k-frame windows when `cfg.k > 1`, to detections:
+forward, two-stage top-k, greedy NMS (the CUDA kernel on the card), boxes
+clipped to the image.
 """
 from __future__ import annotations
 
@@ -26,13 +27,16 @@ NMS_TOPK = 400
 
 
 class Detector:
-    """images (B, S, S, 3), uint8 in [0, 255] or already normalised float
-    -> (ids (B,100,1), scores (B,100,1), boxes (B,100,4) clipped to [0, S]),
-    torch tensors on the detector's device.  Padding rows have id and score
-    -1 and, after the clip, boxes of 0, as in the JAX package.
+    """images (B, S, S, 3), or windows (B, k, S, S, 3) when `cfg.k > 1`,
+    uint8 in [0, 255] or already normalised float -> (ids (B,100,1), scores
+    (B,100,1), boxes (B,100,4) clipped to [0, S]), torch tensors on the
+    detector's device; a window gets one set of detections.  Padding rows
+    have id and score -1 and, after the clip, boxes of 0, as in the JAX
+    package.
 
     `variables`: the JAX package's variables; a standard 3-channel stem is
-    refolded when `cfg.pad_stem`.  None: seeded random weights.
+    refolded when `cfg.pad_stem` (YOLOv3 only: YOLOv3T has a 3-channel
+    stem).  None: seeded random weights.
     `dtype` (when given) replaces `cfg.dtype`.  `device` None means CUDA, and
     raises where there is none."""
 
@@ -51,13 +55,15 @@ class Detector:
             cfg = dataclasses.replace(cfg, dtype=dtype)
         self.dtype = cfg.dtype or torch.float32
         self.data_shape = data_shape
+        self.frames = cfg.k if cfg.k is not None and cfg.k > 1 else None
         model = build_model(cfg)
         if variables is None:
             init_weights(model, torch.Generator().manual_seed(seed))
         else:
-            stem = variables["params"]["backbone"]["conv0"]["Conv_0"]["kernel"]
-            if cfg.pad_stem and np.shape(stem)[2] == 3:
-                variables = pad_stem_cin(variables, prefix="backbone")
+            if cfg.pad_stem and self.frames is None:
+                stem = variables["params"]["backbone"]["conv0"]["Conv_0"]["kernel"]
+                if np.shape(stem)[2] == 3:
+                    variables = pad_stem_cin(variables, prefix="backbone")
             model.load_state_dict(flax_to_state_dict(variables), strict=True)
         self.model = model.eval().to(self.device, memory_format=torch.channels_last)
         self._mean = torch.tensor(MEAN, dtype=torch.float32, device=self.device)
@@ -67,8 +73,9 @@ class Detector:
     def __call__(self, images):
         x = torch.as_tensor(images).to(self.device)
         s = self.data_shape
-        if x.dim() != 4 or tuple(x.shape[1:]) != (s, s, 3):
-            raise ValueError(f"expected images (B, {s}, {s}, 3), got {tuple(x.shape)}")
+        item = (s, s, 3) if self.frames is None else (self.frames, s, s, 3)
+        if x.dim() != len(item) + 1 or tuple(x.shape[1:]) != item:
+            raise ValueError(f"expected images (B, {', '.join(map(str, item))}), got {tuple(x.shape)}")
         if x.dtype == torch.uint8:
             x = to_normalized(x, self._mean, self._std, self.dtype)
         boxes, scores = self.model(x.to(self.dtype))
