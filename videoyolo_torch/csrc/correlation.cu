@@ -23,10 +23,12 @@
 // Design: one CTA per (image, 8x32 tile of output pixels, group of
 // displacements); one thread per output pixel.
 //  * f1's tile and the f2 window the group's displacements reach (the tile
-//    plus a halo) are staged in shared memory, channel-major, over chunks of
-//    C; so each input value is read from device memory once per group, not
-//    once per displacement.  The main path's 81 displacements make 3 groups
-//    of 27 (3 dy rows each).
+//    plus a halo) are staged in shared memory, channel-major, 32 channels at
+//    a time: lane = channel, so each warp reads 128 contiguous bytes of a
+//    pixel and the staging needs no index division.  Each input value is
+//    read from device memory once per group, not once per displacement.
+//    The main path's 81 displacements make 3 groups of 27 (3 dy rows each);
+//    the chunk takes 84 KB of shared memory, so two CTAs fit an SM.
 //  * Each thread keeps one f32 accumulator per displacement of its group in
 //    registers (NACC, a template argument; the unused ones add zeros) and the
 //    group's shared-memory offsets beside them.  A warp is one tile row of
@@ -38,10 +40,11 @@
 //    contiguous displacements per pixel.
 //  * The ragged edges (H, W not multiples of the tile, any C, the halo
 //    outside the image) are masked in the kernel: no padding of the inputs.
-// What still bounds it: one shared-memory load per multiply-add, so the
-// load/store unit, not device memory or the FMA pipes, sets the pace.  A
-// register tile over neighbouring pixels (which share f2 values across dx)
-// is the next step.
+// What still bounds it: one shared-memory load (and one address add) per
+// multiply-add, so the load/store unit, not device memory or the FMA pipes,
+// sets the pace; and the staging is not overlapped with the compute except
+// across the two CTAs of an SM.  A register tile over neighbouring pixels
+// (which share f2 values across dx and dy) is the next step.
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,8 +52,11 @@ namespace {
 constexpr int kTileW = 32;                 // output columns per CTA: one warp per tile row
 constexpr int kTileH = 8;                  // output rows per CTA
 constexpr int kThreads = kTileW * kTileH;  // one thread per output pixel of the tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;                 // channels staged at a time: one per lane
 constexpr int kF1Plane = kThreads + 1;     // odd plane stride of the staged f1 tile
-constexpr int kMaxSmem = 48 * 1024;        // the static limit: no opt-in needed
+constexpr int kMaxSmem = 112 * 1024;       // two CTAs per SM
+constexpr int kMaxAcc = 32;
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
 
@@ -58,13 +64,15 @@ template <int NACC>
 __global__ void __launch_bounds__(kThreads)
 cost_volume_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
                    float* __restrict__ out, long long bs1, long long bs2, int H, int W,
-                   int C, int steps, int s2, int gx, int gy, int groups_x, int cc,
-                   int halo_w, int halo_plane) {
+                   int C, int steps, int s2, int gx, int gy, int groups_x, int halo_w,
+                   int halo_plane) {
   extern __shared__ float smem[];
-  float* s1 = smem;                   // [cc][kF1Plane]: f1 tile, channel-major
-  float* sf2 = smem + cc * kF1Plane;  // [cc][halo_plane]: f2 halo rows of halo_w
+  float* s1 = smem;                        // [kChunk][kF1Plane]: f1 tile, channel-major
+  float* sf2 = smem + kChunk * kF1Plane;   // [kChunk][halo_plane]: f2 halo rows of halo_w
+  __shared__ int disp[kMaxAcc];            // output channel of each displacement of the group
 
   const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
   const int tx = tid % kTileW, ty = tid / kTileW;
   const int tiles_x = (W + kTileW - 1) / kTileW;
   const int y0 = (blockIdx.x / tiles_x) * kTileH;
@@ -79,9 +87,10 @@ cost_volume_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   // reads halo row ty + jy*s2, column tx + jx*s2
   const int hy0 = y0 + (iy0 - s) * s2;
   const int hx0 = x0 + (ix0 - s) * s2;
-  const int halo_n = (kTileH + (ny - 1) * s2) * halo_w;
+  const int halo_h = kTileH + (ny - 1) * s2;
   const float* a = f1 + static_cast<long long>(blockIdx.z) * bs1;
   const float* bm = f2 + static_cast<long long>(blockIdx.z) * bs2;
+  if (tid < g) disp[tid] = (iy0 + tid / nx) * steps + ix0 + tid % nx;
 
   int off[NACC];
   float acc[NACC];
@@ -92,21 +101,29 @@ cost_volume_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   }
   const int base = ty * halo_w + tx;
 
-  for (int c0 = 0; c0 < C; c0 += cc) {
-    const int cn = min(cc, C - c0);
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    const int cn = min(kChunk, C - c0);
     __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < kThreads * cn; i += kThreads) {
-      const int p = i / cn, c = i - p * cn;
-      const int y = y0 + p / kTileW, x = x0 + p % kTileW;
-      s1[c * kF1Plane + p] =
-          (y < H && x < W) ? a[(static_cast<long long>(y) * W + x) * C + c0 + c] : 0.f;
-    }
-    for (int i = tid; i < halo_n * cn; i += kThreads) {
-      const int q = i / cn, c = i - q * cn;
-      const int y = hy0 + q / halo_w, x = hx0 + q % halo_w;
-      sf2[c * halo_plane + q] = (y >= 0 && y < H && x >= 0 && x < W)
-                                    ? bm[(static_cast<long long>(y) * W + x) * C + c0 + c]
-                                    : 0.f;
+    if (lane < cn) {
+      const int c = c0 + lane;
+#pragma unroll 4
+      for (int p = warp; p < kThreads; p += kWarps) {
+        const int y = y0 + p / kTileW, x = x0 + p % kTileW;
+        s1[lane * kF1Plane + p] =
+            (y < H && x < W) ? a[(static_cast<long long>(y) * W + x) * C + c] : 0.f;
+      }
+      for (int r = 0; r < halo_h; ++r) {
+        const int y = hy0 + r;
+        const bool row_in = y >= 0 && y < H;
+        float* dst = sf2 + lane * halo_plane + r * halo_w;
+#pragma unroll 4
+        for (int q = warp; q < halo_w; q += kWarps) {
+          const int x = hx0 + q;
+          dst[q] = (row_in && x >= 0 && x < W)
+                       ? bm[(static_cast<long long>(y) * W + x) * C + c]
+                       : 0.f;
+        }
+      }
     }
     __syncthreads();
     for (int c = 0; c < cn; ++c) {
@@ -129,32 +146,33 @@ cost_volume_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   __syncthreads();
   const int D = steps * steps;
   float* o = out + static_cast<long long>(blockIdx.z) * H * W * D;
-  for (int i = tid; i < kThreads * g; i += kThreads) {
-    const int p = i / g, j = i - p * g;
+  for (int p = warp; p < kThreads; p += kWarps) {
     const int y = y0 + p / kTileW, x = x0 + p % kTileW;
-    if (y < H && x < W) {
-      const int disp = (iy0 + j / nx) * steps + ix0 + j % nx;
-      o[(static_cast<long long>(y) * W + x) * D + disp] = so[p * gs + j];
-    }
+    if (y >= H || x >= W) continue;
+    float* op = o + (static_cast<long long>(y) * W + x) * D;
+    for (int j = lane; j < g; j += 32) op[disp[j]] = so[p * gs + j];
   }
 }
 
 template <int NACC>
 cudaError_t launch(const float* f1, const float* f2, float* out, long long bs1, long long bs2,
-                   int B, int H, int W, int C, int steps, int s2, int gx, int gy, int cc,
+                   int B, int H, int W, int C, int steps, int s2, int gx, int gy,
                    cudaStream_t stream) {
   const int halo_w = kTileW + (gx - 1) * s2;
   const int halo_plane = odd((kTileH + (gy - 1) * s2) * halo_w);
-  const size_t in_bytes = static_cast<size_t>(cc) * (kF1Plane + halo_plane) * sizeof(float);
+  const size_t in_bytes = static_cast<size_t>(kChunk) * (kF1Plane + halo_plane) * sizeof(float);
   const size_t out_bytes = static_cast<size_t>(kThreads) * odd(gx * gy) * sizeof(float);
   const size_t smem = in_bytes > out_bytes ? in_bytes : out_bytes;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cost_volume_kernel<NACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const int groups_x = (steps + gx - 1) / gx;
   const int groups_y = (steps + gy - 1) / gy;
   const dim3 grid(((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW),
                   groups_y * groups_x, B);
   cost_volume_kernel<NACC><<<grid, kThreads, smem, stream>>>(
-      f1, f2, out, bs1, bs2, H, W, C, steps, s2, gx, gy, groups_x, cc, halo_w, halo_plane);
+      f1, f2, out, bs1, bs2, H, W, C, steps, s2, gx, gy, groups_x, halo_w, halo_plane);
   return cudaGetLastError();
 }
 
@@ -162,17 +180,17 @@ cudaError_t launch(const float* f1, const float* f2, float* out, long long bs1, 
 
 // f1, f2 (B, H, W, C) f32 on the current device, each dense over (H, W, C)
 // with batch strides bs1, bs2 (elements); out (B, H, W, D) f32, contiguous.
-// The plan (gx x gy displacements per CTA, cc channels per chunk, nacc
-// accumulators >= gx*gy) comes from the wrapper (ops/correlation_kernel.py:
-// plan).  Returns the CUDA error of the launch (0 on success).
+// The plan (gx x gy displacements per CTA, nacc accumulators >= gx*gy)
+// comes from the wrapper (ops/correlation_kernel.py:plan).  Returns the CUDA
+// error of the launch (0 on success).
 extern "C" int cost_volume_launch(const void* f1, const void* f2, void* out, long long bs1,
                                   long long bs2, int B, int H, int W, int C, int d, int s2,
-                                  int gx, int gy, int cc, int nacc, void* stream) {
+                                  int gx, int gy, int nacc, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) {
     return cudaErrorInvalidValue;
   }
   const int steps = 2 * (d / s2) + 1;
-  if (gx < 1 || gx > steps || gy < 1 || gy > steps || gx * gy > nacc || cc < 1 || cc > C) {
+  if (gx < 1 || gx > steps || gy < 1 || gy > steps || gx * gy > nacc || nacc > kMaxAcc) {
     return cudaErrorInvalidValue;
   }
   const auto* a = static_cast<const float*>(f1);
@@ -180,14 +198,14 @@ extern "C" int cost_volume_launch(const void* f1, const void* f2, void* out, lon
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (nacc) {
-    case 1: return launch<1>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 4: return launch<4>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 9: return launch<9>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 16: return launch<16>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 21: return launch<21>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 25: return launch<25>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 27: return launch<27>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
-    case 32: return launch<32>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, cc, st);
+    case 1: return launch<1>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 4: return launch<4>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 9: return launch<9>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 16: return launch<16>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 21: return launch<21>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 25: return launch<25>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 27: return launch<27>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
+    case 32: return launch<32>(a, b, o, bs1, bs2, B, H, W, C, steps, s2, gx, gy, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -26,9 +26,9 @@ NVCC_FLAGS = ()
 # the kernel's tiling (keep in step with csrc/correlation.cu)
 TILE_W, TILE_H = 32, 8
 THREADS = TILE_W * TILE_H
-SMEM_BYTES = 48 * 1024
+CHUNK = 32  # channels staged at a time: one per lane
+SMEM_BYTES = 112 * 1024  # two CTAs per SM
 ACCUMULATORS = (1, 4, 9, 16, 21, 25, 27, 32)  # the kernel's NACC instantiations
-MIN_CHUNK = 8  # channels per staged chunk worth shrinking a group for
 MAX_BATCH = 65535  # the grid's z extent
 
 
@@ -47,7 +47,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_longlong,  # batch strides of f1, f2
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, C
         ctypes.c_int, ctypes.c_int,  # max_displacement, stride2
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gx, gy, chunk, nacc
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gx, gy, nacc
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -64,30 +64,32 @@ def _balanced(steps: int, most: int) -> int:
     return _ceil_div(steps, _ceil_div(steps, most))
 
 
-def plan(channels: int, max_displacement: int, stride2: int) -> Tuple[int, int, int, int]:
-    """How the kernel cuts the work: (gx, gy, chunk, nacc).
+def staged_bytes(gx: int, gy: int, stride2: int) -> int:
+    """Shared memory of one staged chunk: CHUNK channels of the f1 tile and
+    of the f2 halo a gy x gx displacement group reaches (odd plane strides)."""
+    halo = (TILE_H + (gy - 1) * stride2) * (TILE_W + (gx - 1) * stride2) | 1
+    return CHUNK * (THREADS + 1 + halo) * 4
+
+
+def plan(max_displacement: int, stride2: int) -> Tuple[int, int, int]:
+    """How the kernel cuts the displacements: (gx, gy, nacc).
 
     Each CTA takes gy rows x gx columns of the displacement grid (at most 32
     displacements; gx == steps or gy == 1, so a group's displacements are
-    one run of output channels), stages `chunk` channels of its inputs at a
-    time in shared memory, and keeps `nacc >= gx*gy` accumulators per
-    thread.  Groups shrink (rows first) until a chunk holds MIN_CHUNK
-    channels within SMEM_BYTES."""
+    one run of output channels) and keeps `nacc >= gx*gy` accumulators per
+    thread.  Groups shrink (rows first) until a staged chunk fits
+    SMEM_BYTES."""
     steps = 2 * (max_displacement // stride2) + 1
     most = ACCUMULATORS[-1]
     gx = _balanced(steps, most)
     gy = _balanced(steps, max(1, most // gx))
-    while True:
-        halo = (TILE_H + (gy - 1) * stride2) * (TILE_W + (gx - 1) * stride2) | 1
-        chunk = min(channels, SMEM_BYTES // ((THREADS + 1 + halo) * 4))
-        if chunk >= min(channels, MIN_CHUNK) or gx * gy == 1:
-            break
+    while staged_bytes(gx, gy, stride2) > SMEM_BYTES and gx * gy > 1:
         if gy > 1:
             gy -= 1
         else:
             gx -= 1
     nacc = next(n for n in ACCUMULATORS if n >= gx * gy)
-    return gx, gy, chunk, nacc
+    return gx, gy, nacc
 
 
 def _check(name: str, t: torch.Tensor):
@@ -129,13 +131,13 @@ def cost_volume(
     if max_displacement < 0 or stride2 < 1:
         raise ValueError(f"cost_volume takes d >= 0 and stride2 >= 1, got {max_displacement}, {stride2}")
     steps = 2 * (max_displacement // stride2) + 1
-    gx, gy, chunk, nacc = plan(c, max_displacement, stride2)
+    gx, gy, nacc = plan(max_displacement, stride2)
     out = torch.empty((b, h, w, steps * steps), dtype=torch.float32, device=f1.device)
     fn = _library().cost_volume_launch
     with torch.cuda.device(f1.device):
         err = fn(
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), f1.stride(0), f2.stride(0),
-            b, h, w, c, max_displacement, stride2, gx, gy, chunk, nacc,
+            b, h, w, c, max_displacement, stride2, gx, gy, nacc,
             torch.cuda.current_stream(f1.device).cuda_stream,
         )
     if err:
