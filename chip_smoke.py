@@ -406,13 +406,15 @@ def serve_slice2(rs, dev, card):
     ]
     cost_volume.launches = 0
     nms_greedy.launches = 0
-    outs = [det(x) for x in requests]
+    outs, made = [], []
+    for x in requests:
+        before = cost_volume.launches, nms_greedy.launches
+        outs.append(det(x))
+        made.append((cost_volume.launches - before[0], nms_greedy.launches - before[1]))
     torch.cuda.synchronize()
     corr_launches, nms_launches = cost_volume.launches, nms_greedy.launches
-    check(corr_launches == CORR_LAUNCHES * len(requests),
-          f"slice 2: cost-volume kernel launches {corr_launches} over {len(requests)} requests")
-    check(nms_launches == len(requests),
-          f"slice 2: NMS kernel launches {nms_launches} over {len(requests)} requests")
+    check(all(m == (CORR_LAUNCHES, 1) for m in made),
+          f"slice 2: launches (cost volume, NMS) per request {made}")
     check_detections("slice 2", outs, WINDOW_BATCHES)
     print(f"slice 2 kernel launches over {len(requests)} requests: cost volume {corr_launches}, "
           f"NMS {nms_launches}")

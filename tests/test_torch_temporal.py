@@ -1,7 +1,7 @@
 """The port's slice 2 (YOLOv3T windows with early correlation) against the
 JAX package, on the CPU: the correlation op (against the XLA form and the
 Pallas kernel in interpret mode), the temporal layers, Darknet53Stage1,
-full-width YOLOv3T in three configurations, the factory, the slice end to
+full-width YOLOv3T in four configurations, the factory, the slice end to
 end through `Detector`, and the entry point's temporal flags.
 
 Inputs are made with numpy from a seed and handed to both packages; weights
@@ -58,14 +58,6 @@ def random_variables(module, x, seed, gain=1.0):
         return (rs.randn(*shape) * 0.1).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
-
-
-def nchw(a):
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
-
-
-def nhwc(t):
-    return t.detach().permute(0, 2, 3, 1).numpy()
 
 
 # --- the correlation op ---------------------------------------------------
@@ -206,6 +198,8 @@ MODELS = {
     # the streaming suite's late correlation (tests/test_streaming.py:73)
     "late-corr": dict(corr_pos="late", corr_d=2),
     "late-max": dict(k_join_type="max", k_join_pos="late"),
+    # objectness in place of class scores
+    "late-mean-agnostic": dict(k_join_type="mean", k_join_pos="late", agnostic=True),
 }
 
 
@@ -240,7 +234,8 @@ def test_yolov3t_full_width(name):
     with torch.no_grad():
         boxes, scores = tm.eval()(torch.from_numpy(np.asarray(jax_to_normalized(windows))))
     n = 3 * sum((SIZE // s) ** 2 for s in (8, 16, 32))
-    assert boxes.shape == rb.shape == (1, n, 4) and scores.shape == rsc.shape == (1, n, 20)
+    classes = 1 if MODELS[name].get("agnostic") else 20
+    assert boxes.shape == rb.shape == (1, n, 4) and scores.shape == rsc.shape == (1, n, classes)
     assert np.isfinite(boxes.numpy()).all()
     np.testing.assert_allclose(boxes.numpy(), rb, **TOL)
     np.testing.assert_allclose(scores.numpy(), rsc, **TOL)

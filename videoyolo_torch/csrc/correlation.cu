@@ -13,22 +13,25 @@
 // The output is NHWC (B, H, W, D): an NCHW tensor in channels_last memory,
 // so the concat that follows in the Corr layer needs no permute copy.
 //
-// Bound on an H100 (main path, B=32, d=4, stride2=1, D=81): at 52x52x256 the
-// kernel must read 177 MB of f1 and f2 and write 28 MB, 0.061 ms at
-// 3.35 TB/s, and do 3.6 GFLOP of f32 multiply-adds, 0.054 ms at 67 TFLOP/s.
-// Bytes and work are nearly balanced (about 20 FLOP per byte), so a kernel
-// that re-reads f2 from device memory for each of the 81 displacements is
-// far from both.
+// Bound on an H100 SXM at its 700 W peaks (main path, B=32, d=4, stride2=1,
+// D=81): at 52x52x256 the kernel must read 177 MB of f1 and f2 and write
+// 28 MB, 0.061 ms at 3.35 TB/s, and do 3.3 GFLOP of f32 multiply-adds on the
+// products inside the image, 0.049 ms at 67 TFLOP/s.  Bytes and work are
+// nearly balanced (about 16 FLOP per byte), so a kernel that re-reads f2
+// from device memory for each of the 81 displacements is far from both.
 //
 // Design: one CTA per (image, 8x32 tile of output pixels, group of
 // displacements); one thread per output pixel.
 //  * f1's tile and the f2 window the group's displacements reach (the tile
 //    plus a halo) are staged in shared memory, channel-major, 32 channels at
 //    a time: lane = channel, so each warp reads 128 contiguous bytes of a
-//    pixel and the staging needs no index division.  Each input value is
-//    read from device memory once per group, not once per displacement.
-//    The main path's 81 displacements make 3 groups of 27 (3 dy rows each);
-//    the chunk takes 84 KB of shared memory, so two CTAs fit an SM.
+//    pixel and the staging needs no index division.  The copies are
+//    asynchronous (cp.async, zero-filled outside the image), so a warp has
+//    all of its chunk's copies in flight at once and holds no registers for
+//    them.  Each input value is read from device memory once per group, not
+//    once per displacement.  The main path's 81 displacements make 3 groups
+//    of 27 (3 dy rows each); the chunk takes 84 KB of shared memory, so two
+//    CTAs fit an SM.
 //  * Each thread keeps one f32 accumulator per displacement of its group in
 //    registers (NACC, a template argument; the unused ones add zeros) and the
 //    group's shared-memory offsets beside them.  A warp is one tile row of
@@ -40,11 +43,14 @@
 //    contiguous displacements per pixel.
 //  * The ragged edges (H, W not multiples of the tile, any C, the halo
 //    outside the image) are masked in the kernel: no padding of the inputs.
-// What still bounds it: one shared-memory load (and one address add) per
-// multiply-add, so the load/store unit, not device memory or the FMA pipes,
-// sets the pace; and the staging is not overlapped with the compute except
-// across the two CTAs of an SM.  A register tile over neighbouring pixels
-// (which share f2 values across dx and dy) is the next step.
+// What bounds it now (H100 80GB HBM3, 700 W limit, chip_smoke.py: 0.676 /
+// 0.385 / 0.477 ms at the three levels, 11-35x the bound): one shared-memory
+// load and one address computation per multiply-add, so the load/store unit
+// sets the pace, not device memory or the FMA pipes; the staging is not
+// overlapped with the compute except across the two CTAs of an SM; and at
+// 13x13 a tile keeps 13 of its 32 columns busy.  Next steps: a register tile
+// over neighbouring pixels (which share f2 values across dx and dy), double
+// buffering of the chunks, and a split over C for the small levels.
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,6 +65,14 @@ constexpr int kMaxSmem = 112 * 1024;       // two CTAs per SM
 constexpr int kMaxAcc = 32;
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
+
+// one float from device to shared memory, asynchronously; zero when !valid
+// (no bytes are read then; src must still be a device address)
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
 
 template <int NACC>
 __global__ void __launch_bounds__(kThreads)
@@ -106,25 +120,24 @@ cost_volume_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     __syncthreads();  // the previous chunk is consumed
     if (lane < cn) {
       const int c = c0 + lane;
-#pragma unroll 4
       for (int p = warp; p < kThreads; p += kWarps) {
         const int y = y0 + p / kTileW, x = x0 + p % kTileW;
-        s1[lane * kF1Plane + p] =
-            (y < H && x < W) ? a[(static_cast<long long>(y) * W + x) * C + c] : 0.f;
+        const bool in = y < H && x < W;
+        copy_async(s1 + lane * kF1Plane + p,
+                   in ? a + (static_cast<long long>(y) * W + x) * C + c : a, in);
       }
       for (int r = 0; r < halo_h; ++r) {
         const int y = hy0 + r;
         const bool row_in = y >= 0 && y < H;
         float* dst = sf2 + lane * halo_plane + r * halo_w;
-#pragma unroll 4
         for (int q = warp; q < halo_w; q += kWarps) {
           const int x = hx0 + q;
-          dst[q] = (row_in && x >= 0 && x < W)
-                       ? bm[(static_cast<long long>(y) * W + x) * C + c]
-                       : 0.f;
+          const bool in = row_in && x >= 0 && x < W;
+          copy_async(dst + q, in ? bm + (static_cast<long long>(y) * W + x) * C + c : bm, in);
         }
       }
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     for (int c = 0; c < cn; ++c) {
       const float v = s1[c * kF1Plane + tid];

@@ -157,7 +157,6 @@ class YOLOv3T(nn.Module):
         self.k = k or 1
         self.k_join_type = k_join_type
         self.agnostic = agnostic
-        self.dtype = dtype or torch.float32
         temporal = self.k > 1
 
         self.stage1 = Darknet53Stage1(dtype=dtype)

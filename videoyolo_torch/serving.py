@@ -74,7 +74,7 @@ class Detector:
         x = torch.as_tensor(images).to(self.device)
         s = self.data_shape
         item = (s, s, 3) if self.frames is None else (self.frames, s, s, 3)
-        if x.dim() != len(item) + 1 or tuple(x.shape[1:]) != item:
+        if tuple(x.shape[1:]) != item:
             raise ValueError(f"expected images (B, {', '.join(map(str, item))}), got {tuple(x.shape)}")
         if x.dtype == torch.uint8:
             x = to_normalized(x, self._mean, self._std, self.dtype)
