@@ -7,16 +7,19 @@ kernels against their plain PyTorch versions.
 Phases; any failure exits non-zero:
   1. device: the card's name and power limit, torch and CUDA versions, the
      TF32 switches (set off, so float32 means float32);
-  2. build: the NMS kernel (videoyolo_torch/csrc/nms.cu) and the cost-volume
-     kernel (videoyolo_torch/csrc/correlation.cu), one nvcc each, started
-     together, for sm_90a;
+  2. build: the NMS kernel (videoyolo_torch/csrc/nms.cu), the cost-volume
+     kernel (videoyolo_torch/csrc/correlation.cu) and the int8 conv kernels
+     (videoyolo_torch/csrc/int8_conv.cu: K3 and the direct int8 cell), one
+     nvcc each, started together, for sm_90a;
   3. kernels vs plain, on the card: the NMS kernel against
      ops/nms.py:nms_greedy_plain at the main path's shape and on edge cases
      (keep masks and packed rows, with and without the keep mask written,
      equal bit for bit); the cost-volume kernel against
      ops/correlation.py:correlation_plain in float32 at the three levels of
      slice 2 and on edge cases (allclose rtol=atol=1e-5: the same products,
-     summed over C in another order);
+     summed over C in another order); K3 and the int8 conv kernel against
+     ops/int8_conv.py's plain versions, bit for bit, at K3's four 416-px
+     cells, at every cell kind of the int8 model and on edge cases;
   4. slice 1: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16) at
      416 px with seeded random weights answers requests of B=1, 8 and 128;
      the NMS kernel's launch count must rise by one per request, the outputs
@@ -33,10 +36,23 @@ Phases; any failure exits non-zero:
      the plain version's routes within a stated tolerance; then the step's
      times, the kernel's time per level against its plain version and its
      bound, and one request through the entry point with the temporal flags;
-  6. reference: the same weights in float32 on the card and on the CPU agree
-     on a small input, for slice 1 and slice 2;
-  7. profile: the device's busy share and top kernels of slice 1's step at
-     B=128 and B=1, and of slice 2's at B=32.
+  6. slice 3: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16,
+     quantize="int8") at 416 px with seeded random weights calibrated on 8
+     seeded images answers requests of B=1, 8 and 128 with ds_conv="pallas"
+     and B=128 with "direct"; per request K3 must launch 4 times and the
+     int8 conv kernel 68 ("pallas"), or 0 and 72 ("direct"), and the NMS
+     kernel once; every int8 cell output, route and bf16 tip of two images
+     of the B=8 request must equal the same model's on the CPU with the plain
+     versions bit for bit, and the B=128 detections the plain NMS's; then
+     the step's times in both modes, K3's time per cell and the int8 conv
+     kernel's per request against their bounds and plain versions (and
+     torch._int_mm on the 1x1 cells), and one request through the entry
+     point with --quantize int8;
+  7. reference: the same weights in float32 on the card and on the CPU agree
+     on a small input, for slices 1, 2 and 3 (slice 3: every int8 tensor
+     equal);
+  8. profile: the device's busy share and top kernels of slice 1's step at
+     B=128 and B=1, of slice 2's at B=32 and of slice 3's at B=128.
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -55,10 +71,14 @@ import torch
 from videoyolo_torch import detect
 from videoyolo_torch.data.transforms import to_normalized
 from videoyolo_torch.models.factory import YoloConfig
+from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual
 from videoyolo_torch.models.yolo3 import select_topk_candidates
-from videoyolo_torch.ops import correlation_kernel, nms_kernel
+from videoyolo_torch.ops import correlation_kernel, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
 from videoyolo_torch.ops.correlation_kernel import cost_volume
+from videoyolo_torch.ops.int8_conv import int8_conv_plain, quant_downsample_plain
+from videoyolo_torch.ops.int8_conv_kernel import int8_conv, quant_downsample
+from videoyolo_torch.ops.quantize import replace_quant
 from videoyolo_torch.ops.nms import nms_greedy_plain
 from videoyolo_torch.ops.nms_kernel import nms_greedy
 from videoyolo_torch.profiling import cuda_time_ms
@@ -93,10 +113,32 @@ F32_FLOPS = 67e12
 AREA_OPS = 5
 IOU_OPS = 14
 INT8_OPS = 1979e12  # dense int8 tensor-core peak
-# K3, still to port (videoyolo_tpu/ops/pallas_conv.py:116): the int8 3x3/s2
-# downsample cells it takes in the B=128, 416-px int8 detect step (input
-# rows <= 208, videoyolo_tpu/models/layers.py:149-160), as (input H = W, C, F)
+# K3 (videoyolo_tpu/ops/pallas_conv.py:116): the int8 3x3/s2 downsample cells
+# it takes in the 416-px int8 detect step (input rows <= 208,
+# videoyolo_tpu/models/layers.py:149-160), as (input H = W, C, F)
 K3_CELLS = ((208, 64, 128), (104, 128, 256), (52, 256, 512), (26, 512, 1024))
+# slice 3: fused-int8 YOLOv3 in bf16, calibrated on 8 seeded images
+CALIB_IMAGES = 8
+# (K3, int8 conv, NMS) launches per request
+INT8_LAUNCHES = {"pallas": (4, 68, 1), "direct": (0, 72, 1)}
+CPU_IMAGES = 8  # images of the B=8 request held against the CPU model: all of them
+# the int8 conv kernel on the card: (name, B, H, C, F, kernel, stride), one
+# case per cell kind of the model, then edge cases
+CONV_CASES = [
+    ("stem_416x416x4_k3", 8, 416, 4, 32, 3, 1),
+    ("downsample_416x416x32_k3s2", 8, 416, 32, 64, 3, 2),
+    ("expand_208x208x32_k3", 8, 208, 32, 64, 3, 1),
+    ("reduce_52x52x256_k1", 8, 52, 256, 128, 1, 1),
+    ("head_26x26x768_k1", 8, 26, 768, 256, 1, 1),
+    ("tip_13x13x512_k3", 8, 13, 512, 1024, 3, 1),
+    ("B1_13x13x1024_k1", 1, 13, 1024, 512, 1, 1),
+    ("C3_F40_k3", 2, 40, 3, 40, 3, 1),
+    ("C8_k1", 2, 26, 8, 16, 1, 1),
+    ("F75_k1", 2, 13, 64, 75, 1, 1),
+]
+# K3 edge cases: (name, B, H, C, F)
+K3_EDGE = [("B1_26x26x512", 1, 26, 512, 1024), ("C3_F5", 2, 26, 3, 5), ("C4_F24", 2, 26, 4, 24),
+           ("F40", 2, 52, 64, 40)]
 
 
 def fail(msg: str):
@@ -192,21 +234,22 @@ def corr_times(b, h, w, c, d, stride2):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
 
 
-def int8_downsample_bound(b=128):
-    """K3's bound per cell, computed from shapes (the kernel is not ported
-    yet): the space-to-depth int8 input (B, H/2, W/2, 4C), the int8 output
-    (B, H/2, W/2, F) and the packed int8 weights (4, 4C, F) each moved once,
-    against the 3x3 conv's 2*9*C*F int8 operations per output pixel (not
-    the packed taps' structural zeros) over the int8 peak.  Returns [(cell,
-    ms, "bytes" | "operations")]."""
-    out = []
-    for h, c, f in K3_CELLS:
-        pix = b * (h // 2) ** 2
-        nbytes = pix * 4 * c + pix * f + 16 * c * f
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * pix * 9 * c * f / INT8_OPS
-        out.append((f"{h}x{h}x{c}->{f}", max(t_bytes, t_ops) * 1e3,
-                    "bytes" if t_bytes >= t_ops else "operations"))
-    return out
+def int8_conv_times(b, h, w, c, f, k, stride, out_bytes=1):
+    """(bytes time, operations time) in ms of one int8 conv (pad k // 2) on
+    an H100: the int8 input, the (F, k, k, C) int8 weights, scale and bias
+    read once and the output written once, against 2*k*k*C int8 operations
+    per output value over the int8 peak."""
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    out = b * ho * wo * f
+    nbytes = b * h * w * c + f * k * k * c + 8 * f + out * out_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * out * k * k * c / INT8_OPS * 1e3
+
+
+def bound(times):
+    """(ms, "bytes" | "operations") of launches whose (bytes ms, operations
+    ms) are `times`: each sum, the larger binding."""
+    t_bytes, t_ops = sum(t[0] for t in times), sum(t[1] for t in times)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def median_ms(fn, iters, warmup=3):
@@ -259,10 +302,11 @@ def check_entry_point(preds, n):
 
 
 def build_kernels():
-    """Both kernels, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(lambda k: k.build(), (nms_kernel, correlation_kernel)))
+    sources = (nms_kernel, correlation_kernel, int8_conv_kernel)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        builds = list(pool.map(lambda k: k.build(), sources))
     print(f"built {', '.join(lib.name for lib, _ in builds)} in {time.perf_counter() - t0:.1f} s")
     for lib, ptxas in builds:
         for line in ptxas.splitlines():
@@ -320,6 +364,57 @@ def check_corr_kernel(dev):
         max_err = max(max_err, err)
         print(f"cost volume {name}: B={b} {h}x{w}x{c} d={d} stride2={s2}: max abs error {err:.3g}, allclose")
     return max_err
+
+
+def int8_case(gen, dev, b, h, c, f, k):
+    """A random int8 cell on the card: input (B, C, H, H) and kernel (F, C,
+    k, k) in channels_last memory, scale and bias as a calibrated cell has
+    them (y about N(0, 1)), oscale 0.02 (a few percent of outputs clip)."""
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    q = i8(b, h, h, c).permute(0, 3, 1, 2)
+    qk = i8(f, k, k, c).permute(0, 3, 1, 2)
+    # an int8 product of two uniform values has a standard deviation of ~5376
+    scale = (torch.rand(f, generator=gen, device=dev) + 0.5) / (5376.0 * (k * k * c) ** 0.5)
+    bias = torch.randn(f, generator=gen, device=dev) * 0.1
+    return q, qk, scale, bias, torch.tensor(0.02, device=dev)
+
+
+def check_int8_kernels(dev):
+    """Phase 3, int8: K3 at its four 416-px cells (B=8) and edge cases, and
+    the int8 conv kernel at each cell kind with each epilogue, bit for bit
+    against the plain versions.  Returns (cases, K3's max abs error, the
+    int8 conv's max abs error)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, errs = 0, [0.0, 0.0]
+    k3 = [(f"{h}x{h}x{c}->{f}", 8, h, c, f) for h, c, f in K3_CELLS] + K3_EDGE
+    for name, b, h, c, f in k3:
+        q, qk, scale, bias, oscale = int8_case(gen, dev, b, h, c, f, 3)
+        out = quant_downsample(q, qk, scale, bias, oscale)
+        ref = quant_downsample_plain(q, qk, scale, bias, oscale)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape == (b, f, (h + 1) // 2, (h + 1) // 2), f"K3 {name}: shape {tuple(out.shape)}")
+        check(torch.equal(out, ref), f"K3 {name}: {int((out != ref).sum())} values differ from the plain version")
+        errs[0] = max(errs[0], float((out.double() - ref.double()).abs().max()))
+        n += 1
+        print(f"K3 {name} B={b}: equal to the plain version bit for bit "
+              f"({float((ref.abs() == 127).float().mean()):.4f} clipped)")
+    for name, b, h, c, f, k, stride in CONV_CASES:
+        q, qk, scale, bias, oscale = int8_case(gen, dev, b, h, c, f, k)
+        for epi, kw in (("int8", dict(scale=scale, bias=bias, oscale=oscale)),
+                        ("bf16", dict(scale=scale, bias=bias, out_dtype=torch.bfloat16)),
+                        ("float32", dict(scale=scale, bias=bias)), ("int32", {})):
+            out = int8_conv(q, qk, stride, **kw)
+            ref = int8_conv_plain(q, qk, stride, **kw)
+            torch.cuda.synchronize()
+            check(out.dtype == ref.dtype and out.shape == ref.shape, f"int8 conv {name} {epi}: {out.dtype} {tuple(out.shape)}")
+            check(torch.equal(out, ref), f"int8 conv {name} {epi}: {int((out != ref).sum())} values differ")
+            errs[1] = max(errs[1], float((out.double() - ref.double()).abs().max()))
+            n += 1
+        print(f"int8 conv {name} B={b} stride {stride}: int8 / bf16 / float32 / int32 epilogues "
+              "equal to the plain version bit for bit")
+    return n, errs[0], errs[1]
 
 
 def serve_slice1(rs, dev, card, nms_ms):
@@ -503,8 +598,221 @@ def serve_slice2(rs, dev, card):
     return det, x32, corr_launches, nms_launches, figures, max_err
 
 
+def cell_outputs(model, x):
+    """Every int8 cell's and residual join's output of one forward, on the
+    CPU, by module name (QTensors as (q, s))."""
+    outs = {}
+
+    def keep(name):
+        def hook(_mod, _inp, out):
+            outs[name] = (out.q.cpu(), out.s.cpu()) if isinstance(out, QTensor) else (out.cpu(), None)
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n)) for n, m in model.named_modules()
+             if isinstance(m, (ConvBNLeaky, QuantResidual))]
+    try:
+        with torch.inference_mode():
+            result = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs, result
+
+
+def cpu_twin(model):
+    """The same int8 model on the CPU, where its convs run the plain
+    versions."""
+    twin = replace_quant(model, model.init_kwargs["quant"])
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    return twin.to(memory_format=torch.channels_last)
+
+
+def compare_cells(label, card_outs, cpu_outs):
+    check(card_outs.keys() == cpu_outs.keys() and len(card_outs) == 95,
+          f"{label}: {len(card_outs)} cell outputs on the card, {len(cpu_outs)} on the CPU")
+    for name, (a, sa) in card_outs.items():
+        b, sb = cpu_outs[name]
+        check(a.dtype == b.dtype and torch.equal(a, b) and (sa is None or torch.equal(sa, sb)),
+              f"{label}: {name} differs between the card and the CPU")
+    n_int8 = sum(a.dtype == torch.int8 for a, _ in card_outs.values())
+    return n_int8, sum(a.numel() for a, _ in card_outs.values())
+
+
+class CallRecorder:
+    """Records the calls of a kernel wrapper in `module` during a block,
+    passing them through (the wrapper counts its launches on the name it is
+    bound to, so the count moves with it)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def record(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.orig(*args, **kwargs)
+
+        record.launches = self.orig.launches
+        self.record = record
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.record.launches
+        setattr(self.module, self.name, self.orig)
+
+
+def serve_slice3(rs, dev, card):
+    """Phase 6.  Returns (detector, B=128 batch, launches over the requests
+    (K3, int8 conv, NMS), K3's figures, the int8 conv kernel's figures,
+    cases compared)."""
+    calib = [rs.randint(0, 256, (CALIB_IMAGES, SIZE, SIZE, 3)).astype(np.uint8)]
+    dets = {}
+    for ds in INT8_LAUNCHES:
+        t0 = time.perf_counter()
+        dets[ds] = Detector(
+            YoloConfig(num_classes=NUM_CLASSES, pad_stem=True), dtype=torch.bfloat16, data_shape=SIZE,
+            device="cuda", seed=0, quantize="int8", calibration=calib, ds_conv=ds,
+        )
+        torch.cuda.synchronize()
+        print(f"slice 3 Detector (ds_conv={ds!r}) quantised and calibrated on {CALIB_IMAGES} images "
+              f"on {dets[ds].device} in {time.perf_counter() - t0:.1f} s")
+    states = [d.model.state_dict() for d in dets.values()]
+    check(states[0].keys() == states[1].keys() and all(torch.equal(states[0][k], states[1][k]) for k in states[0]),
+          "slice 3: the two calibrations gave different int8 models")
+    requests = [rs.randint(0, 256, (b, SIZE, SIZE, 3)).astype(np.uint8) for b in REQUEST_BATCHES]
+    runs = [("pallas", x) for x in requests] + [("direct", requests[-1])]
+    counters = (quant_downsample, int8_conv, nms_greedy)
+    for c in counters:
+        c.launches = 0
+    outs, made = [], []
+    for ds, x in runs:
+        before = [c.launches for c in counters]
+        outs.append(dets[ds](x))
+        made.append(tuple(c.launches - b for c, b in zip(counters, before)))
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    check(made == [INT8_LAUNCHES[ds] for ds, _ in runs],
+          f"slice 3: launches (K3, int8 conv, NMS) per request {made}")
+    check_detections("slice 3", outs[:3], REQUEST_BATCHES)
+    check_detections("slice 3 direct", outs[3:], REQUEST_BATCHES[-1:])
+    print(f"slice 3 kernel launches over {len(runs)} requests (B=1, 8, 128 with ds_conv='pallas', "
+          f"B=128 with 'direct'): K3 {launches[0]}, int8 conv {launches[1]}, NMS {launches[2]}; "
+          f"per request {made}")
+
+    # two images of the B=8 request: every cell output on the card against
+    # the same model on the CPU (plain versions)
+    det = dets["pallas"]
+    with torch.inference_mode():
+        x8 = det._normalized(torch.from_numpy(requests[1][:CPU_IMAGES]).to(dev))
+    card_outs, _ = cell_outputs(det.model, x8)
+    t0 = time.perf_counter()
+    cpu_outs, _ = cell_outputs(cpu_twin(det.model), x8.cpu())
+    n_int8, n_values = compare_cells("slice 3 B=8 request", card_outs, cpu_outs)
+    print(f"slice 3 B=8 request, images 0-{CPU_IMAGES - 1} at {SIZE} px: all 95 cell and join outputs "
+          f"({n_int8} int8, the 3 bf16 tips; {n_values} values, the routes among them) equal to the "
+          f"CPU model's (plain versions, {time.perf_counter() - t0:.1f} s) bit for bit")
+
+    # the B=128 request: the detections against the plain NMS on the same
+    # candidates; the int8 convs' arguments, recorded for the timings
+    x128 = torch.from_numpy(requests[-1]).to(dev)
+    with torch.inference_mode(), CallRecorder(int8_conv_kernel, "int8_conv") as convs, \
+            CallRecorder(int8_conv_kernel, "quant_downsample") as k3s:
+        boxes, scores = det.model(det._normalized(x128))
+        cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+        ref_packed, _ = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    ids, sc, bb = outs[2]
+    check(torch.equal(ids, ref_packed[..., 0:1]) and torch.equal(sc, ref_packed[..., 1:2])
+          and torch.equal(bb, ref_packed[..., 2:6].clamp(0, SIZE)),
+          "slice 3 B=128 request: detections differ from the plain NMS on the same candidates")
+    print("slice 3 B=128 request: detections equal the plain NMS's on the same candidates")
+    check((len(k3s.calls), len(convs.calls)) == INT8_LAUNCHES["pallas"][:2], "slice 3: recorded calls")
+
+    t128 = {ds: median_ms(lambda d=d: d(x128), 10) for ds, d in dets.items()}
+    x1 = torch.from_numpy(requests[0]).to(dev)
+    t1 = median_ms(lambda: det(x1), 30, warmup=5)
+    for ds, ms in t128.items():
+        print(f"slice 3 detect B=128 at {SIZE} px int8 (bf16 tips) ds_conv={ds!r} on {card}: "
+              f"{128 / ms * 1e3:.1f} images/s ({ms:.3f} ms/request)")
+    print(f"slice 3 detect B=1 at {SIZE} px int8 ds_conv='pallas' on {card}: {t1:.3f} ms/request")
+
+    # K3 per cell and the int8 conv kernel per request, on the recorded
+    # arguments, against their bounds and plain versions
+    def figures(calls, kernel, plain, label):
+        cells = []
+        for args, kwargs in calls:
+            q, qk = args[0], args[1]
+            stride = 2 if kernel is int8_conv_kernel.quant_downsample else args[2]
+            b, c, h, w = q.shape
+            f, _, k, _ = qk.shape
+            with torch.inference_mode():
+                out_bytes = kernel(*args, **kwargs).element_size()
+                ms = median_ms(lambda: kernel(*args, **kwargs), 5, warmup=2)
+                p_ms = median_ms(lambda: plain(*args, **kwargs), 1, warmup=0)
+            cells.append(dict(shape=[b, h, w, c, f, k, stride], ms=ms, plain_ms=p_ms,
+                              times=int8_conv_times(b, h, w, c, f, k, stride, out_bytes)))
+        b_ms, b_by = bound([cl["times"] for cl in cells])
+        fig = dict(ms=sum(cl["ms"] for cl in cells), plain_ms=sum(cl["plain_ms"] for cl in cells),
+                   bound_ms=b_ms, bound_by=b_by)
+        print(f"{label} at B=128 on {card}: {fig['ms']:.4f} ms per request over {len(cells)} launches, "
+              f"plain {fig['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return fig, cells
+
+    k3, k3_cells = figures(k3s.calls, int8_conv_kernel.quant_downsample, quant_downsample_plain, "K3")
+    for cl in k3_cells:
+        b, h, w, c, f, _, _ = cl["shape"]
+        c_ms, c_by = bound([cl["times"]])
+        print(f"  K3 B={b} {h}x{w}x{c}->{f}: kernel {cl['ms']:.4f} ms, plain {cl['plain_ms']:.3f} ms, "
+              f"bound {c_ms:.4f} ms ({c_by}), library: none (no PyTorch call computes a strided int8 conv "
+              "on CUDA)")
+    k3["cells"] = [dict(shape=cl["shape"][:5], ms=cl["ms"], plain_ms=cl["plain_ms"],
+                        bound_ms=bound([cl["times"]])[0]) for cl in k3_cells]
+    conv, conv_cells = figures(convs.calls, int8_conv_kernel.int8_conv, int8_conv_plain, "int8 conv kernel")
+    ones = [(args, cl) for (args, _), cl in zip(convs.calls, conv_cells) if cl["shape"][5] == 1]
+    int_mm = 0.0
+    for args, _ in ones:
+        q, qk = args[0], args[1]
+        a = q.permute(0, 2, 3, 1).reshape(-1, q.shape[1])
+        wt = qk.reshape(qk.shape[0], -1).t()
+        int_mm += median_ms(lambda: torch._int_mm(a, wt), 5, warmup=2)
+    conv.update(ms_1x1=sum(cl["ms"] for _, cl in ones), int_mm_1x1_ms=int_mm, cells_1x1=len(ones))
+    print(f"  int8 conv kernel, its {len(ones)} 1x1 cells: {conv['ms_1x1']:.4f} ms; torch._int_mm on the "
+          f"same products (int32 out, no epilogue): {int_mm:.4f} ms")
+    for cl in sorted(conv_cells, key=lambda cl: -cl["ms"])[:5]:
+        b, h, w, c, f, k, s = cl["shape"]
+        print(f"  int8 conv top: B={b} {h}x{w}x{c}->{f} k{k} s{s}: {cl['ms']:.4f} ms "
+              f"(bound {bound([cl['times']])[0]:.4f} ms)")
+
+    # the entry point, as a user runs it: one request of 8 images, calibrated
+    # on it (the first two request batches; there is one)
+    before = [c.launches for c in counters]
+    preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
+                         "--seed", "1", "--quantize", "int8"])
+    made = tuple(c.launches - b for c, b in zip(counters, before))
+    check(made == (0, 2 * INT8_LAUNCHES["direct"][1], 1),
+          f"slice 3 entry point: launches (K3, int8 conv, NMS) {made} for one calibration batch and one request")
+    entries = check_entry_point(preds, 8)
+    print(f"slice 3 entry point (--quantize int8): {len(entries)} normalised detections over 8 images, in "
+          f"range; launches (K3, int8 conv, NMS) {made}: one calibration pass and one request")
+    return det, x128, launches, k3, conv, len(card_outs)
+
+
 def check_reference(rs):
-    """Phase 6: float32 on the card vs on the CPU, same weights."""
+    """Phase 7: float32 on the card vs on the CPU, same weights."""
+    small = torch.from_numpy(rs.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8))
+    d32 = Detector(YoloConfig(num_classes=NUM_CLASSES, pad_stem=True), data_shape=128, device="cuda", seed=0,
+                   quantize="int8", calibration=[small])
+    with torch.inference_mode():
+        x = d32._normalized(small.to("cuda"))
+    card_outs, (_, card_scores) = cell_outputs(d32.model, x)
+    cpu_outs, (_, cpu_scores) = cell_outputs(cpu_twin(d32.model), x.cpu())
+    n_int8, _ = compare_cells("slice 3 float32 at 128 px", card_outs, cpu_outs)
+    err = float((card_scores.cpu() - cpu_scores).abs().max())
+    check(bool(torch.allclose(card_scores.cpu(), cpu_scores, rtol=1e-3, atol=1e-3)),
+          f"slice 3 float32 scores on the card vs the CPU: max error {err}")
+    print(f"reference slice 3: float32 int8 model at 128 px, card vs CPU: {n_int8} int8 cell outputs and the "
+          f"float32 tips equal, scores max abs error {err:.3g} (allclose rtol=atol=1e-3: the prediction conv)")
     for label, cfg, shape in (
         ("slice 1", YoloConfig(num_classes=NUM_CLASSES, pad_stem=True), (2, 128, 128, 3)),
         ("slice 2", YoloConfig(**SLICE2), (1, WINDOW, 128, 128, 3)),
@@ -524,7 +832,7 @@ def check_reference(rs):
 
 
 def profile_steps(steps, card):
-    """Phase 7: device busy share, launches and top kernels of each step."""
+    """Phase 8: device busy share, launches and top kernels of each step."""
     from torch.profiler import ProfilerActivity, profile
 
     for label, det, x, n, top in steps:
@@ -572,15 +880,12 @@ def main() -> int:
 
     # 2. build
     build_kernels()
-    k3 = int8_downsample_bound()
-    print("K3 (int8 downsample, still to port) bound at B=128, computed from shapes, not measured: "
-          + ", ".join(f"{cell} {ms:.4f} ms ({by})" for cell, ms, by in k3)
-          + f"; {sum(ms for _, ms, _ in k3):.4f} ms per step")
 
     # 3. the kernels against their plain versions
     rs = np.random.RandomState(0)
     nms_err, nms_cases = check_nms_kernel(rs, dev, card)
     corr_err = check_corr_kernel(dev)
+    int8_cases, k3_err, conv_err = check_int8_kernels(dev)
 
     # 4. slice 1: the detect path at 416 px, bf16
     nms_ms = {}
@@ -591,12 +896,15 @@ def main() -> int:
     det2, x32, corr_launches, nms_launches2, corr, err = serve_slice2(rs, dev, card)
     corr_err = max(corr_err, err)
 
-    # 6. reference
+    # 6. slice 3: fused-int8 YOLOv3 at 416 px, bf16 tips
+    det3, x128_3, int8_launches, k3, conv, cells3 = serve_slice3(rs, dev, card)
+
+    # 7. reference
     check_reference(rs)
 
-    # 7. profile
+    # 8. profile
     profile_steps([("slice 1 B=128", det1, x128, 3, 8), ("slice 1 B=1", det1, x1, 20, 4),
-                   ("slice 2 B=32", det2, x32, 3, 10)], card)
+                   ("slice 2 B=32", det2, x32, 3, 10), ("slice 3 B=128", det3, x128_3, 3, 10)], card)
 
     kernels = [
         {
@@ -628,6 +936,33 @@ def main() -> int:
             "cases": len(CORR_CASES) + 3,
             "per": f"one B=32 request: {CORR_LAUNCHES} launches",
             "levels": corr["levels"],
+        },
+        {
+            "name": "quant_downsample",
+            "route": "cuda",
+            "source": "videoyolo_torch/csrc/int8_conv.cu",
+            "replaces": "videoyolo_tpu/ops/pallas_conv.py:116",
+            "launches": int8_launches[0],
+            "max_abs_err": k3_err,
+            **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "match": True,
+            "per": "one B=128 request: 4 launches",
+            "cells": k3["cells"],
+        },
+        {
+            "name": "int8_conv",
+            "route": "cuda",
+            "source": "videoyolo_torch/csrc/int8_conv.cu",
+            "replaces": "videoyolo_tpu/models/layers.py:229 (XLA's int8 conv_general_dilated, no TPU kernel)",
+            "launches": int8_launches[1],
+            "max_abs_err": conv_err,
+            **{k: conv[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "match": True,
+            "cases": int8_cases + cells3,
+            "per": "one B=128 request with ds_conv='pallas': 68 launches",
+            **{k: conv[k] for k in ("ms_1x1", "int_mm_1x1_ms", "cells_1x1")},
         },
     ]
     print(json.dumps({"kernels": kernels}))

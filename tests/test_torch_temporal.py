@@ -281,7 +281,7 @@ def test_factory_raises_on_unported_axes():
     ):
         with pytest.raises(NotImplementedError, match="slice 5"):
             build_model(YoloConfig(num_classes=2, k=3, **cfg))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="item 9a"):
         YOLOv3T(num_classes=2, k=3, quant=True)
     with pytest.raises(NotImplementedError, match="slice 5"):
         YOLOv3T(num_classes=2, k=3, feed="tips")

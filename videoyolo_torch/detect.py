@@ -4,13 +4,16 @@
         --num_requests 3 --seed 0 [--device cpu] [--dtype bf16|f32] [--out preds.json]
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
         --window 3,1 --k_join_pos late --corr_pos early --corr_d 4   # YOLOv3T windows
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
 
 The model takes seeded random weights.  Each request is a batch of uint8
 images drawn from the seed or, with `--window k[,stride]` and k > 1, a batch
 of k-frame windows: window i takes every stride-th frame from frame i of a
 seeded synthetic clip, so neighbouring windows share frames as they do in a
 video.  The temporal flags are those of detect_yolo3.py (`--corr_d` counts
-only with `--corr_pos`).  The command prints one summary line per request
+only with `--corr_pos`).  `--quantize int8` serves the fused-int8 YOLOv3,
+calibrated on the first two request batches as detect_yolo3.py calibrates on
+the first two loader batches.  The command prints one summary line per request
 and, with --out, writes the detections as {image or window name: [[cls,
 score, x1, y1, x2, y2], ...]} with normalised boxes.  Reading an image
 directory is deferred (see ROADMAP.md).
@@ -45,6 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--k_join_pos", default=None, help="position of the k fuse: early or late")
     p.add_argument("--corr_pos", default=None, help="position of the correlation: early or late")
     p.add_argument("--corr_d", type=int, default=4, help="the d of the correlation")
+    p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
+                   help="int8 serving: the fused int8-end-to-end YOLOv3")
     return p.parse_args(argv)
 
 
@@ -70,15 +75,21 @@ def main(argv=None):
         k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
         corr_d=args.corr_d if args.corr_pos else None,
     )
-    det = Detector(
-        cfg, dtype=DTYPES[args.dtype], data_shape=args.data_shape,
-        device=args.device, seed=args.seed,
-    )
-    rs = np.random.RandomState(args.seed)
+    if args.quantize and args.quantize != "int8":
+        raise NotImplementedError(f"--quantize {args.quantize} is deferred, see ROADMAP.md Queue 1 item 9a")
+    if args.quantize and temporal:
+        raise NotImplementedError(
+            "--quantize with --window (the int8 temporal family) is deferred, see ROADMAP.md Queue 1 item 9a"
+        )
     s = args.data_shape
+    requests = list(_requests(np.random.RandomState(args.seed), args.num_requests, args.batch_size, s, k, stride))
+    det = Detector(
+        cfg, dtype=DTYPES[args.dtype], data_shape=s, device=args.device, seed=args.seed,
+        quantize=args.quantize, calibration=requests[:2] if args.quantize else None,
+    )
     name = "window" if temporal else "image"
     preds = {}
-    for r, batch in enumerate(_requests(rs, args.num_requests, args.batch_size, s, k, stride)):
+    for r, batch in enumerate(requests):
         t0 = time.perf_counter()
         ids, sc, bb = (a.cpu().numpy() for a in det(batch))
         ms = (time.perf_counter() - t0) * 1e3

@@ -1,5 +1,4 @@
-"""Primitive layers, float path (port of videoyolo_tpu/models/layers.py:32-68,
-84-146, 437-544).
+"""Primitive layers (port of videoyolo_tpu/models/layers.py:32-288, 437-544).
 
 The cells take and return NCHW tensors; the models keep them in
 `channels_last` memory, so NHWC is what lies in device memory, as in the JAX
@@ -12,22 +11,39 @@ conv's output in its own dtype.
 
 The temporal layers (`time_distributed`, `TemporalPooling`, `Corr`) take
 NHWC windows (B, T, H, W, C), as in the JAX package.
+
+The fused-int8 path (`quant="fused"`, and its calibration twin
+"fused_calib") keeps activations int8 from cell to cell as `QTensor`s; its
+cells hold the buffers `qkernel` (int8), `wscale`, `bias`, `xscale` and
+`oscale`, named like the flax leaves that ops/quantize.py produces.  The
+convs go to ops/int8_conv.py (CUDA kernels on the card); the elementwise
+joins (the stem's input quantize, `QuantResidual`, `quant_concat`, the int8
+upsample) are torch ops in the JAX package's order of operations.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from ..ops.correlation import correlation
+from ..ops.int8_conv import dequant_leaky, int8_conv, quant_downsample, requantize
 
 BN_EPS = 1e-5
 # flax's momentum 0.9 (weight of the running average) is torch's 0.1
 # (weight of the new batch)
 BN_MOMENTUM = 0.1
 LEAKY_SLOPE = 0.1
+QUANT_MODES = ("fused", "fused_calib")
+# the input rows above which the JAX package keeps a downsample off its
+# Pallas kernel (a VMEM limit of the TPU, layers.py:157-159); mirrored so the
+# outputs stay the JAX package's (lifting it: ROADMAP.md Queue 1 item 9d)
+K3_MAX_ROWS = 208
+# 1/127 in float32: XLA computes `amax / 127.0` as amax times this
+_INV_127 = (torch.tensor(1.0) / torch.tensor(127.0)).item()
+_DEFERRED = "is deferred, see ROADMAP.md Queue 1 item"
 
 
 def leaky(x: torch.Tensor) -> torch.Tensor:
@@ -36,15 +52,71 @@ def leaky(x: torch.Tensor) -> torch.Tensor:
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of an NCHW tensor: each pixel repeated
-    2x2 (keeps `channels_last` memory)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    2x2 (keeps `channels_last` memory).  Integer tensors (int8 QTensor data,
+    which `F.interpolate` does not take) repeat through a broadcast view of
+    their NHWC memory, one copy."""
+    if x.is_floating_point():
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    b, c, h, w = x.shape
+    nhwc = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return nhwc.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2)
 
 
-class ConvBNLeaky(nn.Module):
+class QTensor(NamedTuple):
+    """An int8 activation between fused-int8 cells: `q` (int8, NCHW in
+    `channels_last` memory) with its symmetric scale `s` (a float32 scalar
+    tensor on q's device; value = q * s).  `host` is `s` as a Python float
+    where the scale is a constant of the model (fused mode), else None."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+    host: Optional[float] = None
+
+
+def dequantize(x, dtype=None):
+    """QTensor -> real values (float32, or `dtype`); other inputs pass
+    through."""
+    if isinstance(x, QTensor):
+        out = x.q.float() * x.s
+        return out.to(dtype) if dtype is not None else out
+    return x
+
+
+def dynamic_scale(amax: torch.Tensor) -> torch.Tensor:
+    """`jnp.maximum(amax / 127.0, 1e-12)` as the JAX package computes it."""
+    return torch.clamp_min(amax * _INV_127, 1e-12)
+
+
+class _QuantState(nn.Module):
+    """Calibration record and host scale shared by the int8 cells."""
+
+    def _sow(self, name: str, value: torch.Tensor):
+        """Keep the running max of an observed amax (the JAX package sows it
+        under "quant_calib" and takes the max over the batches)."""
+        prev = self.calib.get(name)
+        self.calib[name] = value if prev is None else torch.maximum(prev, value)
+
+    def _host(self, scale: torch.Tensor) -> float:
+        """`scale` as a Python float, read from the device once per value."""
+        key = (scale.data_ptr(), scale._version)
+        if getattr(self, "_host_cache", (None,))[0] != key:
+            self._host_cache = (key, float(scale))
+        return self._host_cache[1]
+
+
+class ConvBNLeaky(_QuantState):
     """The conv-BN-LeakyReLU(0.1) cell: no conv bias; BN eps 1e-5.
 
     BN stays its own op in eval, as in the JAX package; folding it into the
-    conv would change the bf16 rounding."""
+    conv would change the bf16 rounding.
+
+    `quant` "fused" / "fused_calib" builds the int8 cell instead (BN folded
+    offline by ops/quantize.py; never initialised, always converted): a
+    QTensor in (or, with `real_input`, a real-valued input quantised by
+    `xscale`), a QTensor out requantised by `oscale` (or, without `qout`,
+    real values in `dtype`).  `ds_conv="pallas"` sends the eligible 3x3 /
+    stride-2 cells to K3, as the JAX package sends them to its Pallas
+    kernel."""
 
     def __init__(
         self,
@@ -53,16 +125,132 @@ class ConvBNLeaky(nn.Module):
         kernel: int = 3,
         stride: int = 1,
         dtype: torch.dtype | None = None,
+        quant=None,
+        qout: bool = True,
+        ds_conv: str = "direct",
+        real_input: bool = False,
     ):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(
-            in_channels, features, kernel, stride=stride, padding=kernel // 2, bias=False,
-            dtype=dtype,
-        )
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.kernel, self.stride, self.quant = kernel, stride, quant or None
+        if self.quant is None:
+            self.Conv_0 = nn.Conv2d(
+                in_channels, features, kernel, stride=stride, padding=kernel // 2, bias=False,
+                dtype=dtype,
+            )
+            self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+            return
+        if self.quant not in QUANT_MODES:
+            raise NotImplementedError(f"int8 mode {quant!r} (dynamic and static scales) {_DEFERRED} 9a")
+        if ds_conv == "s2d":
+            raise NotImplementedError(f"ds_conv='s2d' {_DEFERRED} 9b")
+        if ds_conv not in ("direct", "pallas"):
+            raise ValueError(f"ds_conv must be 'direct' or 'pallas', got {ds_conv!r}")
+        self.qout, self.ds_conv, self.dtype = qout, ds_conv, dtype or torch.float32
+        self.register_buffer("qkernel", torch.zeros((features, in_channels, kernel, kernel), dtype=torch.int8))
+        self.register_buffer("wscale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        if self.quant == "fused_calib":
+            self.calib = {}
+            return
+        if real_input:
+            self.register_buffer("xscale", torch.ones(()))
+        if qout:
+            self.register_buffer("oscale", torch.ones(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x):
+        if self.quant is None:
+            return leaky(self.BatchNorm_0(self.Conv_0(x)))
+        if self._k3_eligible(x):
+            out = quant_downsample(x.q, self.qkernel, x.s * self.wscale, self.bias, self.oscale)
+            return QTensor(out, self.oscale, self._host(self.oscale))
+        return quant_conv_cell(self, x)
+
+    def _k3_eligible(self, x) -> bool:
+        """The JAX package's rule (layers.py:149-160); H is dim 2 of NCHW."""
+        return (
+            self.ds_conv == "pallas" and self.quant == "fused" and self.kernel == 3
+            and self.stride == 2 and isinstance(x, QTensor) and self.qout
+            and x.q.shape[2] % 2 == 0 and x.q.shape[2] <= K3_MAX_ROWS
+        )
+
+
+def quant_conv_cell(cell: ConvBNLeaky, x):
+    """The int8 cell body (layers.py:187-247): quantise a real-valued input,
+    int8 conv with int32 sums, y = leaky(acc * (s_x * wscale) + bias), then
+    requantise by `oscale` (fused) or by the batch's own max (fused_calib,
+    which records the input amax of a real-valued input and the output
+    amax)."""
+    fused = cell.quant == "fused"
+    if isinstance(x, QTensor):
+        q, s_x = x.q, x.s
+    else:
+        xf = x.float()
+        if fused:
+            if not hasattr(cell, "xscale"):
+                raise NotImplementedError(f"real-valued input to a fused cell without xscale (static scales) {_DEFERRED} 9a")
+            s_x = cell.xscale
+        else:
+            amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)  # per image
+            cell._sow("amax", amax.max())
+            s_x = dynamic_scale(amax)
+        q = requantize(xf / s_x)
+    if fused:
+        scale = s_x * cell.wscale
+        if cell.qout:
+            out = int8_conv(q, cell.qkernel, cell.stride, scale, cell.bias, cell.oscale)
+            return QTensor(out, cell.oscale, cell._host(cell.oscale))
+        return int8_conv(q, cell.qkernel, cell.stride, scale, cell.bias, out_dtype=cell.dtype)
+    # calibration: the raw sums from the conv, the epilogue here (its scale
+    # is per image at the stem)
+    y = int8_conv(q, cell.qkernel, cell.stride)
+    scale = s_x.reshape(-1, 1) * cell.wscale if s_x.dim() else s_x * cell.wscale
+    out = dequant_leaky(y, scale, cell.bias)
+    if not cell.qout:
+        return out.to(cell.dtype)
+    oamax = out.abs().amax()
+    cell._sow("oamax", oamax)
+    s_o = dynamic_scale(oamax)
+    return QTensor(requantize(out / s_o), s_o)
+
+
+class QuantResidual(_QuantState):
+    """Residual join of the fused-int8 pipeline (layers.py:250-271): both
+    int8 branches dequantised and added in float32, requantised by the
+    calibrated `xscale` (or, with `calib`, by the sum's own max, recorded).
+
+    The sum is `a.q * a.s + round(b.q * b.s)`, the first product fused into
+    the add: the JAX package's order under jit, where XLA contracts it into
+    an FMA (`torch.add` with `alpha` is one, on the CPU and the card)."""
+
+    def __init__(self, calib: bool = False):
+        super().__init__()
+        if calib:
+            self.calib = {}
+        else:
+            self.register_buffer("xscale", torch.ones(()))
+
+    def forward(self, a: QTensor, b: QTensor) -> QTensor:
+        alpha = a.host if a.host is not None else float(a.s)
+        f = torch.add(b.q.float() * b.s, a.q.float(), alpha=alpha)
+        if hasattr(self, "calib"):
+            amax = f.abs().amax()
+            self._sow("amax", amax)
+            s = dynamic_scale(amax)
+            return QTensor(requantize(f / s), s)
+        return QTensor(requantize(f / self.xscale), self.xscale, self._host(self.xscale))
+
+
+def quant_concat(parts, dim: int = 1):
+    """Channel concat without leaving int8 (layers.py:274-288): each part
+    rescaled onto the largest incoming scale, the ratio `p.s / s` first;
+    parts that are not all QTensors concatenate as real values."""
+    if not all(isinstance(p, QTensor) for p in parts):
+        return torch.cat([dequantize(p) for p in parts], dim=dim)
+    s = parts[0].s
+    for p in parts[1:]:
+        s = torch.maximum(s, p.s)
+    qs = [requantize(p.q.float() * (p.s / s)) for p in parts]
+    return QTensor(torch.cat(qs, dim=dim), s)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:

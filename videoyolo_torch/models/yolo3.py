@@ -3,7 +3,9 @@
 Eval-mode forward: (boxes (B, N, 4) pixels, scores (B, N, C)), levels in
 deep -> shallow order; the post-processing (two-stage exact top-k, then
 greedy NMS) works on those compact tensors.  Cells run NCHW in
-`channels_last` memory; images and routes come in NHWC.
+`channels_last` memory; images and routes come in NHWC.  With `quant`
+"fused" the model is the fused-int8 detector of ops/quantize.py:quantize_fused
+(int8 from cell to cell, real-valued tips into the prediction convs).
 """
 from __future__ import annotations
 
@@ -15,15 +17,17 @@ from torch import nn
 from ..ops.anchors import DEFAULT_ANCHORS, DEFAULT_STRIDES, grid_offsets
 from ..ops.nms import box_nms
 from .darknet import DARKNET53_CHANNELS, Darknet53
-from .layers import ConvBNLeaky, upsample2x
+from .layers import ConvBNLeaky, QTensor, quant_concat, upsample2x
 
 FPN_CHANNELS = (512, 256, 128)
 
 
 class YOLODetectionBlock(nn.Module):
-    """5-conv FPN block + 3x3 tip; returns (route, tip), NCHW."""
+    """5-conv FPN block + 3x3 tip; returns (route, tip), NCHW.  In the
+    fused-int8 modes the tip writes real values in `dtype` (`qout=False`):
+    its one consumer is the prediction conv."""
 
-    def __init__(self, in_channels: int, channel: int, dtype: torch.dtype | None = None):
+    def __init__(self, in_channels: int, channel: int, dtype: torch.dtype | None = None, quant=None):
         super().__init__()
         if channel % 2:
             raise ValueError(f"channel must be even, got {channel}")
@@ -31,12 +35,12 @@ class YOLODetectionBlock(nn.Module):
         cin = in_channels
         for _ in range(2):
             cells += [
-                ConvBNLeaky(cin, channel, kernel=1, dtype=dtype),
-                ConvBNLeaky(channel, 2 * channel, kernel=3, dtype=dtype),
+                ConvBNLeaky(cin, channel, kernel=1, dtype=dtype, quant=quant),
+                ConvBNLeaky(channel, 2 * channel, kernel=3, dtype=dtype, quant=quant),
             ]
             cin = 2 * channel
-        cells.append(ConvBNLeaky(cin, channel, kernel=1, dtype=dtype))  # route
-        cells.append(ConvBNLeaky(channel, 2 * channel, kernel=3, dtype=dtype))  # tip
+        cells.append(ConvBNLeaky(cin, channel, kernel=1, dtype=dtype, quant=quant))  # route
+        cells.append(ConvBNLeaky(channel, 2 * channel, kernel=3, dtype=dtype, quant=quant, qout=False))  # tip
         for n, cell in enumerate(cells):
             self.add_module(f"ConvBNLeaky_{n}", cell)
 
@@ -114,7 +118,13 @@ class YOLOv3(nn.Module):
 
     Eval mode only (`model.eval()`); returns (boxes (B, N, 4) pixels, scores
     (B, N, C)), or scores (B, N, 1) objectness if `agnostic`; with
-    `return_levels`, the per-level (boxes, scores) pairs instead."""
+    `return_levels`, the per-level (boxes, scores) pairs instead.
+
+    `quant` "fused" (or its calibration twin "fused_calib") builds the
+    fused-int8 model, which ops/quantize.py:quantize_fused converts from a
+    float one (never initialised); `ds_conv` "pallas" sends the eligible
+    downsamples to K3.  `init_kwargs` keeps the constructor's arguments, so
+    the float model and its int8 twin are built alike."""
 
     def __init__(
         self,
@@ -129,17 +139,32 @@ class YOLOv3(nn.Module):
         s2d_stem: bool = False,
         pad_stem: bool = False,
         return_levels: bool = False,
+        quant=None,
+        ds_conv: str = "direct",
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.init_kwargs = dict(
+            num_classes=num_classes, anchors=anchors, strides=strides, channels=channels,
+            agnostic=agnostic, use_backbone=use_backbone, route_channels=route_channels, remat=remat,
+            s2d_stem=s2d_stem, pad_stem=pad_stem, return_levels=return_levels, quant=quant,
+            ds_conv=ds_conv, dtype=dtype,
+        )
         if remat:
             raise NotImplementedError("rematerialisation is training work (slice 4), see ROADMAP.md")
+        if quant and not use_backbone:
+            raise NotImplementedError(
+                "the int8 head on real-valued routes (static input scales) is deferred, "
+                "see ROADMAP.md Queue 1 item 9a"
+            )
         self.agnostic = agnostic
         self.use_backbone = use_backbone
         self.return_levels = return_levels
         self.dtype = dtype or torch.float32
         if use_backbone:
-            self.backbone = Darknet53(s2d_stem=s2d_stem, pad_stem=pad_stem, dtype=dtype)
+            self.backbone = Darknet53(
+                s2d_stem=s2d_stem, pad_stem=pad_stem, quant=quant, ds_conv=ds_conv, dtype=dtype
+            )
             route_channels = DARKNET53_CHANNELS[-3:]
 
         # deep -> shallow (anchors and strides reversed)
@@ -147,7 +172,7 @@ class YOLOv3(nn.Module):
         strides_rev = list(strides)[::-1]
         cin = route_channels[-1]
         for i in range(3):
-            self.add_module(f"block{i}", YOLODetectionBlock(cin, channels[i], dtype=dtype))
+            self.add_module(f"block{i}", YOLODetectionBlock(cin, channels[i], dtype=dtype, quant=quant))
             pairs = [
                 (anchors_rev[i][2 * j], anchors_rev[i][2 * j + 1])
                 for j in range(len(anchors_rev[i]) // 2)
@@ -159,7 +184,7 @@ class YOLOv3(nn.Module):
             if i < 2:
                 self.add_module(
                     f"transition{i}",
-                    ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype),
+                    ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype, quant=quant),
                 )
                 cin = channels[i + 1] + route_channels[1 - i]
 
@@ -171,7 +196,11 @@ class YOLOv3(nn.Module):
         routes = self.backbone(x) if self.use_backbone else tuple(x)
         if len(routes) != 3:
             raise ValueError(f"YOLOv3 takes three routes, got {len(routes)}")
-        routes = [r.to(self.dtype).permute(0, 3, 1, 2) for r in routes]
+        routes = [
+            r._replace(q=r.q.permute(0, 3, 1, 2)) if isinstance(r, QTensor)
+            else r.to(self.dtype).permute(0, 3, 1, 2)
+            for r in routes
+        ]
 
         level_outs = []
         y = routes[-1]
@@ -179,8 +208,13 @@ class YOLOv3(nn.Module):
             route, tip = getattr(self, f"block{i}")(y)
             level_outs.append(getattr(self, f"output{i}")(tip))
             if i < 2:
-                y = upsample2x(getattr(self, f"transition{i}")(route))
-                y = torch.cat([y, routes[1 - i]], dim=1)
+                y = getattr(self, f"transition{i}")(route)
+                if isinstance(y, QTensor):
+                    # int8: the repeat is exact on quantised values, and the
+                    # concat rescales onto a common scale
+                    y = quant_concat([y._replace(q=upsample2x(y.q)), routes[1 - i]])
+                else:
+                    y = torch.cat([upsample2x(y), routes[1 - i]], dim=1)
 
         if self.return_levels:
             k = 2 if self.agnostic else 1

@@ -145,7 +145,7 @@ class YOLOv3T(nn.Module):
         super().__init__()
         _validate(k_join_type, k_join_pos, rnn_pos, corr_pos, corr_d)
         if quant:
-            raise NotImplementedError("int8 cells come with slice 3 (int8 serving), see ROADMAP.md")
+            raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
         if rnn_pos is not None:
             raise NotImplementedError(f"the conv-RNN (rnn_pos): {_LATER}")
         if block_conv_type != "2":

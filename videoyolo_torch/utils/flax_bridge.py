@@ -9,8 +9,13 @@ The port names its submodules after the flax tree paths
   params      kernel (HWIO) -> weight (OIHW)
               scale         -> weight (BatchNorm)
               bias          -> bias
+              qkernel (HWIO int8) -> qkernel (OIHW)    the fused-int8 leaves
+              wscale, xscale, oscale -> the same names (buffers)
   batch_stats mean          -> running_mean (+ num_batches_tracked = 0)
               var           -> running_var
+
+`state_dict_to_flax` is the inverse for a float model: its state_dict as
+the JAX package's variables, which ops/quantize.py converts.
 
 Reading a flax msgpack checkpoint file is deferred (see ROADMAP.md): the
 card's machine has neither flax nor msgpack.
@@ -23,15 +28,19 @@ import numpy as np
 import torch
 
 _LEAVES = {
-    "params": {"kernel": "weight", "scale": "weight", "bias": "bias"},
+    "params": {
+        "kernel": "weight", "scale": "weight", "bias": "bias",
+        "qkernel": "qkernel", "wscale": "wscale", "xscale": "xscale", "oscale": "oscale",
+    },
     "batch_stats": {"mean": "running_mean", "var": "running_var"},
 }
 
 
-def _walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+def walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    """(path, array) of every leaf of a nested dict."""
     for key, value in tree.items():
         if hasattr(value, "items"):
-            yield from _walk(value, path + (key,))
+            yield from walk(value, path + (key,))
         else:
             yield path + (key,), np.asarray(value)
 
@@ -43,11 +52,11 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
         raise ValueError(f"no bridge for variable collections {sorted(unknown)}")
     state = {}
     for coll, names in _LEAVES.items():
-        for path, arr in _walk(variables.get(coll, {})):
+        for path, arr in walk(variables.get(coll, {})):
             *mods, leaf = path
             if leaf not in names:
                 raise ValueError(f"no bridge for {coll} leaf {'/'.join(path)}")
-            if leaf == "kernel":
+            if leaf in ("kernel", "qkernel"):
                 if arr.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, got {arr.shape}")
                 arr = arr.transpose(3, 2, 0, 1)
@@ -55,3 +64,30 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
             if leaf == "mean":
                 state[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0, dtype=torch.long)
     return state
+
+
+def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
+    """A float model's state_dict -> the JAX package's variables (nested
+    numpy dicts, float32): conv weights OIHW -> kernel HWIO, BatchNorm weight
+    -> scale, running stats -> batch_stats; num_batches_tracked is dropped."""
+    variables: Dict = {"params": {}, "batch_stats": {}}
+    for key, t in state.items():
+        *mods, leaf = key.split(".")
+        arr = t.detach().cpu()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            coll, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
+        elif leaf == "weight" and arr.dim() == 4:
+            coll, name, arr = "params", "kernel", arr.permute(2, 3, 1, 0)
+        elif leaf == "weight" and arr.dim() == 1:
+            coll, name = "params", "scale"
+        elif leaf == "bias":
+            coll, name = "params", "bias"
+        else:
+            raise ValueError(f"no bridge for state_dict entry {key} {tuple(arr.shape)}")
+        node = variables[coll]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr.float().numpy())
+    return variables
