@@ -19,7 +19,10 @@ Phases; any failure exits non-zero:
      slice 2 and on edge cases (allclose rtol=atol=1e-5: the same products,
      summed over C in another order); K3 and the int8 conv kernel against
      ops/int8_conv.py's plain versions, bit for bit, at K3's four 416-px
-     cells, at every cell kind of the int8 model and on edge cases;
+     cells, at every cell kind of the int8 model and on edge cases that
+     reach each route's ragged edges (a mismatch names its first differing
+     output pixel and channel); the SASS of the int8 library must hold
+     128-bit global stores in every route's kernels;
   4. slice 1: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16) at
      416 px with seeded random weights answers requests of B=1, 8 and 128;
      the NMS kernel's launch count must rise by one per request, the outputs
@@ -41,13 +44,15 @@ Phases; any failure exits non-zero:
      seeded images answers requests of B=1, 8 and 128 with ds_conv="pallas"
      and B=128 with "direct"; per request K3 must launch 4 times and the
      int8 conv kernel 68 ("pallas"), or 0 and 72 ("direct"), and the NMS
-     kernel once; every int8 cell output, route and bf16 tip of two images
+     kernel once, each int8 launch on the route its shape calls for
+     (ROUTE_LAUNCHES); every int8 cell output, route and bf16 tip of two images
      of the B=8 request must equal the same model's on the CPU with the plain
      versions bit for bit, and the B=128 detections the plain NMS's; then
      the step's times in both modes, K3's time per cell and the int8 conv
      kernel's per request against their bounds and plain versions (and
-     torch._int_mm on the 1x1 cells), and one request through the entry
-     point with --quantize int8;
+     torch._int_mm on the 1x1 cells), a table per class of cells (kernel
+     ms, bound ms, route), and one request through the entry point with
+     --quantize int8;
   7. reference: the same weights in float32 on the card and on the CPU agree
      on a small input, for slices 1, 2 and 3 (slice 3: every int8 tensor
      equal);
@@ -55,10 +60,14 @@ Phases; any failure exits non-zero:
      B=128 and B=1, of slice 2's at B=32 and of slice 3's at B=128.
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --kernels-only   # phases 1-3 alone: build, SASS, kernels vs plain
 """
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -73,7 +82,7 @@ from videoyolo_torch.data.transforms import to_normalized
 from videoyolo_torch.models.factory import YoloConfig
 from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual
 from videoyolo_torch.models.yolo3 import select_topk_candidates
-from videoyolo_torch.ops import correlation_kernel, int8_conv_kernel, nms_kernel
+from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
 from videoyolo_torch.ops.correlation_kernel import cost_volume
 from videoyolo_torch.ops.int8_conv import int8_conv_plain, quant_downsample_plain
@@ -121,6 +130,10 @@ K3_CELLS = ((208, 64, 128), (104, 128, 256), (52, 256, 512), (26, 512, 1024))
 CALIB_IMAGES = 8
 # (K3, int8 conv, NMS) launches per request
 INT8_LAUNCHES = {"pallas": (4, 68, 1), "direct": (0, 72, 1)}
+# the same by route, (K3's, the int8 conv's): the stem (C = 4) takes the
+# 4-byte route, every other cell the 16-byte one
+VEC = int8_conv_kernel.ROUTES[16]
+ROUTE_LAUNCHES = {"pallas": ({VEC: 4}, {VEC: 67, "mma_word": 1}), "direct": ({}, {VEC: 71, "mma_word": 1})}
 CPU_IMAGES = 8  # images of the B=8 request held against the CPU model: all of them
 # the int8 conv kernel on the card: (name, B, H, C, F, kernel, stride), one
 # case per cell kind of the model, then edge cases
@@ -135,6 +148,9 @@ CONV_CASES = [
     ("C3_F40_k3", 2, 40, 3, 40, 3, 1),
     ("C8_k1", 2, 26, 8, 16, 1, 1),
     ("F75_k1", 2, 13, 64, 75, 1, 1),
+    ("C16_F40_k3", 2, 26, 16, 40, 3, 1),
+    ("deep_13x13x1024_F1024_k1", 8, 13, 1024, 1024, 1, 1),
+    ("stage1_208x208x64_F32_k1", 2, 208, 64, 32, 1, 1),
 ]
 # K3 edge cases: (name, B, H, C, F)
 K3_EDGE = [("B1_26x26x512", 1, 26, 512, 1024), ("C3_F5", 2, 26, 3, 5), ("C4_F24", 2, 26, 4, 24),
@@ -247,9 +263,12 @@ def int8_conv_times(b, h, w, c, f, k, stride, out_bytes=1):
 
 def bound(times):
     """(ms, "bytes" | "operations") of launches whose (bytes ms, operations
-    ms) are `times`: each sum, the larger binding."""
-    t_bytes, t_ops = sum(t[0] for t in times), sum(t[1] for t in times)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    ms) are `times`: the sum of each launch's own bound (the larger of its
+    two), since launches in sequence cannot overlap one bound by bytes with
+    one bound by operations; named after the kind that binds most of it."""
+    by_bytes = sum(tb for tb, to in times if tb >= to)
+    by_ops = sum(to for tb, to in times if tb < to)
+    return by_bytes + by_ops, ("bytes" if by_bytes >= by_ops else "operations")
 
 
 def median_ms(fn, iters, warmup=3):
@@ -312,6 +331,33 @@ def build_kernels():
         for line in ptxas.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
                 print(f"  ptxas {lib.name.split('_')[0]}: {line.strip()}")
+
+
+def check_int8_sass():
+    """The int8 library's SASS: every kernel stores its output 16 bytes at a
+    time (STG.E.128).  Prints one line of it per route."""
+    sass = cuda_build.sass(int8_conv_kernel.build()[0])
+    kernels = re.findall(r"Function : (\S*int8_(?:conv|downsample)_kernelILi(\d)E\S*)\n(.*?)(?=Function :|\Z)",
+                         sass, re.S)
+    routes = {v: k for k, v in int8_conv_kernel._ROUTE_IDS.items()}
+    check(kernels, "int8 SASS: no kernel found")
+    shown = set()
+    for name, route, body in kernels:
+        stores = [ln.strip() for ln in body.splitlines() if "STG.E.128" in ln]
+        check(stores, f"int8 SASS: no 128-bit global store in {name}")
+        if route not in shown:
+            shown.add(route)
+            print(f"int8 SASS, route {routes[int(route)]} ({name}): {stores[0]}")
+    print(f"int8 SASS: {len(kernels)} kernels, each with 128-bit global stores")
+
+
+def first_difference(out, ref):
+    """(output pixel m, channel n) of the first differing value of two
+    (B, F, H, W) outputs, in NHWC order; None where none differs."""
+    if out.shape != ref.shape:
+        return None
+    diff = (out != ref).permute(0, 2, 3, 1).reshape(-1, out.shape[1]).nonzero()
+    return tuple(int(v) for v in diff[0]) if len(diff) else None
 
 
 def check_nms_kernel(rs, dev, card):
@@ -395,7 +441,8 @@ def check_int8_kernels(dev):
         ref = quant_downsample_plain(q, qk, scale, bias, oscale)
         torch.cuda.synchronize()
         check(out.shape == ref.shape == (b, f, (h + 1) // 2, (h + 1) // 2), f"K3 {name}: shape {tuple(out.shape)}")
-        check(torch.equal(out, ref), f"K3 {name}: {int((out != ref).sum())} values differ from the plain version")
+        check(torch.equal(out, ref), f"K3 {name}: {int((out != ref).sum())} values differ from the plain version, "
+              f"the first at (m, n) = {first_difference(out, ref)}")
         errs[0] = max(errs[0], float((out.double() - ref.double()).abs().max()))
         n += 1
         print(f"K3 {name} B={b}: equal to the plain version bit for bit "
@@ -409,11 +456,14 @@ def check_int8_kernels(dev):
             ref = int8_conv_plain(q, qk, stride, **kw)
             torch.cuda.synchronize()
             check(out.dtype == ref.dtype and out.shape == ref.shape, f"int8 conv {name} {epi}: {out.dtype} {tuple(out.shape)}")
-            check(torch.equal(out, ref), f"int8 conv {name} {epi}: {int((out != ref).sum())} values differ")
+            check(torch.equal(out, ref), f"int8 conv {name} {epi}: {int((out != ref).sum())} values differ, "
+                  f"the first at (m, n) = {first_difference(out, ref)}")
             errs[1] = max(errs[1], float((out.double() - ref.double()).abs().max()))
             n += 1
-        print(f"int8 conv {name} B={b} stride {stride}: int8 / bf16 / float32 / int32 epilogues "
-              "equal to the plain version bit for bit")
+        pl = int8_conv_kernel.plan(b, h, h, c, f, k, stride,
+                                   int8_conv_kernel.alignment(c, q.data_ptr(), qk.data_ptr()))
+        print(f"int8 conv {name} B={b} stride {stride} ({pl.route}, BN={pl.bn}): int8 / bf16 / float32 / int32 "
+              "epilogues equal to the plain version bit for bit")
     return n, errs[0], errs[1]
 
 
@@ -598,6 +648,52 @@ def serve_slice2(rs, dev, card):
     return det, x32, corr_launches, nms_launches, figures, max_err
 
 
+def route_delta(kernel, before):
+    """The launches by route of an int8 wrapper since `before`, those that
+    moved."""
+    return {r: n - before[r] for r, n in kernel.route_launches.items() if n != before[r]}
+
+
+# the classes of int8 cells in the per-class table, by (kernel, stride, C,
+# output dtype, K3)
+def cell_class(cl, k3):
+    b, h, w, c, f, k, s = cl["shape"]
+    if k3:
+        return "K3's cells, k3 s2"
+    if c % 16 and k == 3:
+        return f"stem, C {c}, k3"
+    if s == 2:
+        return "downsample, k3 s2 (direct)"
+    if k == 1:
+        return "1x1"
+    return "3x3 s1, bf16 out (tips)" if cl["dtype"] == "bfloat16" else "3x3 s1, int8 out"
+
+
+def class_table(conv_cells, k3_cells, card):
+    """Per class of cells of one B=128 request: launches, kernel ms, bound
+    ms (each launch's own, summed), route and N tiles.  Printed; returned as
+    a list for the kernels line."""
+    rows = {}
+    for cells, k3 in ((conv_cells, False), (k3_cells, True)):
+        for cl in cells:
+            row = rows.setdefault(cell_class(cl, k3), dict(cells=0, ms=0.0, times=[], routes=set(), bn=set()))
+            row["cells"] += 1
+            row["ms"] += cl["ms"]
+            row["times"].append(cl["times"])
+            row["routes"].add(cl["route"])
+            row["bn"].add(cl["bn"])
+    table = []
+    print(f"int8 cells by class at B=128 on {card}:")
+    for name, row in rows.items():
+        b_ms, b_by = bound(row["times"])
+        entry = dict(cls=name, cells=row["cells"], ms=row["ms"], bound_ms=b_ms, bound_by=b_by,
+                     routes=sorted(row["routes"]), bn=sorted(row["bn"]))
+        table.append(entry)
+        print(f"  {name:28s} {row['cells']:3d} cells  kernel {row['ms']:8.4f} ms  bound {b_ms:7.4f} ms ({b_by})  "
+              f"{row['ms'] / b_ms:5.1f}x  route {'/'.join(entry['routes'])} BN {'/'.join(map(str, entry['bn']))}")
+    return table
+
+
 def cell_outputs(model, x):
     """Every int8 cell's and residual join's output of one forward, on the
     CPU, by module name (QTensors as (q, s))."""
@@ -654,6 +750,7 @@ class CallRecorder:
             return self.orig(*args, **kwargs)
 
         record.launches = self.orig.launches
+        record.route_launches = self.orig.route_launches  # one dict, counted in place
         self.record = record
         setattr(self.module, self.name, record)
         return self
@@ -686,20 +783,27 @@ def serve_slice3(rs, dev, card):
     counters = (quant_downsample, int8_conv, nms_greedy)
     for c in counters:
         c.launches = 0
-    outs, made = [], []
+    for c in counters[:2]:
+        c.route_launches.update(dict.fromkeys(c.route_launches, 0))
+    outs, made, routed = [], [], []
     for ds, x in runs:
         before = [c.launches for c in counters]
+        routes_before = [dict(c.route_launches) for c in counters[:2]]
         outs.append(dets[ds](x))
         made.append(tuple(c.launches - b for c, b in zip(counters, before)))
+        routed.append(tuple(route_delta(c, b) for c, b in zip(counters[:2], routes_before)))
     torch.cuda.synchronize()
     launches = tuple(c.launches for c in counters)
+    route_launches = tuple(dict(c.route_launches) for c in counters[:2])
     check(made == [INT8_LAUNCHES[ds] for ds, _ in runs],
           f"slice 3: launches (K3, int8 conv, NMS) per request {made}")
+    check(routed == [ROUTE_LAUNCHES[ds] for ds, _ in runs],
+          f"slice 3: launches by route (K3, int8 conv) per request {routed}")
     check_detections("slice 3", outs[:3], REQUEST_BATCHES)
     check_detections("slice 3 direct", outs[3:], REQUEST_BATCHES[-1:])
     print(f"slice 3 kernel launches over {len(runs)} requests (B=1, 8, 128 with ds_conv='pallas', "
           f"B=128 with 'direct'): K3 {launches[0]}, int8 conv {launches[1]}, NMS {launches[2]}; "
-          f"per request {made}")
+          f"per request {made}; by route (K3, int8 conv) per request {routed}")
 
     # two images of the B=8 request: every cell output on the card against
     # the same model on the CPU (plain versions)
@@ -746,12 +850,15 @@ def serve_slice3(rs, dev, card):
             stride = 2 if kernel is int8_conv_kernel.quant_downsample else args[2]
             b, c, h, w = q.shape
             f, _, k, _ = qk.shape
+            pl = int8_conv_kernel.plan(b, h, w, c, f, k, stride,
+                                       int8_conv_kernel.alignment(c, q.data_ptr(), qk.data_ptr()))
             with torch.inference_mode():
-                out_bytes = kernel(*args, **kwargs).element_size()
+                out = kernel(*args, **kwargs)
                 ms = median_ms(lambda: kernel(*args, **kwargs), 5, warmup=2)
                 p_ms = median_ms(lambda: plain(*args, **kwargs), 1, warmup=0)
-            cells.append(dict(shape=[b, h, w, c, f, k, stride], ms=ms, plain_ms=p_ms,
-                              times=int8_conv_times(b, h, w, c, f, k, stride, out_bytes)))
+            cells.append(dict(shape=[b, h, w, c, f, k, stride], ms=ms, plain_ms=p_ms, route=pl.route, bn=pl.bn,
+                              dtype=str(out.dtype).split(".")[-1],
+                              times=int8_conv_times(b, h, w, c, f, k, stride, out.element_size())))
         b_ms, b_by = bound([cl["times"] for cl in cells])
         fig = dict(ms=sum(cl["ms"] for cl in cells), plain_ms=sum(cl["plain_ms"] for cl in cells),
                    bound_ms=b_ms, bound_by=b_by)
@@ -781,20 +888,28 @@ def serve_slice3(rs, dev, card):
           f"same products (int32 out, no epilogue): {int_mm:.4f} ms")
     for cl in sorted(conv_cells, key=lambda cl: -cl["ms"])[:5]:
         b, h, w, c, f, k, s = cl["shape"]
-        print(f"  int8 conv top: B={b} {h}x{w}x{c}->{f} k{k} s{s}: {cl['ms']:.4f} ms "
-              f"(bound {bound([cl['times']])[0]:.4f} ms)")
+        print(f"  int8 conv top: B={b} {h}x{w}x{c}->{f} k{k} s{s} ({cl['route']}, BN={cl['bn']}): "
+              f"{cl['ms']:.4f} ms (bound {bound([cl['times']])[0]:.4f} ms)")
+    classes = class_table(conv_cells, k3_cells, card)
+    conv.update(route_launches=route_launches[1], classes=classes)
+    k3.update(route_launches=route_launches[0])
 
     # the entry point, as a user runs it: one request of 8 images, calibrated
     # on it (the first two request batches; there is one)
     before = [c.launches for c in counters]
+    routes_before = dict(int8_conv.route_launches)
     preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
                          "--seed", "1", "--quantize", "int8"])
     made = tuple(c.launches - b for c, b in zip(counters, before))
     check(made == (0, 2 * INT8_LAUNCHES["direct"][1], 1),
           f"slice 3 entry point: launches (K3, int8 conv, NMS) {made} for one calibration batch and one request")
+    routed = route_delta(int8_conv, routes_before)
+    check(routed == {r: 2 * n for r, n in ROUTE_LAUNCHES["direct"][1].items()},
+          f"slice 3 entry point: int8 conv launches by route {routed}")
     entries = check_entry_point(preds, 8)
     print(f"slice 3 entry point (--quantize int8): {len(entries)} normalised detections over 8 images, in "
-          f"range; launches (K3, int8 conv, NMS) {made}: one calibration pass and one request")
+          f"range; launches (K3, int8 conv, NMS) {made}, int8 conv by route {routed}: one calibration pass and "
+          "one request")
     return det, x128, launches, k3, conv, len(card_outs)
 
 
@@ -857,7 +972,11 @@ def profile_steps(steps, card):
                   f"{e.count // n:4d}x  {e.key[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3: build, SASS, every kernel against its plain version")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
         return 1
@@ -880,12 +999,16 @@ def main() -> int:
 
     # 2. build
     build_kernels()
+    check_int8_sass()
 
     # 3. the kernels against their plain versions
     rs = np.random.RandomState(0)
     nms_err, nms_cases = check_nms_kernel(rs, dev, card)
     corr_err = check_corr_kernel(dev)
     int8_cases, k3_err, conv_err = check_int8_kernels(dev)
+    if args.kernels_only:
+        print(json.dumps({"kernels_only": True, "int8_cases": int8_cases, "device": torch.cuda.get_device_name(0)}))
+        return 0
 
     # 4. slice 1: the detect path at 416 px, bf16
     nms_ms = {}
@@ -948,6 +1071,7 @@ def main() -> int:
             "library_ms": None,
             "match": True,
             "per": "one B=128 request: 4 launches",
+            "route_launches": k3["route_launches"],
             "cells": k3["cells"],
         },
         {
@@ -962,7 +1086,7 @@ def main() -> int:
             "match": True,
             "cases": int8_cases + cells3,
             "per": "one B=128 request with ds_conv='pallas': 68 launches",
-            **{k: conv[k] for k in ("ms_1x1", "int_mm_1x1_ms", "cells_1x1")},
+            **{k: conv[k] for k in ("ms_1x1", "int_mm_1x1_ms", "cells_1x1", "route_launches", "classes")},
         },
     ]
     print(json.dumps({"kernels": kernels}))

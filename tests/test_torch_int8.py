@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import videoyolo_tpu.ops.pallas_conv as jpallas_conv
 from videoyolo_tpu.data.transforms import to_normalized as jax_to_normalized
 from videoyolo_tpu.models import layers as jlayers
@@ -439,6 +440,103 @@ def test_detect_quantize_int8_on_cpu(capsys):
         with pytest.raises(NotImplementedError, match="item 9a"):
             detect.main(["--data_shape", str(SIZE), "--batch_size", "1", "--num_requests", "1",
                          "--device", "cpu", *flags])
+
+
+# --- the int8 kernels' plan --------------------------------------------------
+
+def _recorded_cells(ds_conv, size=416):
+    """Every int8 conv of one B=1 request of the fused-int8 YOLOv3(20,
+    pad_stem) at `size` px: ("conv" | "k3", (b, h, w, c), f, k, stride).
+    The convs are recorded and answered with zeros of the right shape; the
+    joins between them run as they are."""
+    cells = []
+
+    def conv(q, qkernel, stride=1, scale=None, bias=None, oscale=None, out_dtype=torch.float32):
+        b, c, h, w = q.shape
+        f, _, k, _ = qkernel.shape
+        cells.append(("conv", (b, h, w, c), f, k, stride))
+        dtype = torch.int32 if scale is None else torch.int8 if oscale is not None else out_dtype
+        ho, wo = int8_conv_kernel.out_size(h, k, stride), int8_conv_kernel.out_size(w, k, stride)
+        return torch.zeros((b, f, ho, wo), dtype=dtype).to(memory_format=torch.channels_last)
+
+    def k3(q, qkernel, scale, bias, oscale):
+        b, c, h, w = q.shape
+        cells.append(("k3", (b, h, w, c), qkernel.shape[0], 3, 2))
+        return torch.zeros((b, qkernel.shape[0], (h + 1) // 2, (w + 1) // 2),
+                           dtype=torch.int8).to(memory_format=torch.channels_last)
+
+    model = YOLOv3(num_classes=20, pad_stem=True, quant="fused", ds_conv=ds_conv).eval()
+    with pytest.MonkeyPatch.context() as mp, torch.inference_mode():
+        mp.setattr(layers, "int8_conv", conv)
+        mp.setattr(layers, "quant_downsample", k3)
+        model.to(memory_format=torch.channels_last)(torch.zeros((1, size, size, 3)))
+    return cells
+
+
+@pytest.fixture(scope="module")
+def model_cells():
+    """The 72 direct cells of a "direct" request and the 4 K3 cells of a
+    "pallas" request at 416 px."""
+    direct = _recorded_cells("direct")
+    k3 = [cell for cell in _recorded_cells("pallas") if cell[0] == "k3"]
+    assert len(direct) == 72 and all(cell[0] == "conv" for cell in direct) and len(k3) == 4
+    return direct + k3
+
+
+def _intended(c, f):
+    """(route, BN) that a cell of C input and F output channels should get
+    with aligned pointers: the 16-byte route for C % 16 == 0, the 4-byte
+    route for C % 4 == 0, else bytes; BN = 32 for F <= 32, else 64."""
+    route = int8_conv_kernel.ROUTES[16 if c % 16 == 0 else 4 if c % 4 == 0 else 1]
+    return route, (32 if f <= 32 else 64)
+
+
+def _assert_plan(b, h, w, c, f, k, stride):
+    """The plan of a cell whose pointers are 16-byte aligned, as the
+    allocator gives them."""
+    pl = int8_conv_kernel.plan(b, h, w, c, f, k, stride, int8_conv_kernel.alignment(c, 4096, 8192))
+    m = b * int8_conv_kernel.out_size(h, k, stride) * int8_conv_kernel.out_size(w, k, stride)
+    assert (pl.route, pl.bn) == _intended(c, f), (b, h, w, c, f, k, stride)
+    assert pl.bm == 128 and pl.stages == int8_conv_kernel.STAGES
+    assert pl.smem <= int8_conv_kernel.MAX_SMEM
+    assert pl.grid == -(-m // pl.bm) * -(-f // pl.bn) and pl.grid <= int8_conv_kernel.MAX_GRID
+    return pl
+
+
+@pytest.mark.parametrize("index", range(76))
+def test_plan_of_model_cells(model_cells, index):
+    """Each int8 conv of the 416-px model gets its intended route and tile
+    at B=1 and B=128: the stem (C = 4) the 4-byte route with a 32-wide N
+    tile, every other cell the 16-byte route."""
+    kind, (_, h, w, c), f, k, stride = model_cells[index]
+    for b in (1, 128):
+        pl = _assert_plan(b, h, w, c, f, k, stride)
+        if c == 4:
+            assert (kind, h, k, pl.route, pl.bn) == ("conv", 416, 3, "mma_word", 32)
+        else:
+            assert pl.route == int8_conv_kernel.ROUTES[16]
+
+
+@pytest.mark.parametrize(
+    "name,b,h,c,f,k,stride",
+    [case for case in chip_smoke.CONV_CASES]
+    + [(f"K3_{name}", b, h, c, f, 3, 2) for name, b, h, c, f in chip_smoke.K3_EDGE],
+    ids=lambda v: v if isinstance(v, str) else None,
+)
+def test_plan_of_card_cases(name, b, h, c, f, k, stride):
+    """The edge cases that chip_smoke.py holds against the plain versions
+    get the route and tile their shapes call for."""
+    _assert_plan(b, h, h, c, f, k, stride)
+
+
+def test_plan_narrows_on_misaligned_pointers():
+    assert int8_conv_kernel.alignment(64, 4096, 8192) == 16
+    assert int8_conv_kernel.alignment(64, 4096, 8196) == 4
+    assert int8_conv_kernel.alignment(64, 4097, 8192) == 1
+    assert int8_conv_kernel.alignment(36, 4096, 8192) == 4
+    shape = (8, 52, 52, 256, 128, 3, 1)
+    routes = [int8_conv_kernel.plan(*shape, align).route for align in (16, 4, 1)]
+    assert routes == [int8_conv_kernel.ROUTES[16], "mma_word", "mma_byte"]
 
 
 # --- guards ------------------------------------------------------------------

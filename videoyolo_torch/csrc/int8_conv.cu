@@ -13,7 +13,8 @@
 // cells that emit a QTensor), leaky in float32 or bf16 (the tips), or the raw
 // int32 sums (the calibration pass).  Plain PyTorch versions:
 // videoyolo_torch/ops/int8_conv.py:quant_downsample_plain and
-// int8_conv_plain; Python wrappers: videoyolo_torch/ops/int8_conv_kernel.py.
+// int8_conv_plain; Python wrappers and the plan that picks route and tile:
+// videoyolo_torch/ops/int8_conv_kernel.py.
 //
 // The s2d fold, the packed tap matrices and the two stacked halo views of the
 // TPU kernel exist only because of Mosaic's limits; none is carried over.
@@ -27,29 +28,28 @@
 // direct cells and the reciprocal multiply of K3 are IEEE round-to-nearest
 // (the reciprocal by __frcp_rn, as 1.0f / oscale); rint rounds half to even.
 // The file builds with -fmad=false, so no other multiply-add is contracted.
-//
-// Bound on an H100 SXM at its 700 W peaks (B=128, 416 px; chip_smoke.py
-// computes it per cell): K3's cell at a 208x208x64 input moves 354 MB in and
-// 177 MB out, 0.16 ms at 3.35 TB/s, against 0.10 ms of int8 operations at
-// 1,979 TOP/s: bytes.  Its other three cells, and most direct 3x3 cells, are
-// bound by int8 operations; the 1x1 cells are near the balance point.
+// The sums are int32 and exact in any order, so no tiling changes a bit.
 //
 // Design: an implicit GEMM.  M = the B*Ho*Wo output pixels, N = the F output
-// channels, K = KH*KW*C, taken tap by tap (k = (r*KW + s)*C + c).  One CTA of
-// four warps takes a 128-pixel x 64-channel output tile; each warp a 64 x 32
-// block, as 4 x 4 mma.sync.m16n8k32 s8 tiles with int32 accumulators in
-// registers.  K advances 64 bytes at a time through a 3-stage ring of shared
-// memory tiles filled by cp.async: for each output pixel of the tile, the 64
-// input bytes that the current taps reach (the input tile with its halo,
-// taken tap by tap), zero-filled outside the image, and the matching 64
-// bytes of each of the 64 weight rows.  Rows are padded to 80 bytes, so the
-// fragment loads of a warp hit 32 different banks.  When C is not a multiple
-// of 16 the copies are 4 bytes wide (C % 4 == 0: the 4-channel stem) or single
-// bytes (any C).  The epilogue runs in registers and stores each output value
-// once.
-// What is left for later: wgmma and TMA, the output staged through shared
-// memory for wide stores, and one halo tile per CTA reused across the taps
-// (the input is now re-read per tap, from L2).
+// channels, K = KH*KW*C, taken tap by tap (k = (r*KW + s)*C + c).  A CTA
+// takes a 128-pixel x BN-channel output tile (BN = 32 for F <= 32, else 64);
+// four warps, each 4 x 4 (or 2 x 4 at BN = 32) mma.sync.m16n8k32 s8 tiles
+// with int32 accumulators in registers.  K advances 64 bytes at a time
+// through a 3-stage ring of shared memory filled by cp.async: for each output
+// pixel of the tile, the 64 input bytes that the current taps reach,
+// zero-filled outside the image, and the matching 64 bytes of each weight
+// row.  Rows are padded to 80 bytes, so the fragment loads of a warp hit 32
+// different banks.  The route says how a stage is filled: 16-byte copies
+// when C % 16 == 0, 4-byte copies when C % 4 == 0 (the 4-channel stem),
+// single bytes otherwise.
+//
+// The epilogue is staged: each thread computes its outputs in registers and
+// writes them, typed, into the ring, which the main loop no longer needs;
+// then the CTA copies its tile to global memory row by row, 16 bytes a
+// thread.  When the tile spans all of F, its output is one contiguous block.
+//
+// The route and the tile are chosen on the host (int8_conv_kernel.plan) and
+// checked here: an entry point refuses a combination it was not built for.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,15 +58,25 @@
 
 namespace {
 
-constexpr int kBM = 128;     // output pixels per CTA
-constexpr int kBN = 64;      // output channels per CTA
-constexpr int kBK = 64;      // bytes of K per stage
-constexpr int kStages = 3;   // cp.async ring depth
+constexpr int kBM = 128;  // output pixels per CTA
+constexpr int kBK = 64;   // bytes of K per stage
+
+// routes (keep in step with ops/int8_conv_kernel.py)
+constexpr int kRouteByte = 0;  // any C: bytes gathered by the threads
+constexpr int kRouteWord = 1;  // C % 4 == 0: 4-byte cp.async
+constexpr int kRouteVec = 2;   // C % 16 == 0: 16-byte cp.async
+
 constexpr int kThreads = 128;
-constexpr int kRow = kBK + 16;  // padded shared-memory row: 16-byte aligned, no bank conflicts
-constexpr int kAStage = kBM * kRow;
-constexpr int kBStage = kBN * kRow;
-constexpr int kSmem = kStages * (kAStage + kBStage);  // 46,080 bytes
+constexpr int kStages = 3;       // cp.async ring depth
+constexpr int kRow = kBK + 16;   // padded shared-memory row: 16-byte aligned, no bank conflicts
+
+// shared memory of a CTA: the ring, or the staged output tile of the widest
+// type (int32) with room for each row's 16-byte offset, whichever is larger
+__host__ __device__ constexpr int ring_bytes(int bn) { return kStages * (kBM + bn) * kRow; }
+__host__ __device__ constexpr int stage_stride(int bn, int ob) { return bn * ob + 16; }
+__host__ __device__ constexpr int smem_bytes(int bn) {
+  return ring_bytes(bn) > kBM * stage_stride(bn, 4) ? ring_bytes(bn) : kBM * stage_stride(bn, 4);
+}
 
 // epilogues
 constexpr int kRaw = 0;        // int32 sums
@@ -74,6 +84,13 @@ constexpr int kRealF32 = 1;    // leaky(fma(acc, scale, bias)) as float32
 constexpr int kRealBF16 = 2;   // ... as bf16
 constexpr int kQuantDiv = 3;   // int8: rint(y / oscale) clipped (the direct cells)
 constexpr int kQuantRcp = 4;   // int8: rint(y * (1 / oscale)) clipped (K3)
+
+template <int kEpi>
+using OutT = typename std::conditional<
+    kEpi == kRaw, int,
+    typename std::conditional<kEpi == kRealF32, float,
+                              typename std::conditional<kEpi == kRealBF16, __nv_bfloat16,
+                                                        int8_t>::type>::type>::type;
 
 struct ConvParams {
   const int8_t* x;      // (B, H, W, C)
@@ -146,6 +163,7 @@ struct PixelRow {
 // C % 16 == 0: each 16-byte segment of K lies inside one tap, so the tiles
 // are copied 16 bytes at a time with cp.async.  Thread t copies segment t % 4
 // of the rows t / 4 + 32 j.
+template <int kBN>
 struct VecLoader {
   PixelRow rows[kBM / 32];
   __device__ void init(const ConvParams& p, int m0) {
@@ -180,9 +198,11 @@ struct VecLoader {
 };
 
 // C % 4 == 0 (the 4-channel stem): each 4-byte word of K lies inside one
-// tap.  Thread t copies the 16 words of pixel row t and 8 words of weight row
-// t / 2, 4 bytes at a time with cp.async.
+// tap.  Thread t copies the 16 words of pixel row t and its share of a weight
+// row (kThreads / kBN threads a row), 4 bytes at a time with cp.async.
+template <int kBN>
 struct WordLoader {
+  static constexpr int kShare = kBK / (kThreads / kBN);  // weight bytes per thread
   PixelRow row;
   __device__ void init(const ConvParams& p, int m0) { row.init(p, m0 + threadIdx.x); }
   __device__ void load(const ConvParams& p, int8_t* as, int8_t* bs, int n0, int kt) const {
@@ -197,20 +217,22 @@ struct WordLoader {
       }
       cp_async4(as + threadIdx.x * kRow + 4 * q, off >= 0 ? p.x + off : p.x, off >= 0);
     }
-    const int brow = threadIdx.x >> 1;
+    const int brow = threadIdx.x / (kThreads / kBN);
     const int n = n0 + brow;
-    const int half = (threadIdx.x & 1) * (kBK / 2);
-    for (int q = 0; q < kBK / 8; ++q) {
-      const int k = k0 + half + 4 * q;
+    const int part = (threadIdx.x % (kThreads / kBN)) * kShare;
+    for (int q = 0; q < kShare / 4; ++q) {
+      const int k = k0 + part + 4 * q;
       const bool in = n < p.F && k < p.K;
-      cp_async4(bs + brow * kRow + half + 4 * q, in ? p.w + static_cast<long long>(n) * p.K + k : p.w, in);
+      cp_async4(bs + brow * kRow + part + 4 * q, in ? p.w + static_cast<long long>(n) * p.K + k : p.w, in);
     }
   }
 };
 
-// Any C: thread t gathers the 64 bytes of pixel row t, and half a weight row,
-// byte by byte.
+// Any C: thread t gathers the 64 bytes of pixel row t, and its share of a
+// weight row, byte by byte.
+template <int kBN>
 struct ByteLoader {
+  static constexpr int kShare = kBK / (kThreads / kBN);
   PixelRow row;
   __device__ void init(const ConvParams& p, int m0) { row.init(p, m0 + threadIdx.x); }
   __device__ int8_t input_byte(const ConvParams& p, int k) const {
@@ -230,67 +252,125 @@ struct ByteLoader {
       }
       *reinterpret_cast<uint32_t*>(as + threadIdx.x * kRow + 4 * q) = word;
     }
-    const int brow = threadIdx.x >> 1;
+    const int brow = threadIdx.x / (kThreads / kBN);
     const int n = n0 + brow;
-    const int kb = k0 + (threadIdx.x & 1) * (kBK / 2);
-    for (int q = 0; q < kBK / 8; ++q) {
+    const int part = (threadIdx.x % (kThreads / kBN)) * kShare;
+    for (int q = 0; q < kShare / 4; ++q) {
       uint32_t word = 0;
       for (int e = 0; e < 4; ++e) {
-        const int k = kb + 4 * q + e;
+        const int k = k0 + part + 4 * q + e;
         const int8_t v = (n < p.F && k < p.K) ? p.w[static_cast<long long>(n) * p.K + k] : 0;
         word |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * e);
       }
-      *reinterpret_cast<uint32_t*>(bs + brow * kRow + (threadIdx.x & 1) * (kBK / 2) + 4 * q) = word;
+      *reinterpret_cast<uint32_t*>(bs + brow * kRow + part + 4 * q) = word;
     }
   }
 };
 
+// the output value of int32 sum `acc` at channel n, written to dst
 template <int kEpi>
-__device__ __forceinline__ void store(const ConvParams& p, long long idx, int n, int acc, float os) {
-  if (kEpi == kRaw) {
-    static_cast<int*>(p.out)[idx] = acc;
-    return;
-  }
-  float y = __fmaf_rn(__int2float_rn(acc), p.scale[n], p.bias[n]);
-  y = y > 0.f ? y : __fmul_rn(y, 0.1f);
-  if (kEpi == kRealF32) {
-    static_cast<float*>(p.out)[idx] = y;
-  } else if (kEpi == kRealBF16) {
-    static_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16_rn(y);
+__device__ __forceinline__ void store(const ConvParams& p, OutT<kEpi>* dst, int n, int acc, float os) {
+  if constexpr (kEpi == kRaw) {
+    *dst = acc;
   } else {
-    float q = rintf(kEpi == kQuantDiv ? __fdiv_rn(y, os) : __fmul_rn(y, os));
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    static_cast<int8_t*>(p.out)[idx] = static_cast<int8_t>(__float2int_rn(q));
+    float y = __fmaf_rn(__int2float_rn(acc), p.scale[n], p.bias[n]);
+    y = y > 0.f ? y : __fmul_rn(y, 0.1f);
+    if constexpr (kEpi == kRealF32) {
+      *dst = y;
+    } else if constexpr (kEpi == kRealBF16) {
+      *dst = __float2bfloat16_rn(y);
+    } else {
+      float q = rintf(kEpi == kQuantDiv ? __fdiv_rn(y, os) : __fmul_rn(y, os));
+      q = fminf(fmaxf(q, -127.f), 127.f);
+      *dst = static_cast<int8_t>(__float2int_rn(q));
+    }
   }
 }
 
-// how a stage is filled
-constexpr int kLoadByte = 0;
-constexpr int kLoadWord = 1;
-constexpr int kLoadVec = 2;
+// The output tile staged in shared memory.  Row r (pixel m0 + r) starts at
+// r * kStride plus its global byte offset mod 16, so that the 16-byte slots
+// of shared and of global memory line up: every full slot is one 16-byte
+// load and one 16-byte store; a slot cut by a ragged row end (F * size not a
+// multiple of 16) is copied byte by byte.
+template <int kBN, int kEpi>
+struct StagedTile {
+  using T = OutT<kEpi>;
+  static constexpr int kOb = sizeof(T);
+  static constexpr int kStride = stage_stride(kBN, kOb);
+  int8_t* smem;
+  int m0, n0;
+  float os;
 
-template <int kLoad, int kEpi>
+  __device__ StagedTile(const ConvParams& p, int8_t* smem_, int m0_, int n0_)
+      : smem(smem_), m0(m0_), n0(n0_), os(0.f) {
+    if constexpr (kEpi == kQuantDiv) os = *p.oscale;
+    if constexpr (kEpi == kQuantRcp) os = __frcp_rn(*p.oscale);
+  }
+  __device__ long long global_byte(const ConvParams& p, int r) const {
+    return (static_cast<long long>(m0 + r) * p.F + n0) * kOb;
+  }
+  // where row r's values start in shared memory, or nullptr past the last pixel
+  __device__ T* row(const ConvParams& p, int r) const {
+    if (m0 + r >= p.M) return nullptr;
+    return reinterpret_cast<T*>(smem + r * kStride + static_cast<int>(global_byte(p, r) & 15));
+  }
+  // accumulator acc of channel column col, into row `dst`
+  __device__ __forceinline__ void put(const ConvParams& p, T* dst, int col, int acc) const {
+    const int n = n0 + col;
+    if (dst != nullptr && n < p.F) store<kEpi>(p, dst + col, n, acc, os);
+  }
+  // the CTA's rows to global memory, 16 bytes a thread
+  __device__ void flush(const ConvParams& p) const {
+    const int rows = min(kBM, p.M - m0);
+    const int row_bytes = min(kBN, p.F - n0) * kOb;
+    // n0 * kOb is a multiple of 32, so with F * kOb a multiple of 16 every
+    // row starts on a slot
+    const bool aligned = (static_cast<long long>(p.F) * kOb) % 16 == 0;
+    const int slots = (row_bytes + 15) / 16 + (aligned ? 0 : 1);
+    int8_t* out = static_cast<int8_t*>(p.out);
+    for (int i = threadIdx.x; i < rows * slots; i += blockDim.x) {
+      const int r = i / slots, sl = i - r * slots;
+      const long long g = global_byte(p, r);
+      const long long s0 = (g & ~15LL) + 16LL * sl;  // the slot's first global byte
+      const int8_t* src = smem + r * kStride + 16 * sl;
+      const long long lo = max(s0, g), hi = min(s0 + 16, g + row_bytes);
+      if (hi - lo == 16) {
+        *reinterpret_cast<int4*>(out + s0) = *reinterpret_cast<const int4*>(src);
+      } else {
+        for (long long b = lo; b < hi; ++b) out[b] = src[b - s0];
+      }
+    }
+  }
+};
+
+template <int kRoute, int kBN, int kEpi>
 __device__ __forceinline__ void conv_tile(const ConvParams& p) {
-  __shared__ __align__(16) int8_t smem[kSmem];
+  extern __shared__ __align__(128) int8_t smem[];
+  constexpr int kAStage = kBM * kRow;
+  constexpr int kBStage = kBN * kRow;
   int8_t* a_smem = smem;
   int8_t* b_smem = smem + kStages * kAStage;
 
+  // warps: 2 x 2 of 64 x 32 at BN = 64, 4 x 1 of 32 x 32 at BN = 32
+  constexpr int kWarpsM = 4 / (kBN / 32);
+  constexpr int kMI = kBM / kWarpsM / 16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   // consecutive CTAs share a pixel tile, so its input is read from L2
   const int m0 = (blockIdx.x / p.n_tiles) * kBM;
   const int n0 = (blockIdx.x % p.n_tiles) * kBN;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const int wm = (warp % kWarpsM) * (kMI * 16), wn = (warp / kWarpsM) * 32;
   const int nk = (p.K + kBK - 1) / kBK;
 
   typename std::conditional<
-      kLoad == kLoadVec, VecLoader,
-      typename std::conditional<kLoad == kLoadWord, WordLoader, ByteLoader>::type>::type loader;
+      kRoute == kRouteVec, VecLoader<kBN>,
+      typename std::conditional<kRoute == kRouteWord, WordLoader<kBN>, ByteLoader<kBN>>::type>::type
+      loader;
   loader.init(p, m0);
 
-  int acc[4][4][4];
+  int acc[kMI][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kMI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -315,9 +395,9 @@ __device__ __forceinline__ void conv_tile(const ConvParams& p) {
     const int8_t* bs = b_smem + (kt % kStages) * kBStage;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
+      uint32_t af[kMI][4], bf[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
+      for (int mi = 0; mi < kMI; ++mi) {
         const int8_t* pa = as + (wm + mi * 16 + g) * kRow + kk + 4 * t;
         af[mi][0] = lds32(pa);
         af[mi][1] = lds32(pa + 8 * kRow);
@@ -331,50 +411,64 @@ __device__ __forceinline__ void conv_tile(const ConvParams& p) {
         bf[ni][1] = lds32(pb + 16);
       }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the staged tile
 
-  // epilogue: accumulator e of tile (mi, ni) is pixel row g + 8 (e / 2),
-  // channel 2t + (e % 2)
-  float os = 0.f;
-  if (kEpi == kQuantDiv) os = *p.oscale;
-  if (kEpi == kQuantRcp) os = __frcp_rn(*p.oscale);
+  // accumulator e of tile (mi, ni) is pixel row g + 8 (e / 2), channel
+  // column 2t + (e % 2)
+  StagedTile<kBN, kEpi> tile(p, smem, m0, n0);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int mi = 0; mi < kMI; ++mi) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + mi * 16 + g + 8 * h;
-      if (m >= p.M) continue;
+      auto* dst = tile.row(p, wm + mi * 16 + g + 8 * h);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + ni * 8 + 2 * t + e;
-          if (n < p.F) store<kEpi>(p, static_cast<long long>(m) * p.F + n, n, acc[mi][ni][2 * h + e], os);
-        }
+        for (int e = 0; e < 2; ++e) tile.put(p, dst, wn + ni * 8 + 2 * t + e, acc[mi][ni][2 * h + e]);
       }
     }
   }
+  __syncthreads();
+  tile.flush(p);
 }
 
-template <int kLoad, int kEpi>
+template <int kRoute, int kBN, int kEpi>
 __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p) {
-  conv_tile<kLoad, kEpi>(p);
+  conv_tile<kRoute, kBN, kEpi>(p);
 }
 
 // K3: the 3x3 / stride-2 / pad-1 downsample with the reciprocal epilogue
-template <int kLoad>
+template <int kRoute, int kBN>
 __global__ void __launch_bounds__(kThreads) int8_downsample_kernel(const ConvParams p) {
-  conv_tile<kLoad, kQuantRcp>(p);
+  conv_tile<kRoute, kBN, kQuantRcp>(p);
 }
 
-int setup(ConvParams& p, const void* x, const void* w, const void* scale, const void* bias,
-          const void* oscale, void* out, int B, int H, int W, int C, int F, int KH, int KW,
-          int stride) {
+// The route and tile of a launch, as the plan gives them.
+struct Tile {
+  int route, bm, bn, stages, smem, grid;
+};
+
+// Fills p; returns the CTAs of the launch, or -1 on shapes the kernels do not
+// take or a tile they were not built for.
+int setup(ConvParams& p, const Tile& tile, const void* x, const void* w, const void* scale,
+          const void* bias, const void* oscale, void* out, int B, int H, int W, int C, int F, int KH,
+          int KW, int stride) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || F < 1 || KH < 1 || KW < 1 || stride < 1) return -1;
+  if (tile.route < kRouteByte || tile.route > kRouteVec || tile.bm != kBM ||
+      (tile.bn != 32 && tile.bn != 64) || tile.stages != kStages || tile.smem != smem_bytes(tile.bn)) {
+    return -1;
+  }
+  // the widest copies that C and the pointers' alignment allow
+  const auto aligned = [&](int n) {
+    return C % n == 0 && reinterpret_cast<uintptr_t>(x) % n == 0 && reinterpret_cast<uintptr_t>(w) % n == 0;
+  };
+  if ((tile.route == kRouteVec && !aligned(16)) || (tile.route == kRouteWord && !aligned(4))) return -1;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
   p.scale = static_cast<const float*>(scale);
@@ -387,33 +481,44 @@ int setup(ConvParams& p, const void* x, const void* w, const void* scale, const 
   p.Wo = (W + 2 * (KW / 2) - KW) / stride + 1;
   const long long m = static_cast<long long>(B) * p.Ho * p.Wo;
   const long long k = static_cast<long long>(KH) * KW * C;
-  p.n_tiles = (F + kBN - 1) / kBN;
+  p.n_tiles = (F + tile.bn - 1) / tile.bn;
   const long long blocks = (m + kBM - 1) / kBM * p.n_tiles;
-  if (p.Ho < 1 || p.Wo < 1 || m > 0x7fffffffLL || k > 0x7fffffffLL || blocks > 0x7fffffffLL) {
-    return -1;
-  }
+  if (p.Ho < 1 || p.Wo < 1 || m > 0x7fffffffLL || k > 0x7fffffffLL || blocks != tile.grid) return -1;
   p.M = static_cast<int>(m);
   p.K = static_cast<int>(k);
   return static_cast<int>(blocks);
 }
 
-// the widest copies that C and the pointers' alignment allow
-int load_kind(const ConvParams& p) {
-  const auto aligned = [&](int n) {
-    return p.C % n == 0 && reinterpret_cast<uintptr_t>(p.x) % n == 0 &&
-           reinterpret_cast<uintptr_t>(p.w) % n == 0;
-  };
-  return aligned(16) ? kLoadVec : aligned(4) ? kLoadWord : kLoadByte;
+template <int kRoute, int kBN, int kEpi>
+cudaError_t launch_tile(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
+  void (*kernel)(ConvParams);
+  if constexpr (kEpi == kQuantRcp) {
+    kernel = int8_downsample_kernel<kRoute, kBN>;
+  } else {
+    kernel = int8_conv_kernel<kRoute, kBN, kEpi>;
+  }
+  if (tile.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tile.smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<tile.grid, kThreads, tile.smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kRoute, int kEpi>
+cudaError_t launch_route(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
+  return tile.bn == 32 ? launch_tile<kRoute, 32, kEpi>(p, tile, stream)
+                       : launch_tile<kRoute, 64, kEpi>(p, tile, stream);
 }
 
 template <int kEpi>
-cudaError_t launch_conv(const ConvParams& p, int blocks, cudaStream_t stream) {
-  switch (load_kind(p)) {
-    case kLoadVec: int8_conv_kernel<kLoadVec, kEpi><<<blocks, kThreads, 0, stream>>>(p); break;
-    case kLoadWord: int8_conv_kernel<kLoadWord, kEpi><<<blocks, kThreads, 0, stream>>>(p); break;
-    default: int8_conv_kernel<kLoadByte, kEpi><<<blocks, kThreads, 0, stream>>>(p);
+cudaError_t launch(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
+  switch (tile.route) {
+    case kRouteVec: return launch_route<kRouteVec, kEpi>(p, tile, stream);
+    case kRouteWord: return launch_route<kRouteWord, kEpi>(p, tile, stream);
+    default: return launch_route<kRouteByte, kEpi>(p, tile, stream);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -422,42 +527,43 @@ cudaError_t launch_conv(const ConvParams& p, int blocks, cudaStream_t stream) {
 // dense; pad KH/2; out (B, Ho, Wo, F), dense, of the epilogue's type: epi 0
 // int32 (scale, bias, oscale unused), 1 float32, 2 bf16 (oscale unused), 3
 // int8 requantised by division by *oscale.  scale, bias (F,) float32 and
-// oscale (scalar float32) lie on the device.  Returns the CUDA error of the
-// launch (0 on success).
+// oscale (scalar float32) lie on the device.  route, bm, bn, stages, smem and
+// grid are the plan's (ops/int8_conv_kernel.py:plan).  Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale, const void* bias,
                                 const void* oscale, void* out, int B, int H, int W, int C, int F,
-                                int KH, int KW, int stride, int epi, void* stream) {
+                                int KH, int KW, int stride, int epi, int route, int bm, int bn,
+                                int stages, int smem, int grid, void* stream) {
   ConvParams p;
-  const int blocks = setup(p, x, w, scale, bias, oscale, out, B, H, W, C, F, KH, KW, stride);
-  if (blocks < 0 || KH != KW || KH % 2 == 0) return cudaErrorInvalidValue;
+  const Tile tile{route, bm, bn, stages, smem, grid};
+  if (setup(p, tile, x, w, scale, bias, oscale, out, B, H, W, C, F, KH, KW, stride) < 0 || KH != KW ||
+      KH % 2 == 0) {
+    return cudaErrorInvalidValue;
+  }
   if (epi != kRaw && (scale == nullptr || bias == nullptr)) return cudaErrorInvalidValue;
   if (epi == kQuantDiv && oscale == nullptr) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (epi) {
-    case kRaw: return launch_conv<kRaw>(p, blocks, st);
-    case kRealF32: return launch_conv<kRealF32>(p, blocks, st);
-    case kRealBF16: return launch_conv<kRealBF16>(p, blocks, st);
-    case kQuantDiv: return launch_conv<kQuantDiv>(p, blocks, st);
+    case kRaw: return launch<kRaw>(p, tile, st);
+    case kRealF32: return launch<kRealF32>(p, tile, st);
+    case kRealBF16: return launch<kRealBF16>(p, tile, st);
+    case kQuantDiv: return launch<kQuantDiv>(p, tile, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // K3: x (B, H, W, C) int8, w (F, 3, 3, C) int8, both dense; out (B, Ho, Wo,
-// F) int8, Ho = (H + 1) / 2; the epilogue multiplies by 1 / *oscale.
-// Returns the CUDA error of the launch (0 on success).
+// F) int8, Ho = (H + 1) / 2; the epilogue multiplies by 1 / *oscale.  The
+// tile is the plan's.  Returns the CUDA error of the launch (0 on success).
 extern "C" int int8_downsample_launch(const void* x, const void* w, const void* scale,
                                       const void* bias, const void* oscale, void* out, int B,
-                                      int H, int W, int C, int F, void* stream) {
+                                      int H, int W, int C, int F, int route, int bm, int bn,
+                                      int stages, int smem, int grid, void* stream) {
   ConvParams p;
-  const int blocks = setup(p, x, w, scale, bias, oscale, out, B, H, W, C, F, 3, 3, 2);
-  if (blocks < 0 || scale == nullptr || bias == nullptr || oscale == nullptr) {
+  const Tile tile{route, bm, bn, stages, smem, grid};
+  if (setup(p, tile, x, w, scale, bias, oscale, out, B, H, W, C, F, 3, 3, 2) < 0 ||
+      scale == nullptr || bias == nullptr || oscale == nullptr) {
     return cudaErrorInvalidValue;
   }
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (load_kind(p)) {
-    case kLoadVec: int8_downsample_kernel<kLoadVec><<<blocks, kThreads, 0, st>>>(p); break;
-    case kLoadWord: int8_downsample_kernel<kLoadWord><<<blocks, kThreads, 0, st>>>(p); break;
-    default: int8_downsample_kernel<kLoadByte><<<blocks, kThreads, 0, st>>>(p);
-  }
-  return cudaGetLastError();
+  return launch<kQuantRcp>(p, tile, static_cast<cudaStream_t>(stream));
 }

@@ -24,11 +24,19 @@ BASE_FLAGS = (
 )
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _tool(name: str) -> str:
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+        raise RuntimeError(f"{name} not found: the CUDA kernels build only where the CUDA toolkit is")
     return path
+
+
+def sass(lib: Path) -> str:
+    """The SASS of a built library (`cuobjdump -sass`)."""
+    proc = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {lib}:\n{proc.stderr}")
+    return proc.stdout
 
 
 def build(source: Path, flags: Sequence[str] = ()) -> Tuple[Path, str]:
@@ -45,7 +53,7 @@ def build(source: Path, flags: Sequence[str] = ()) -> Tuple[Path, str]:
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = BUILD_DIR / f"lib{source.stem}_{key}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [_nvcc(), *all_flags, "-Xptxas", "-v", "-o", str(tmp), str(source)],
+        [_tool("nvcc"), *all_flags, "-Xptxas", "-v", "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -10,16 +10,18 @@ Two kernels, one template:
   int8 `conv_general_dilated` (`models/layers.py:quant_conv_cell`).  Plain
   version: `ops/int8_conv.py:int8_conv_plain`.
 
-Both equal their plain versions bit for bit.  Tensors are NCHW views of
-`channels_last` memory, as the port's models keep them; a layout the kernels
-do not take raises, it is never copied.  The shared library is built by
-`ops/cuda_build.py` on first use and bound with ctypes.  Importing this module
-needs neither nvcc nor a GPU.
+Both equal their plain versions bit for bit.  `plan` chooses each launch's
+route and tile from the shape and the alignment; the C entry points check
+them.  Tensors are NCHW views of `channels_last` memory, as the port's models
+keep them; a layout the kernels do not take raises, it is never copied.  The
+shared library is built by `ops/cuda_build.py` on first use and bound with
+ctypes.  Importing this module needs neither nvcc nor a GPU.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +34,58 @@ NVCC_FLAGS = ("-fmad=false",)
 EPI_RAW, EPI_F32, EPI_BF16, EPI_QUANT = 0, 1, 2, 3
 _REAL_EPI = {torch.float32: EPI_F32, torch.bfloat16: EPI_BF16}
 
+# the routes by the alignment of C and the pointers, and the tiling (keep in
+# step with csrc/int8_conv.cu)
+ROUTES = {16: "mma_vec", 4: "mma_word", 1: "mma_byte"}
+_ROUTE_IDS = {"mma_byte": 0, "mma_word": 1, "mma_vec": 2}
+BM = 128  # output pixels per CTA
+BK = 64  # bytes of K per stage
+STAGES = 3
+ROW = BK + 16  # padded shared-memory row of the ring
+MAX_SMEM = 232448  # what one CTA of an H100 may hold
+MAX_GRID = 2**31 - 1
+
+
+class Plan(NamedTuple):
+    route: str
+    bm: int
+    bn: int
+    stages: int
+    smem: int  # dynamic shared memory bytes
+    grid: int  # CTAs
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def out_size(h: int, k: int, stride: int) -> int:
+    return (h + 2 * (k // 2) - k) // stride + 1
+
+
+def alignment(c: int, *ptrs: int) -> int:
+    """The largest of 16, 4 and 1 that divides C and every pointer."""
+    return next(n for n in (16, 4, 1) if c % n == 0 and all(p % n == 0 for p in ptrs))
+
+
+def plan(b: int, h: int, w: int, c: int, f: int, k: int, stride: int, align: int) -> Plan:
+    """The route and tile of one launch on a (B, H, W, C) input, F output
+    channels, a k x k kernel at `stride`, with C and both pointers aligned to
+    `align` (16, 4 or 1).
+
+    The route follows the alignment: 16-byte, 4-byte or single-byte copies
+    into the ring, all multiplied by mma.sync.  A CTA takes BM = 128 output
+    pixels and BN = 32 channels when F <= 32 (no half-idle tile), else 64.
+    Shared memory holds the ring or the staged output tile of the widest
+    epilogue (int32 rows of BN values, each with room for its 16-byte
+    offset), whichever is larger."""
+    route = ROUTES[align]
+    bn = 32 if f <= 32 else 64
+    ring = STAGES * (BM + bn) * ROW
+    smem = max(ring, BM * (bn * 4 + 16))
+    m = b * out_size(h, k, stride) * out_size(w, k, stride)
+    return Plan(route, BM, bn, STAGES, smem, _ceil_div(m, BM) * _ceil_div(f, bn))
+
 
 def build():
     """Compile `csrc/int8_conv.cu` unless it was built already: (library
@@ -43,9 +97,10 @@ def build():
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptrs = [ctypes.c_void_p] * 6  # x, w, scale, bias, oscale, out
-    lib.int8_conv_launch.argtypes = ptrs + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    tile = [ctypes.c_int] * 6  # route, bm, bn, stages, smem, grid
+    lib.int8_conv_launch.argtypes = ptrs + [ctypes.c_int] * 9 + tile + [ctypes.c_void_p]
     lib.int8_conv_launch.restype = ctypes.c_int
-    lib.int8_downsample_launch.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.int8_downsample_launch.argtypes = ptrs + [ctypes.c_int] * 5 + tile + [ctypes.c_void_p]
     lib.int8_downsample_launch.restype = ctypes.c_int
     return lib
 
@@ -79,6 +134,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _plan_for(name: str, q: torch.Tensor, qkernel: torch.Tensor, stride: int) -> Plan:
+    b, c, h, w = q.shape
+    f, _, k, _ = qkernel.shape
+    pl = plan(b, h, w, c, f, k, stride, alignment(c, q.data_ptr(), qkernel.data_ptr()))
+    if pl.grid > MAX_GRID:
+        raise ValueError(f"{name}: {pl.grid} CTAs for {tuple(q.shape)}, more than a grid holds")
+    return pl
+
+
+def _tile_args(pl: Plan):
+    return _ROUTE_IDS[pl.route], pl.bm, pl.bn, pl.stages, pl.smem, pl.grid
+
+
 def int8_conv(
     q: torch.Tensor,
     qkernel: torch.Tensor,
@@ -96,7 +164,8 @@ def int8_conv(
     round(y / oscale) clipped to +-127 when `oscale` (a float32 scalar on the
     card) is given, else y in `out_dtype` (float32 or bf16).  Returns (B, F,
     Ho, Wo) in channels_last memory.  Launches on the current stream and
-    does not synchronise; `int8_conv.launches` counts launches."""
+    does not synchronise; `int8_conv.launches` counts launches and
+    `int8_conv.route_launches` them by route."""
     if scale is None:
         epi, dtype = EPI_RAW, torch.int32
     elif oscale is not None:
@@ -110,19 +179,21 @@ def int8_conv(
     _check("int8_conv", q, qkernel, [] if scale is None else [("scale", scale), ("bias", bias)], oscale)
     b, c, h, w = q.shape
     f, _, k, _ = qkernel.shape
-    pad = k // 2
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    ho, wo = out_size(h, k, stride), out_size(w, k, stride)
     if stride < 1 or ho < 1 or wo < 1:
         raise ValueError(f"int8_conv: no output for {tuple(q.shape)}, kernel {k}, stride {stride}")
+    pl = _plan_for("int8_conv", q, qkernel, stride)
     out = torch.empty((b, f, ho, wo), dtype=dtype, device=q.device, memory_format=torch.channels_last)
     with torch.cuda.device(q.device):
         err = _library().int8_conv_launch(
             q.data_ptr(), qkernel.data_ptr(), _ptr(scale), _ptr(bias), _ptr(oscale), out.data_ptr(),
-            b, h, w, c, f, k, k, stride, epi, torch.cuda.current_stream(q.device).cuda_stream,
+            b, h, w, c, f, k, k, stride, epi, *_tile_args(pl),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"int8_conv launch failed with CUDA error {err}")
+        raise RuntimeError(f"int8_conv launch failed with CUDA error {err} ({pl})")
     int8_conv.launches += 1
+    int8_conv.route_launches[pl.route] += 1
     return out
 
 
@@ -137,24 +208,28 @@ def quant_downsample(
     a float32 scalar on the card.  Returns int8 round(leaky(acc * scale +
     bias) * (1 / oscale)) clipped to +-127, (B, F, ceil(H/2), ceil(W/2)) in
     channels_last memory.  Launches on the current stream and does not
-    synchronise; `quant_downsample.launches` counts launches."""
+    synchronise; `quant_downsample.launches` counts launches and
+    `quant_downsample.route_launches` them by route."""
     _check("quant_downsample", q, qkernel, [("scale", scale), ("bias", bias)], oscale)
     if qkernel.shape[-1] != 3:
         raise ValueError(f"quant_downsample takes a 3x3 kernel, got {tuple(qkernel.shape)}")
     b, c, h, w = q.shape
     f = qkernel.shape[0]
+    pl = _plan_for("quant_downsample", q, qkernel, 2)
     out = torch.empty((b, f, (h + 1) // 2, (w + 1) // 2), dtype=torch.int8, device=q.device,
                       memory_format=torch.channels_last)
     with torch.cuda.device(q.device):
         err = _library().int8_downsample_launch(
             q.data_ptr(), qkernel.data_ptr(), scale.data_ptr(), bias.data_ptr(), oscale.data_ptr(),
-            out.data_ptr(), b, h, w, c, f, torch.cuda.current_stream(q.device).cuda_stream,
+            out.data_ptr(), b, h, w, c, f, *_tile_args(pl), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"quant_downsample launch failed with CUDA error {err}")
+        raise RuntimeError(f"quant_downsample launch failed with CUDA error {err} ({pl})")
     quant_downsample.launches += 1
+    quant_downsample.route_launches[pl.route] += 1
     return out
 
 
-int8_conv.launches = 0
-quant_downsample.launches = 0
+for _fn in (int8_conv, quant_downsample):
+    _fn.launches = 0
+    _fn.route_launches = dict.fromkeys(_ROUTE_IDS, 0)
