@@ -130,10 +130,10 @@ K3_CELLS = ((208, 64, 128), (104, 128, 256), (52, 256, 512), (26, 512, 1024))
 CALIB_IMAGES = 8
 # (K3, int8 conv, NMS) launches per request
 INT8_LAUNCHES = {"pallas": (4, 68, 1), "direct": (0, 72, 1)}
-# the same by route, (K3's, the int8 conv's): the stem (C = 4) takes the
-# 4-byte route, every other cell the 16-byte one
-VEC = int8_conv_kernel.ROUTES[16]
-ROUTE_LAUNCHES = {"pallas": ({VEC: 4}, {VEC: 67, "mma_word": 1}), "direct": ({}, {VEC: 71, "mma_word": 1})}
+# the same by route, (K3's, the int8 conv's): the stem (C = 4) takes
+# mma_word, every other cell wgmma
+ROUTE_LAUNCHES = {"pallas": ({"wgmma": 4}, {"wgmma": 67, "mma_word": 1}),
+                  "direct": ({}, {"wgmma": 71, "mma_word": 1})}
 CPU_IMAGES = 8  # images of the B=8 request held against the CPU model: all of them
 # the int8 conv kernel on the card: (name, B, H, C, F, kernel, stride), one
 # case per cell kind of the model, then edge cases
@@ -329,26 +329,31 @@ def build_kernels():
     print(f"built {', '.join(lib.name for lib, _ in builds)} in {time.perf_counter() - t0:.1f} s")
     for lib, ptxas in builds:
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling", "wgmma", "arning")):
                 print(f"  ptxas {lib.name.split('_')[0]}: {line.strip()}")
 
 
 def check_int8_sass():
     """The int8 library's SASS: every kernel stores its output 16 bytes at a
-    time (STG.E.128).  Prints one line of it per route."""
+    time (STG.E.128), and the wgmma route's kernels multiply with Hopper's
+    warpgroup MMA (IGMMA).  Prints one line of each per route."""
     sass = cuda_build.sass(int8_conv_kernel.build()[0])
     kernels = re.findall(r"Function : (\S*int8_(?:conv|downsample)_kernelILi(\d)E\S*)\n(.*?)(?=Function :|\Z)",
                          sass, re.S)
-    routes = {v: k for k, v in int8_conv_kernel._ROUTE_IDS.items()}
+    routes = {str(v): k for k, v in int8_conv_kernel._ROUTE_IDS.items()}
     check(kernels, "int8 SASS: no kernel found")
     shown = set()
-    for name, route, body in kernels:
-        stores = [ln.strip() for ln in body.splitlines() if "STG.E.128" in ln]
-        check(stores, f"int8 SASS: no 128-bit global store in {name}")
-        if route not in shown:
-            shown.add(route)
-            print(f"int8 SASS, route {routes[int(route)]} ({name}): {stores[0]}")
-    print(f"int8 SASS: {len(kernels)} kernels, each with 128-bit global stores")
+    for name, route_id, body in kernels:
+        route = routes[route_id]
+        lines = [ln.strip() for ln in body.splitlines()]
+        wanted = [("STG.E.128", "a 128-bit global store")] + ([("GMMA", "a warpgroup MMA")] if route == "wgmma" else [])
+        for op, what in wanted:
+            hits = [ln for ln in lines if op in ln]
+            check(hits, f"int8 SASS: no {what} ({op}) in {name}")
+            if (route, op) not in shown:
+                shown.add((route, op))
+                print(f"int8 SASS, route {route} ({name}): {' '.join(hits[0].split()[:6])}")
+    print(f"int8 SASS: {len(kernels)} kernels, each with 128-bit global stores, the wgmma route's with IGMMA")
 
 
 def first_difference(out, ref):

@@ -485,10 +485,12 @@ def model_cells():
 
 def _intended(c, f):
     """(route, BN) that a cell of C input and F output channels should get
-    with aligned pointers: the 16-byte route for C % 16 == 0, the 4-byte
-    route for C % 4 == 0, else bytes; BN = 32 for F <= 32, else 64."""
-    route = int8_conv_kernel.ROUTES[16 if c % 16 == 0 else 4 if c % 4 == 0 else 1]
-    return route, (32 if f <= 32 else 64)
+    with aligned pointers: wgmma for C % 16 == 0 with BN 32, 64 or 128 (the
+    least that covers F, at most 128); else mma.sync, 4-byte copies for
+    C % 4 == 0, single bytes otherwise, with BN 32 or 64."""
+    if c % 16 == 0:
+        return "wgmma", (32 if f <= 32 else 64 if f <= 64 else 128)
+    return ("mma_word" if c % 4 == 0 else "mma_byte"), (32 if f <= 32 else 64)
 
 
 def _assert_plan(b, h, w, c, f, k, stride):
@@ -497,7 +499,7 @@ def _assert_plan(b, h, w, c, f, k, stride):
     pl = int8_conv_kernel.plan(b, h, w, c, f, k, stride, int8_conv_kernel.alignment(c, 4096, 8192))
     m = b * int8_conv_kernel.out_size(h, k, stride) * int8_conv_kernel.out_size(w, k, stride)
     assert (pl.route, pl.bn) == _intended(c, f), (b, h, w, c, f, k, stride)
-    assert pl.bm == 128 and pl.stages == int8_conv_kernel.STAGES
+    assert pl.bm == 128 and pl.stages == (4 if pl.route == "wgmma" else 3)
     assert pl.smem <= int8_conv_kernel.MAX_SMEM
     assert pl.grid == -(-m // pl.bm) * -(-f // pl.bn) and pl.grid <= int8_conv_kernel.MAX_GRID
     return pl
@@ -506,15 +508,15 @@ def _assert_plan(b, h, w, c, f, k, stride):
 @pytest.mark.parametrize("index", range(76))
 def test_plan_of_model_cells(model_cells, index):
     """Each int8 conv of the 416-px model gets its intended route and tile
-    at B=1 and B=128: the stem (C = 4) the 4-byte route with a 32-wide N
-    tile, every other cell the 16-byte route."""
+    at B=1 and B=128: the stem (C = 4) mma_word with a 32-wide N tile,
+    every other cell wgmma."""
     kind, (_, h, w, c), f, k, stride = model_cells[index]
     for b in (1, 128):
         pl = _assert_plan(b, h, w, c, f, k, stride)
         if c == 4:
             assert (kind, h, k, pl.route, pl.bn) == ("conv", 416, 3, "mma_word", 32)
         else:
-            assert pl.route == int8_conv_kernel.ROUTES[16]
+            assert pl.route == "wgmma"
 
 
 @pytest.mark.parametrize(
@@ -536,7 +538,7 @@ def test_plan_narrows_on_misaligned_pointers():
     assert int8_conv_kernel.alignment(36, 4096, 8192) == 4
     shape = (8, 52, 52, 256, 128, 3, 1)
     routes = [int8_conv_kernel.plan(*shape, align).route for align in (16, 4, 1)]
-    assert routes == [int8_conv_kernel.ROUTES[16], "mma_word", "mma_byte"]
+    assert routes == ["wgmma", "mma_word", "mma_byte"]
 
 
 # --- guards ------------------------------------------------------------------

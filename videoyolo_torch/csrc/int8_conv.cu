@@ -32,24 +32,46 @@
 //
 // Design: an implicit GEMM.  M = the B*Ho*Wo output pixels, N = the F output
 // channels, K = KH*KW*C, taken tap by tap (k = (r*KW + s)*C + c).  A CTA
-// takes a 128-pixel x BN-channel output tile (BN = 32 for F <= 32, else 64);
-// four warps, each 4 x 4 (or 2 x 4 at BN = 32) mma.sync.m16n8k32 s8 tiles
-// with int32 accumulators in registers.  K advances 64 bytes at a time
-// through a 3-stage ring of shared memory filled by cp.async: for each output
+// takes a 128-pixel x BN-channel output tile, BN = 32 for F <= 32, 64 for F
+// <= 64, else 128 (64 at most off the wgmma route).  K advances 64 bytes a
+// stage through a ring of shared memory filled by cp.async: for each output
 // pixel of the tile, the 64 input bytes that the current taps reach,
 // zero-filled outside the image, and the matching 64 bytes of each weight
-// row.  Rows are padded to 80 bytes, so the fragment loads of a warp hit 32
-// different banks.  The route says how a stage is filled: 16-byte copies
-// when C % 16 == 0, 4-byte copies when C % 4 == 0 (the 4-channel stem),
-// single bytes otherwise.
-//
-// The epilogue is staged: each thread computes its outputs in registers and
-// writes them, typed, into the ring, which the main loop no longer needs;
-// then the CTA copies its tile to global memory row by row, 16 bytes a
-// thread.  When the tile spans all of F, its output is one contiguous block.
-//
-// The route and the tile are chosen on the host (int8_conv_kernel.plan) and
+// row.  The route is chosen by shape on the host (int8_conv_kernel.plan) and
 // checked here: an entry point refuses a combination it was not built for.
+//
+// - wgmma (C % 16 == 0: K3's cells and every direct cell but the stem).  The
+//   3x3 cells are bound by int8 operations on this card, the 1x1 cells and
+//   the 416-px downsample by bytes; only wgmma reaches the tensor cores' full
+//   rate, and it reads both operands from shared memory, so no fragment is
+//   loaded into registers.  Two consumer warpgroups (256 threads) each take
+//   64 pixels x BN channels with wgmma.mma_async m64nBNk32 s8, int32
+//   accumulators in registers.  Every thread also copies: 16-byte cp.async
+//   segments (each inside one tap) written straight into wgmma's K-major
+//   layout with the 64-byte swizzle, into a 4-stage ring that runs two
+//   stages ahead, with one wgmma group in flight behind the current one.
+//   Each stage is made visible to the async proxy (fence.proxy.async) before
+//   the barrier that hands it to wgmma, and a slot is refilled only after
+//   the group that read it has retired.  (The no-swizzle layout of 8-row x
+//   16-byte core matrices starved the tensor cores: its reads ran 1.3-1.6x
+//   slower on this card.)
+// - mma_word (C % 4 == 0: the 4-channel stem) and mma_byte (any C).  The
+//   stem is bound by bytes: 22M output pixels of 36 input bytes and 32
+//   channels each.  Four warps of mma.sync.m16n8k32 s8 over a 3-stage ring
+//   of rows padded to 80 bytes (fragment loads on 32 banks), copied 4 bytes
+//   at a time with cp.async, or gathered byte by byte.
+//
+// Every route stages its epilogue: each thread computes its outputs in
+// registers and writes them, typed, into the ring, which the main loop no
+// longer needs; then the CTA copies its tile to global memory row by row, 16
+// bytes a thread.  When the tile spans all of F, its output is one
+// contiguous block.
+//
+// What is left for later: TMA (its im2col mode) in place of the cp.async
+// loader, a producer warp with setmaxnreg, persistent CTAs that overlap one
+// tile's epilogue with the next one's loads, a swizzled layout, and one halo
+// tile per CTA reused across the taps (the input is now re-read per tap,
+// from L2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,20 +84,34 @@ constexpr int kBM = 128;  // output pixels per CTA
 constexpr int kBK = 64;   // bytes of K per stage
 
 // routes (keep in step with ops/int8_conv_kernel.py)
-constexpr int kRouteByte = 0;  // any C: bytes gathered by the threads
-constexpr int kRouteWord = 1;  // C % 4 == 0: 4-byte cp.async
-constexpr int kRouteVec = 2;   // C % 16 == 0: 16-byte cp.async
+constexpr int kRouteByte = 0;   // any C: bytes gathered by the threads, mma.sync
+constexpr int kRouteWord = 1;   // C % 4 == 0: 4-byte cp.async, mma.sync
+constexpr int kRouteWgmma = 2;  // C % 16 == 0: 16-byte cp.async, wgmma
 
-constexpr int kThreads = 128;
-constexpr int kStages = 3;       // cp.async ring depth
-constexpr int kRow = kBK + 16;   // padded shared-memory row: 16-byte aligned, no bank conflicts
+// the mma.sync routes: four warps, a 3-stage ring of rows padded to 80 bytes
+constexpr int kMmaThreads = 128;
+constexpr int kMmaStages = 3;
+constexpr int kRow = kBK + 16;  // padded shared-memory row: 16-byte aligned, no bank conflicts
+// the wgmma route: two warpgroups, a 4-stage ring of core matrices
+constexpr int kWgThreads = 256;
+constexpr int kWgStages = 4;
+constexpr int kSbo = 8 * kBK;  // bytes between groups of 8 rows of a stage
 
+__host__ __device__ constexpr int threads_of(int route) {
+  return route == kRouteWgmma ? kWgThreads : kMmaThreads;
+}
+__host__ __device__ constexpr int stages_of(int route) {
+  return route == kRouteWgmma ? kWgStages : kMmaStages;
+}
+__host__ __device__ constexpr int ring_bytes(int route, int bn) {
+  return route == kRouteWgmma ? kWgStages * (kBM + bn) * kBK : kMmaStages * (kBM + bn) * kRow;
+}
 // shared memory of a CTA: the ring, or the staged output tile of the widest
 // type (int32) with room for each row's 16-byte offset, whichever is larger
-__host__ __device__ constexpr int ring_bytes(int bn) { return kStages * (kBM + bn) * kRow; }
 __host__ __device__ constexpr int stage_stride(int bn, int ob) { return bn * ob + 16; }
-__host__ __device__ constexpr int smem_bytes(int bn) {
-  return ring_bytes(bn) > kBM * stage_stride(bn, 4) ? ring_bytes(bn) : kBM * stage_stride(bn, 4);
+__host__ __device__ constexpr int smem_bytes(int route, int bn) {
+  return ring_bytes(route, bn) > kBM * stage_stride(bn, 4) ? ring_bytes(route, bn)
+                                                           : kBM * stage_stride(bn, 4);
 }
 
 // epilogues
@@ -135,6 +171,93 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// wgmma: a 64 x N x 32 product of the warpgroup, A and B K-major in shared
+// memory, int32 sums added to d (scale-d 1).  The accumulator layout is
+// mma.sync's C layout per 16 rows: warp w of the warpgroup holds rows 16w + g
+// and 16w + g + 8, d[4i + 2h + e] at row 16w + g + 8h, column 8i + 2t + e.
+template <int kN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[kN / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the generic proxy's writes to shared memory (cp.async) made visible to the
+// async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products' issue and wait
+template <int kN>
+__device__ __forceinline__ void fence_accumulators(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The descriptor of a K-major operand in the 64-byte swizzle layout: rows of
+// 64 bytes of K, whose 16-byte chunk j lies at chunk j ^ ((row / 2) % 4)
+// (the XOR of address bits 4-5 with bits 7-8, so a stage starts on 512
+// bytes), 8-row groups kSbo apart.  p may point 32 bytes into a row, at the
+// second k32 slice; the leading byte offset is unused.
+__device__ __forceinline__ uint64_t smem_desc(const int8_t* p) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32) | (2ull << 62);
+}
+
 // The input pixel that output pixel m reads at tap offset (0, 0), or img -1
 // past the last pixel.
 struct PixelRow {
@@ -160,15 +283,20 @@ struct PixelRow {
   }
 };
 
-// C % 16 == 0: each 16-byte segment of K lies inside one tap, so the tiles
-// are copied 16 bytes at a time with cp.async.  Thread t copies segment t % 4
-// of the rows t / 4 + 32 j.
+// The wgmma route's producer (C % 16 == 0): each 16-byte segment of K lies
+// inside one tap, so every thread copies 16 bytes at a time with cp.async,
+// segment t % 4 of the pixel rows t / 4 + 64 j and of the weight rows
+// t / 4 + 64 j, into the swizzled layout: byte (row, k) of a stage at
+// row * 64 + ((k / 16) ^ ((row / 2) % 4)) * 16 + k % 16.  A warp writes 8
+// whole rows, 512 contiguous bytes, on every bank.
 template <int kBN>
-struct VecLoader {
-  PixelRow rows[kBM / 32];
+struct WgLoader {
+  static constexpr int kBRows = (kBN * 4 + kWgThreads - 1) / kWgThreads;  // weight rows per thread
+  PixelRow rows[kBM * 4 / kWgThreads];
+  __device__ static int at(int row, int seg) { return row * kBK + ((seg ^ ((row >> 1) & 3)) << 4); }
   __device__ void init(const ConvParams& p, int m0) {
 #pragma unroll
-    for (int j = 0; j < kBM / 32; ++j) rows[j].init(p, m0 + (threadIdx.x >> 2) + 32 * j);
+    for (int j = 0; j < kBM * 4 / kWgThreads; ++j) rows[j].init(p, m0 + (threadIdx.x >> 2) + 64 * j);
   }
   __device__ void load(const ConvParams& p, int8_t* as, int8_t* bs, int n0, int kt) const {
     const int seg = threadIdx.x & 3;
@@ -182,27 +310,29 @@ struct VecLoader {
       s = tap - r * p.KW;
     }
 #pragma unroll
-    for (int j = 0; j < kBM / 32; ++j) {
-      const int row = (threadIdx.x >> 2) + 32 * j;
+    for (int j = 0; j < kBM * 4 / kWgThreads; ++j) {
+      const int row = (threadIdx.x >> 2) + 64 * j;
       const long long off = k_in ? rows[j].offset(p, r, s, c) : -1;
-      cp_async16(as + row * kRow + seg * 16, off >= 0 ? p.x + off : p.x, off >= 0);
+      cp_async16(as + at(row, seg), off >= 0 ? p.x + off : p.x, off >= 0);
     }
 #pragma unroll
-    for (int j = 0; j < kBN / 32; ++j) {
-      const int row = (threadIdx.x >> 2) + 32 * j;
-      const int n = n0 + row;
-      const bool in = k_in && n < p.F;
-      cp_async16(bs + row * kRow + seg * 16, in ? p.w + static_cast<long long>(n) * p.K + k : p.w, in);
+    for (int j = 0; j < kBRows; ++j) {
+      const int row = (threadIdx.x >> 2) + 64 * j;
+      if (row < kBN) {
+        const int n = n0 + row;
+        const bool in = k_in && n < p.F;
+        cp_async16(bs + at(row, seg), in ? p.w + static_cast<long long>(n) * p.K + k : p.w, in);
+      }
     }
   }
 };
 
 // C % 4 == 0 (the 4-channel stem): each 4-byte word of K lies inside one
 // tap.  Thread t copies the 16 words of pixel row t and its share of a weight
-// row (kThreads / kBN threads a row), 4 bytes at a time with cp.async.
+// row (kMmaThreads / kBN threads a row), 4 bytes at a time with cp.async.
 template <int kBN>
 struct WordLoader {
-  static constexpr int kShare = kBK / (kThreads / kBN);  // weight bytes per thread
+  static constexpr int kShare = kBK / (kMmaThreads / kBN);  // weight bytes per thread
   PixelRow row;
   __device__ void init(const ConvParams& p, int m0) { row.init(p, m0 + threadIdx.x); }
   __device__ void load(const ConvParams& p, int8_t* as, int8_t* bs, int n0, int kt) const {
@@ -217,9 +347,9 @@ struct WordLoader {
       }
       cp_async4(as + threadIdx.x * kRow + 4 * q, off >= 0 ? p.x + off : p.x, off >= 0);
     }
-    const int brow = threadIdx.x / (kThreads / kBN);
+    const int brow = threadIdx.x / (kMmaThreads / kBN);
     const int n = n0 + brow;
-    const int part = (threadIdx.x % (kThreads / kBN)) * kShare;
+    const int part = (threadIdx.x % (kMmaThreads / kBN)) * kShare;
     for (int q = 0; q < kShare / 4; ++q) {
       const int k = k0 + part + 4 * q;
       const bool in = n < p.F && k < p.K;
@@ -232,7 +362,7 @@ struct WordLoader {
 // weight row, byte by byte.
 template <int kBN>
 struct ByteLoader {
-  static constexpr int kShare = kBK / (kThreads / kBN);
+  static constexpr int kShare = kBK / (kMmaThreads / kBN);
   PixelRow row;
   __device__ void init(const ConvParams& p, int m0) { row.init(p, m0 + threadIdx.x); }
   __device__ int8_t input_byte(const ConvParams& p, int k) const {
@@ -252,9 +382,9 @@ struct ByteLoader {
       }
       *reinterpret_cast<uint32_t*>(as + threadIdx.x * kRow + 4 * q) = word;
     }
-    const int brow = threadIdx.x / (kThreads / kBN);
+    const int brow = threadIdx.x / (kMmaThreads / kBN);
     const int n = n0 + brow;
-    const int part = (threadIdx.x % (kThreads / kBN)) * kShare;
+    const int part = (threadIdx.x % (kMmaThreads / kBN)) * kShare;
     for (int q = 0; q < kShare / 4; ++q) {
       uint32_t word = 0;
       for (int e = 0; e < 4; ++e) {
@@ -343,13 +473,14 @@ struct StagedTile {
   }
 };
 
+// the mma.sync routes
 template <int kRoute, int kBN, int kEpi>
-__device__ __forceinline__ void conv_tile(const ConvParams& p) {
+__device__ __forceinline__ void mma_tile(const ConvParams& p) {
   extern __shared__ __align__(128) int8_t smem[];
   constexpr int kAStage = kBM * kRow;
   constexpr int kBStage = kBN * kRow;
   int8_t* a_smem = smem;
-  int8_t* b_smem = smem + kStages * kAStage;
+  int8_t* b_smem = smem + kMmaStages * kAStage;
 
   // warps: 2 x 2 of 64 x 32 at BN = 64, 4 x 1 of 32 x 32 at BN = 32
   constexpr int kWarpsM = 4 / (kBN / 32);
@@ -362,10 +493,7 @@ __device__ __forceinline__ void conv_tile(const ConvParams& p) {
   const int wm = (warp % kWarpsM) * (kMI * 16), wn = (warp / kWarpsM) * 32;
   const int nk = (p.K + kBK - 1) / kBK;
 
-  typename std::conditional<
-      kRoute == kRouteVec, VecLoader<kBN>,
-      typename std::conditional<kRoute == kRouteWord, WordLoader<kBN>, ByteLoader<kBN>>::type>::type
-      loader;
+  typename std::conditional<kRoute == kRouteWord, WordLoader<kBN>, ByteLoader<kBN>>::type loader;
   loader.init(p, m0);
 
   int acc[kMI][4][4];
@@ -377,22 +505,22 @@ __device__ __forceinline__ void conv_tile(const ConvParams& p) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < kMmaStages - 1; ++st) {
     if (st < nk) loader.load(p, a_smem + st * kAStage, b_smem + st * kBStage, n0, st);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<kMmaStages - 2>();
     __syncthreads();  // stage kt has landed, and stage kt-1 is consumed
-    const int next = kt + kStages - 1;
+    const int next = kt + kMmaStages - 1;
     if (next < nk) {
-      const int st = next % kStages;
+      const int st = next % kMmaStages;
       loader.load(p, a_smem + st * kAStage, b_smem + st * kBStage, n0, next);
     }
     cp_async_commit();
 
-    const int8_t* as = a_smem + (kt % kStages) * kAStage;
-    const int8_t* bs = b_smem + (kt % kStages) * kBStage;
+    const int8_t* as = a_smem + (kt % kMmaStages) * kAStage;
+    const int8_t* bs = b_smem + (kt % kMmaStages) * kBStage;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 32) {
       uint32_t af[kMI][4], bf[4][2];
@@ -438,14 +566,97 @@ __device__ __forceinline__ void conv_tile(const ConvParams& p) {
   tile.flush(p);
 }
 
+// the wgmma route
+template <int kBN, int kEpi>
+__device__ __forceinline__ void wgmma_tile(const ConvParams& p) {
+  extern __shared__ __align__(1024) int8_t smem[];  // stages on 512 bytes, for the swizzle
+  constexpr int kAStage = kBM * kBK;
+  constexpr int kBStage = kBN * kBK;
+  constexpr int kAhead = kWgStages - 2;  // stages loaded ahead of the one multiplied
+  int8_t* a_smem = smem;
+  int8_t* b_smem = smem + kWgStages * kAStage;
+
+  const int wg = threadIdx.x >> 7;  // this warpgroup's 64 pixel rows
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // consecutive CTAs share a pixel tile, so its input is read from L2
+  const int m0 = (blockIdx.x / p.n_tiles) * kBM;
+  const int n0 = (blockIdx.x % p.n_tiles) * kBN;
+  const int nk = (p.K + kBK - 1) / kBK;
+
+  WgLoader<kBN> loader;
+  loader.init(p, m0);
+
+  int acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+
+#pragma unroll
+  for (int st = 0; st < kAhead; ++st) {
+    if (st < nk) loader.load(p, a_smem + st * kAStage, b_smem + st * kBStage, n0, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of stage kt have landed
+    fence_proxy_async();
+    // stage kt is visible to both warpgroups; each has retired the group
+    // that read stage kt - 2, whose slot is refilled next
+    __syncthreads();
+    const int next = kt + kAhead;
+    if (next < nk) {
+      const int st = next % kWgStages;
+      loader.load(p, a_smem + st * kAStage, b_smem + st * kBStage, n0, next);
+    }
+    cp_async_commit();
+
+    const int8_t* as = a_smem + (kt % kWgStages) * kAStage + wg * 64 * kBK;
+    const int8_t* bs = b_smem + (kt % kWgStages) * kBStage;
+    fence_accumulators(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      wgmma_s8<kBN>(acc, smem_desc(as + kk * 32), smem_desc(bs + kk * 32));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of stage kt - 1 has retired
+    fence_accumulators(acc);
+  }
+  wgmma_wait<0>();
+  fence_accumulators(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the staged tile
+
+  StagedTile<kBN, kEpi> tile(p, smem, m0, n0);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    auto* dst = tile.row(p, wg * 64 + warp * 16 + g + 8 * h);
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) tile.put(p, dst, 8 * i + 2 * t + e, acc[4 * i + 2 * h + e]);
+    }
+  }
+  __syncthreads();
+  tile.flush(p);
+}
+
 template <int kRoute, int kBN, int kEpi>
-__global__ void __launch_bounds__(kThreads) int8_conv_kernel(const ConvParams p) {
+__device__ __forceinline__ void conv_tile(const ConvParams& p) {
+  if constexpr (kRoute == kRouteWgmma) {
+    wgmma_tile<kBN, kEpi>(p);
+  } else {
+    mma_tile<kRoute, kBN, kEpi>(p);
+  }
+}
+
+template <int kRoute, int kBN, int kEpi>
+__global__ void __launch_bounds__(threads_of(kRoute)) int8_conv_kernel(const ConvParams p) {
   conv_tile<kRoute, kBN, kEpi>(p);
 }
 
 // K3: the 3x3 / stride-2 / pad-1 downsample with the reciprocal epilogue
 template <int kRoute, int kBN>
-__global__ void __launch_bounds__(kThreads) int8_downsample_kernel(const ConvParams p) {
+__global__ void __launch_bounds__(threads_of(kRoute)) int8_downsample_kernel(const ConvParams p) {
   conv_tile<kRoute, kBN, kQuantRcp>(p);
 }
 
@@ -460,15 +671,17 @@ int setup(ConvParams& p, const Tile& tile, const void* x, const void* w, const v
           const void* bias, const void* oscale, void* out, int B, int H, int W, int C, int F, int KH,
           int KW, int stride) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || F < 1 || KH < 1 || KW < 1 || stride < 1) return -1;
-  if (tile.route < kRouteByte || tile.route > kRouteVec || tile.bm != kBM ||
-      (tile.bn != 32 && tile.bn != 64) || tile.stages != kStages || tile.smem != smem_bytes(tile.bn)) {
+  const bool wide = tile.route == kRouteWgmma;
+  if (tile.route < kRouteByte || tile.route > kRouteWgmma || tile.bm != kBM ||
+      (tile.bn != 32 && tile.bn != 64 && !(wide && tile.bn == 128)) ||
+      tile.stages != stages_of(tile.route) || tile.smem != smem_bytes(tile.route, tile.bn)) {
     return -1;
   }
   // the widest copies that C and the pointers' alignment allow
   const auto aligned = [&](int n) {
     return C % n == 0 && reinterpret_cast<uintptr_t>(x) % n == 0 && reinterpret_cast<uintptr_t>(w) % n == 0;
   };
-  if ((tile.route == kRouteVec && !aligned(16)) || (tile.route == kRouteWord && !aligned(4))) return -1;
+  if ((tile.route == kRouteWgmma && !aligned(16)) || (tile.route == kRouteWord && !aligned(4))) return -1;
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
   p.scale = static_cast<const float*>(scale);
@@ -502,20 +715,23 @@ cudaError_t launch_tile(const ConvParams& p, const Tile& tile, cudaStream_t stre
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tile.smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<tile.grid, kThreads, tile.smem, stream>>>(p);
+  kernel<<<tile.grid, threads_of(kRoute), tile.smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int kRoute, int kEpi>
 cudaError_t launch_route(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
-  return tile.bn == 32 ? launch_tile<kRoute, 32, kEpi>(p, tile, stream)
-                       : launch_tile<kRoute, 64, kEpi>(p, tile, stream);
+  if (tile.bn == 32) return launch_tile<kRoute, 32, kEpi>(p, tile, stream);
+  if constexpr (kRoute == kRouteWgmma) {
+    if (tile.bn == 128) return launch_tile<kRoute, 128, kEpi>(p, tile, stream);
+  }
+  return launch_tile<kRoute, 64, kEpi>(p, tile, stream);
 }
 
 template <int kEpi>
 cudaError_t launch(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
   switch (tile.route) {
-    case kRouteVec: return launch_route<kRouteVec, kEpi>(p, tile, stream);
+    case kRouteWgmma: return launch_route<kRouteWgmma, kEpi>(p, tile, stream);
     case kRouteWord: return launch_route<kRouteWord, kEpi>(p, tile, stream);
     default: return launch_route<kRouteByte, kEpi>(p, tile, stream);
   }

@@ -34,14 +34,14 @@ NVCC_FLAGS = ("-fmad=false",)
 EPI_RAW, EPI_F32, EPI_BF16, EPI_QUANT = 0, 1, 2, 3
 _REAL_EPI = {torch.float32: EPI_F32, torch.bfloat16: EPI_BF16}
 
-# the routes by the alignment of C and the pointers, and the tiling (keep in
-# step with csrc/int8_conv.cu)
-ROUTES = {16: "mma_vec", 4: "mma_word", 1: "mma_byte"}
-_ROUTE_IDS = {"mma_byte": 0, "mma_word": 1, "mma_vec": 2}
+# the routes by the alignment of C and the pointers, and their tiling (keep
+# in step with csrc/int8_conv.cu)
+ROUTES = {16: "wgmma", 4: "mma_word", 1: "mma_byte"}
+_ROUTE_IDS = {"mma_byte": 0, "mma_word": 1, "wgmma": 2}
 BM = 128  # output pixels per CTA
 BK = 64  # bytes of K per stage
-STAGES = 3
-ROW = BK + 16  # padded shared-memory row of the ring
+STAGES = {"wgmma": 4, "mma_word": 3, "mma_byte": 3}
+MMA_ROW = BK + 16  # the mma.sync routes' padded shared-memory row
 MAX_SMEM = 232448  # what one CTA of an H100 may hold
 MAX_GRID = 2**31 - 1
 
@@ -73,18 +73,21 @@ def plan(b: int, h: int, w: int, c: int, f: int, k: int, stride: int, align: int
     channels, a k x k kernel at `stride`, with C and both pointers aligned to
     `align` (16, 4 or 1).
 
-    The route follows the alignment: 16-byte, 4-byte or single-byte copies
-    into the ring, all multiplied by mma.sync.  A CTA takes BM = 128 output
-    pixels and BN = 32 channels when F <= 32 (no half-idle tile), else 64.
-    Shared memory holds the ring or the staged output tile of the widest
+    The route follows the alignment: 16-byte copies multiplied by wgmma,
+    4-byte copies or single bytes multiplied by mma.sync.  A CTA takes BM =
+    128 output pixels and BN channels: 32 for F <= 32 (no half-idle tile),
+    64 for F <= 64, else 128 on the wgmma route and 64 on the others.  Its
+    shared memory holds the ring (wgmma: 4 stages of 64-byte rows; mma.sync:
+    3 stages of 80-byte rows) or the staged output tile of the widest
     epilogue (int32 rows of BN values, each with room for its 16-byte
     offset), whichever is larger."""
     route = ROUTES[align]
-    bn = 32 if f <= 32 else 64
-    ring = STAGES * (BM + bn) * ROW
+    wide = route == "wgmma"
+    bn = 32 if f <= 32 else 64 if f <= 64 or not wide else 128
+    ring = STAGES[route] * (BM + bn) * (BK if wide else MMA_ROW)
     smem = max(ring, BM * (bn * 4 + 16))
     m = b * out_size(h, k, stride) * out_size(w, k, stride)
-    return Plan(route, BM, bn, STAGES, smem, _ceil_div(m, BM) * _ceil_div(f, bn))
+    return Plan(route, BM, bn, STAGES[route], smem, _ceil_div(m, BM) * _ceil_div(f, bn))
 
 
 def build():
