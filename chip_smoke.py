@@ -151,6 +151,7 @@ CONV_CASES = [
     ("C16_F40_k3", 2, 26, 16, 40, 3, 1),
     ("deep_13x13x1024_F1024_k1", 8, 13, 1024, 1024, 1, 1),
     ("stage1_208x208x64_F32_k1", 2, 208, 64, 32, 1, 1),
+    ("C144_F130_k3", 2, 13, 144, 130, 3, 1),
 ]
 # K3 edge cases: (name, B, H, C, F)
 K3_EDGE = [("B1_26x26x512", 1, 26, 512, 1024), ("C3_F5", 2, 26, 3, 5), ("C4_F24", 2, 26, 4, 24),
@@ -467,7 +468,7 @@ def check_int8_kernels(dev):
             n += 1
         pl = int8_conv_kernel.plan(b, h, h, c, f, k, stride,
                                    int8_conv_kernel.alignment(c, q.data_ptr(), qk.data_ptr()))
-        print(f"int8 conv {name} B={b} stride {stride} ({pl.route}, BN={pl.bn}): int8 / bf16 / float32 / int32 "
+        print(f"int8 conv {name} B={b} stride {stride} ({pl.route}, BN={pl.bn}, BK={pl.bk}): int8 / bf16 / float32 / int32 "
               "epilogues equal to the plain version bit for bit")
     return n, errs[0], errs[1]
 

@@ -499,7 +499,8 @@ def _assert_plan(b, h, w, c, f, k, stride):
     pl = int8_conv_kernel.plan(b, h, w, c, f, k, stride, int8_conv_kernel.alignment(c, 4096, 8192))
     m = b * int8_conv_kernel.out_size(h, k, stride) * int8_conv_kernel.out_size(w, k, stride)
     assert (pl.route, pl.bn) == _intended(c, f), (b, h, w, c, f, k, stride)
-    assert pl.bm == 128 and pl.stages == (4 if pl.route == "wgmma" else 3)
+    deep = pl.route == "wgmma" and pl.bn == 128 and k * k * c >= int8_conv_kernel.DEEP_K
+    assert pl.bm == 128 and (pl.bk, pl.stages) == ((128, 3) if deep else (64, 4 if pl.route == "wgmma" else 3))
     assert pl.smem <= int8_conv_kernel.MAX_SMEM
     assert pl.grid == -(-m // pl.bm) * -(-f // pl.bn) and pl.grid <= int8_conv_kernel.MAX_GRID
     return pl

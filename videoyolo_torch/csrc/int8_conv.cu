@@ -81,7 +81,7 @@
 namespace {
 
 constexpr int kBM = 128;  // output pixels per CTA
-constexpr int kBK = 64;   // bytes of K per stage
+constexpr int kBK = 64;   // bytes of K per stage of the mma.sync routes
 
 // routes (keep in step with ops/int8_conv_kernel.py)
 constexpr int kRouteByte = 0;   // any C: bytes gathered by the threads, mma.sync
@@ -92,26 +92,25 @@ constexpr int kRouteWgmma = 2;  // C % 16 == 0: 16-byte cp.async, wgmma
 constexpr int kMmaThreads = 128;
 constexpr int kMmaStages = 3;
 constexpr int kRow = kBK + 16;  // padded shared-memory row: 16-byte aligned, no bank conflicts
-// the wgmma route: two warpgroups, a 4-stage ring of core matrices
+// the wgmma route: two warpgroups; stages of BK = 64 bytes of K in a 4-stage
+// ring, or, for deep K, of 128 bytes in a 3-stage ring (two CTAs an SM)
 constexpr int kWgThreads = 256;
-constexpr int kWgStages = 4;
-constexpr int kSbo = 8 * kBK;  // bytes between groups of 8 rows of a stage
 
 __host__ __device__ constexpr int threads_of(int route) {
   return route == kRouteWgmma ? kWgThreads : kMmaThreads;
 }
-__host__ __device__ constexpr int stages_of(int route) {
-  return route == kRouteWgmma ? kWgStages : kMmaStages;
+__host__ __device__ constexpr int stages_of(int route, int bk) {
+  return route != kRouteWgmma ? kMmaStages : bk == 128 ? 3 : 4;
 }
-__host__ __device__ constexpr int ring_bytes(int route, int bn) {
-  return route == kRouteWgmma ? kWgStages * (kBM + bn) * kBK : kMmaStages * (kBM + bn) * kRow;
+__host__ __device__ constexpr int ring_bytes(int route, int bn, int bk) {
+  return route == kRouteWgmma ? stages_of(route, bk) * (kBM + bn) * bk : kMmaStages * (kBM + bn) * kRow;
 }
 // shared memory of a CTA: the ring, or the staged output tile of the widest
 // type (int32) with room for each row's 16-byte offset, whichever is larger
 __host__ __device__ constexpr int stage_stride(int bn, int ob) { return bn * ob + 16; }
-__host__ __device__ constexpr int smem_bytes(int route, int bn) {
-  return ring_bytes(route, bn) > kBM * stage_stride(bn, 4) ? ring_bytes(route, bn)
-                                                           : kBM * stage_stride(bn, 4);
+__host__ __device__ constexpr int smem_bytes(int route, int bn, int bk) {
+  return ring_bytes(route, bn, bk) > kBM * stage_stride(bn, 4) ? ring_bytes(route, bn, bk)
+                                                               : kBM * stage_stride(bn, 4);
 }
 
 // epilogues
@@ -248,14 +247,16 @@ __device__ __forceinline__ void fence_accumulators(int (&d)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// The descriptor of a K-major operand in the 64-byte swizzle layout: rows of
-// 64 bytes of K, whose 16-byte chunk j lies at chunk j ^ ((row / 2) % 4)
-// (the XOR of address bits 4-5 with bits 7-8, so a stage starts on 512
-// bytes), 8-row groups kSbo apart.  p may point 32 bytes into a row, at the
-// second k32 slice; the leading byte offset is unused.
+// The descriptor of a K-major operand in the kBK-byte swizzle layout: rows of
+// kBK bytes of K, whose 16-byte chunk j lies at chunk j ^ (row * kBK / 128 %
+// (kBK / 16)) (address bits 4-6 XORed with bits 7-9, so a stage starts on
+// 1024 bytes), 8-row groups 8 * kBK bytes apart.  p may point 32 j bytes into
+// a row, at its k32 slice j; the leading byte offset is unused.
+template <int kBK>
 __device__ __forceinline__ uint64_t smem_desc(const int8_t* p) {
+  constexpr uint64_t kLayout = kBK == 128 ? 1 : 2;  // the 128- or 64-byte swizzle
   const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32) | (2ull << 62);
+  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (static_cast<uint64_t>(8 * kBK >> 4) << 32) | (kLayout << 62);
 }
 
 // The input pixel that output pixel m reads at tap offset (0, 0), or img -1
@@ -285,21 +286,26 @@ struct PixelRow {
 
 // The wgmma route's producer (C % 16 == 0): each 16-byte segment of K lies
 // inside one tap, so every thread copies 16 bytes at a time with cp.async,
-// segment t % 4 of the pixel rows t / 4 + 64 j and of the weight rows
-// t / 4 + 64 j, into the swizzled layout: byte (row, k) of a stage at
-// row * 64 + ((k / 16) ^ ((row / 2) % 4)) * 16 + k % 16.  A warp writes 8
+// segment t % kSegs of the pixel rows and weight rows t / kSegs + kStep j,
+// into the swizzled layout: byte (row, k) of a stage at row * kBK +
+// ((k / 16) ^ (row * kBK / 128 % kSegs)) * 16 + k % 16.  A warp writes
 // whole rows, 512 contiguous bytes, on every bank.
-template <int kBN>
+template <int kBN, int kBK>
 struct WgLoader {
-  static constexpr int kBRows = (kBN * 4 + kWgThreads - 1) / kWgThreads;  // weight rows per thread
-  PixelRow rows[kBM * 4 / kWgThreads];
-  __device__ static int at(int row, int seg) { return row * kBK + ((seg ^ ((row >> 1) & 3)) << 4); }
+  static constexpr int kSegs = kBK / 16;                      // 16-byte segments of a row
+  static constexpr int kStep = kWgThreads / kSegs;           // rows copied at once
+  static constexpr int kARows = kBM / kStep;                  // pixel rows per thread
+  static constexpr int kBRows = (kBN + kStep - 1) / kStep;    // weight rows per thread
+  PixelRow rows[kARows];
+  __device__ static int at(int row, int seg) {
+    return row * kBK + ((seg ^ (row * kBK / 128 & (kSegs - 1))) << 4);
+  }
   __device__ void init(const ConvParams& p, int m0) {
 #pragma unroll
-    for (int j = 0; j < kBM * 4 / kWgThreads; ++j) rows[j].init(p, m0 + (threadIdx.x >> 2) + 64 * j);
+    for (int j = 0; j < kARows; ++j) rows[j].init(p, m0 + threadIdx.x / kSegs + kStep * j);
   }
   __device__ void load(const ConvParams& p, int8_t* as, int8_t* bs, int n0, int kt) const {
-    const int seg = threadIdx.x & 3;
+    const int seg = threadIdx.x % kSegs;
     const int k = kt * kBK + seg * 16;
     const bool k_in = k < p.K;
     int tap = 0, c = 0, r = 0, s = 0;
@@ -310,14 +316,14 @@ struct WgLoader {
       s = tap - r * p.KW;
     }
 #pragma unroll
-    for (int j = 0; j < kBM * 4 / kWgThreads; ++j) {
-      const int row = (threadIdx.x >> 2) + 64 * j;
+    for (int j = 0; j < kARows; ++j) {
+      const int row = threadIdx.x / kSegs + kStep * j;
       const long long off = k_in ? rows[j].offset(p, r, s, c) : -1;
       cp_async16(as + at(row, seg), off >= 0 ? p.x + off : p.x, off >= 0);
     }
 #pragma unroll
     for (int j = 0; j < kBRows; ++j) {
-      const int row = (threadIdx.x >> 2) + 64 * j;
+      const int row = threadIdx.x / kSegs + kStep * j;
       if (row < kBN) {
         const int n = n0 + row;
         const bool in = k_in && n < p.F;
@@ -337,15 +343,18 @@ struct WordLoader {
   __device__ void init(const ConvParams& p, int m0) { row.init(p, m0 + threadIdx.x); }
   __device__ void load(const ConvParams& p, int8_t* as, int8_t* bs, int n0, int kt) const {
     const int k0 = kt * kBK;
+    // the tap (r, s) and channel c of the stage's first word, then stepped
+    // word by word
+    int c = k0 % p.C, s = k0 / p.C, r = s / p.KW;
+    s -= r * p.KW;
     for (int q = 0; q < kBK / 4; ++q) {
-      const int k = k0 + 4 * q;
-      long long off = -1;
-      if (k < p.K) {
-        const int tap = k / p.C;
-        const int r = tap / p.KW;
-        off = row.offset(p, r, tap - r * p.KW, k - tap * p.C);
-      }
+      const long long off = k0 + 4 * q < p.K ? row.offset(p, r, s, c) : -1;
       cp_async4(as + threadIdx.x * kRow + 4 * q, off >= 0 ? p.x + off : p.x, off >= 0);
+      c += 4;
+      if (c == p.C) {
+        c = 0;
+        if (++s == p.KW) s = 0, ++r;
+      }
     }
     const int brow = threadIdx.x / (kMmaThreads / kBN);
     const int n = n0 + brow;
@@ -397,13 +406,14 @@ struct ByteLoader {
   }
 };
 
-// the output value of int32 sum `acc` at channel n, written to dst
+// the output value of int32 sum `acc` of a channel with `scale` and `bias`,
+// written to dst
 template <int kEpi>
-__device__ __forceinline__ void store(const ConvParams& p, OutT<kEpi>* dst, int n, int acc, float os) {
+__device__ __forceinline__ void store(OutT<kEpi>* dst, int acc, float scale, float bias, float os) {
   if constexpr (kEpi == kRaw) {
     *dst = acc;
   } else {
-    float y = __fmaf_rn(__int2float_rn(acc), p.scale[n], p.bias[n]);
+    float y = __fmaf_rn(__int2float_rn(acc), scale, bias);
     y = y > 0.f ? y : __fmul_rn(y, 0.1f);
     if constexpr (kEpi == kRealF32) {
       *dst = y;
@@ -444,10 +454,19 @@ struct StagedTile {
     if (m0 + r >= p.M) return nullptr;
     return reinterpret_cast<T*>(smem + r * kStride + static_cast<int>(global_byte(p, r) & 15));
   }
-  // accumulator acc of channel column col, into row `dst`
-  __device__ __forceinline__ void put(const ConvParams& p, T* dst, int col, int acc) const {
+  // the scale and bias of channel column col; false past the last channel
+  __device__ __forceinline__ bool channel(const ConvParams& p, int col, float& scale, float& bias) const {
     const int n = n0 + col;
-    if (dst != nullptr && n < p.F) store<kEpi>(p, dst + col, n, acc, os);
+    if (n >= p.F) return false;
+    if constexpr (kEpi != kRaw) {
+      scale = __ldg(p.scale + n);
+      bias = __ldg(p.bias + n);
+    }
+    return true;
+  }
+  // accumulator acc of channel column col, into row `dst`
+  __device__ __forceinline__ void put(T* dst, int col, int acc, float scale, float bias) const {
+    if (dst != nullptr) store<kEpi>(dst + col, acc, scale, bias, os);
   }
   // the CTA's rows to global memory, 16 bytes a thread
   __device__ void flush(const ConvParams& p) const {
@@ -550,16 +569,22 @@ __device__ __forceinline__ void mma_tile(const ConvParams& p) {
   // accumulator e of tile (mi, ni) is pixel row g + 8 (e / 2), channel
   // column 2t + (e % 2)
   StagedTile<kBN, kEpi> tile(p, smem, m0, n0);
+  OutT<kEpi>* dst[kMI][2];
 #pragma unroll
-  for (int mi = 0; mi < kMI; ++mi) {
+  for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      auto* dst = tile.row(p, wm + mi * 16 + g + 8 * h);
+    for (int h = 0; h < 2; ++h) dst[mi][h] = tile.row(p, wm + mi * 16 + g + 8 * h);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
+  for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) tile.put(p, dst, wn + ni * 8 + 2 * t + e, acc[mi][ni][2 * h + e]);
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn + ni * 8 + 2 * t + e;
+      float scale = 0.f, bias = 0.f;
+      if (!tile.channel(p, col, scale, bias)) continue;
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) tile.put(dst[mi][h], col, acc[mi][ni][2 * h + e], scale, bias);
     }
   }
   __syncthreads();
@@ -567,14 +592,15 @@ __device__ __forceinline__ void mma_tile(const ConvParams& p) {
 }
 
 // the wgmma route
-template <int kBN, int kEpi>
+template <int kBN, int kBK, int kEpi>
 __device__ __forceinline__ void wgmma_tile(const ConvParams& p) {
-  extern __shared__ __align__(1024) int8_t smem[];  // stages on 512 bytes, for the swizzle
+  extern __shared__ __align__(1024) int8_t smem[];  // stages on 1024 bytes, for the swizzle
+  constexpr int kStages = stages_of(kRouteWgmma, kBK);
   constexpr int kAStage = kBM * kBK;
   constexpr int kBStage = kBN * kBK;
-  constexpr int kAhead = kWgStages - 2;  // stages loaded ahead of the one multiplied
+  constexpr int kAhead = kStages - 2;  // stages loaded ahead of the one multiplied
   int8_t* a_smem = smem;
-  int8_t* b_smem = smem + kWgStages * kAStage;
+  int8_t* b_smem = smem + kStages * kAStage;
 
   const int wg = threadIdx.x >> 7;  // this warpgroup's 64 pixel rows
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -584,7 +610,7 @@ __device__ __forceinline__ void wgmma_tile(const ConvParams& p) {
   const int n0 = (blockIdx.x % p.n_tiles) * kBN;
   const int nk = (p.K + kBK - 1) / kBK;
 
-  WgLoader<kBN> loader;
+  WgLoader<kBN, kBK> loader;
   loader.init(p, m0);
 
   int acc[kBN / 2];
@@ -604,18 +630,18 @@ __device__ __forceinline__ void wgmma_tile(const ConvParams& p) {
     __syncthreads();
     const int next = kt + kAhead;
     if (next < nk) {
-      const int st = next % kWgStages;
+      const int st = next % kStages;
       loader.load(p, a_smem + st * kAStage, b_smem + st * kBStage, n0, next);
     }
     cp_async_commit();
 
-    const int8_t* as = a_smem + (kt % kWgStages) * kAStage + wg * 64 * kBK;
-    const int8_t* bs = b_smem + (kt % kWgStages) * kBStage;
+    const int8_t* as = a_smem + (kt % kStages) * kAStage + wg * 64 * kBK;
+    const int8_t* bs = b_smem + (kt % kStages) * kBStage;
     fence_accumulators(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 32; ++kk) {
-      wgmma_s8<kBN>(acc, smem_desc(as + kk * 32), smem_desc(bs + kk * 32));
+      wgmma_s8<kBN>(acc, smem_desc<kBK>(as + kk * 32), smem_desc<kBK>(bs + kk * 32));
     }
     wgmma_commit();
     wgmma_wait<1>();  // the group of stage kt - 1 has retired
@@ -627,42 +653,45 @@ __device__ __forceinline__ void wgmma_tile(const ConvParams& p) {
   __syncthreads();  // the ring is free for the staged tile
 
   StagedTile<kBN, kEpi> tile(p, smem, m0, n0);
+  OutT<kEpi>* dst[2] = {tile.row(p, wg * 64 + warp * 16 + g), tile.row(p, wg * 64 + warp * 16 + g + 8)};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    auto* dst = tile.row(p, wg * 64 + warp * 16 + g + 8 * h);
+  for (int i = 0; i < kBN / 8; ++i) {
 #pragma unroll
-    for (int i = 0; i < kBN / 8; ++i) {
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * i + 2 * t + e;
+      float scale = 0.f, bias = 0.f;
+      if (!tile.channel(p, col, scale, bias)) continue;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) tile.put(p, dst, 8 * i + 2 * t + e, acc[4 * i + 2 * h + e]);
+      for (int h = 0; h < 2; ++h) tile.put(dst[h], col, acc[4 * i + 2 * h + e], scale, bias);
     }
   }
   __syncthreads();
   tile.flush(p);
 }
 
-template <int kRoute, int kBN, int kEpi>
+template <int kRoute, int kBN, int kBK, int kEpi>
 __device__ __forceinline__ void conv_tile(const ConvParams& p) {
   if constexpr (kRoute == kRouteWgmma) {
-    wgmma_tile<kBN, kEpi>(p);
+    wgmma_tile<kBN, kBK, kEpi>(p);
   } else {
     mma_tile<kRoute, kBN, kEpi>(p);
   }
 }
 
-template <int kRoute, int kBN, int kEpi>
+template <int kRoute, int kBN, int kBK, int kEpi>
 __global__ void __launch_bounds__(threads_of(kRoute)) int8_conv_kernel(const ConvParams p) {
-  conv_tile<kRoute, kBN, kEpi>(p);
+  conv_tile<kRoute, kBN, kBK, kEpi>(p);
 }
 
 // K3: the 3x3 / stride-2 / pad-1 downsample with the reciprocal epilogue
-template <int kRoute, int kBN>
+template <int kRoute, int kBN, int kBK>
 __global__ void __launch_bounds__(threads_of(kRoute)) int8_downsample_kernel(const ConvParams p) {
-  conv_tile<kRoute, kBN, kQuantRcp>(p);
+  conv_tile<kRoute, kBN, kBK, kQuantRcp>(p);
 }
 
 // The route and tile of a launch, as the plan gives them.
 struct Tile {
-  int route, bm, bn, stages, smem, grid;
+  int route, bm, bn, bk, stages, smem, grid;
 };
 
 // Fills p; returns the CTAs of the launch, or -1 on shapes the kernels do not
@@ -674,7 +703,8 @@ int setup(ConvParams& p, const Tile& tile, const void* x, const void* w, const v
   const bool wide = tile.route == kRouteWgmma;
   if (tile.route < kRouteByte || tile.route > kRouteWgmma || tile.bm != kBM ||
       (tile.bn != 32 && tile.bn != 64 && !(wide && tile.bn == 128)) ||
-      tile.stages != stages_of(tile.route) || tile.smem != smem_bytes(tile.route, tile.bn)) {
+      (tile.bk != 64 && !(wide && tile.bn == 128 && tile.bk == 128)) ||
+      tile.stages != stages_of(tile.route, tile.bk) || tile.smem != smem_bytes(tile.route, tile.bn, tile.bk)) {
     return -1;
   }
   // the widest copies that C and the pointers' alignment allow
@@ -702,13 +732,13 @@ int setup(ConvParams& p, const Tile& tile, const void* x, const void* w, const v
   return static_cast<int>(blocks);
 }
 
-template <int kRoute, int kBN, int kEpi>
+template <int kRoute, int kBN, int kBK, int kEpi>
 cudaError_t launch_tile(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
   void (*kernel)(ConvParams);
   if constexpr (kEpi == kQuantRcp) {
-    kernel = int8_downsample_kernel<kRoute, kBN>;
+    kernel = int8_downsample_kernel<kRoute, kBN, kBK>;
   } else {
-    kernel = int8_conv_kernel<kRoute, kBN, kEpi>;
+    kernel = int8_conv_kernel<kRoute, kBN, kBK, kEpi>;
   }
   if (tile.smem > 48 * 1024) {
     const cudaError_t err =
@@ -721,11 +751,14 @@ cudaError_t launch_tile(const ConvParams& p, const Tile& tile, cudaStream_t stre
 
 template <int kRoute, int kEpi>
 cudaError_t launch_route(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
-  if (tile.bn == 32) return launch_tile<kRoute, 32, kEpi>(p, tile, stream);
+  if (tile.bn == 32) return launch_tile<kRoute, 32, 64, kEpi>(p, tile, stream);
   if constexpr (kRoute == kRouteWgmma) {
-    if (tile.bn == 128) return launch_tile<kRoute, 128, kEpi>(p, tile, stream);
+    if (tile.bn == 128) {
+      return tile.bk == 128 ? launch_tile<kRoute, 128, 128, kEpi>(p, tile, stream)
+                            : launch_tile<kRoute, 128, 64, kEpi>(p, tile, stream);
+    }
   }
-  return launch_tile<kRoute, 64, kEpi>(p, tile, stream);
+  return launch_tile<kRoute, 64, 64, kEpi>(p, tile, stream);
 }
 
 template <int kEpi>
@@ -743,15 +776,15 @@ cudaError_t launch(const ConvParams& p, const Tile& tile, cudaStream_t stream) {
 // dense; pad KH/2; out (B, Ho, Wo, F), dense, of the epilogue's type: epi 0
 // int32 (scale, bias, oscale unused), 1 float32, 2 bf16 (oscale unused), 3
 // int8 requantised by division by *oscale.  scale, bias (F,) float32 and
-// oscale (scalar float32) lie on the device.  route, bm, bn, stages, smem and
-// grid are the plan's (ops/int8_conv_kernel.py:plan).  Returns the CUDA error
+// oscale (scalar float32) lie on the device.  route, bm, bn, bk, stages, smem
+// and grid are the plan's (ops/int8_conv_kernel.py:plan).  Returns the CUDA error
 // of the launch (0 on success).
 extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale, const void* bias,
                                 const void* oscale, void* out, int B, int H, int W, int C, int F,
                                 int KH, int KW, int stride, int epi, int route, int bm, int bn,
-                                int stages, int smem, int grid, void* stream) {
+                                int bk, int stages, int smem, int grid, void* stream) {
   ConvParams p;
-  const Tile tile{route, bm, bn, stages, smem, grid};
+  const Tile tile{route, bm, bn, bk, stages, smem, grid};
   if (setup(p, tile, x, w, scale, bias, oscale, out, B, H, W, C, F, KH, KW, stride) < 0 || KH != KW ||
       KH % 2 == 0) {
     return cudaErrorInvalidValue;
@@ -774,9 +807,9 @@ extern "C" int int8_conv_launch(const void* x, const void* w, const void* scale,
 extern "C" int int8_downsample_launch(const void* x, const void* w, const void* scale,
                                       const void* bias, const void* oscale, void* out, int B,
                                       int H, int W, int C, int F, int route, int bm, int bn,
-                                      int stages, int smem, int grid, void* stream) {
+                                      int bk, int stages, int smem, int grid, void* stream) {
   ConvParams p;
-  const Tile tile{route, bm, bn, stages, smem, grid};
+  const Tile tile{route, bm, bn, bk, stages, smem, grid};
   if (setup(p, tile, x, w, scale, bias, oscale, out, B, H, W, C, F, 3, 3, 2) < 0 ||
       scale == nullptr || bias == nullptr || oscale == nullptr) {
     return cudaErrorInvalidValue;

@@ -39,9 +39,11 @@ _REAL_EPI = {torch.float32: EPI_F32, torch.bfloat16: EPI_BF16}
 ROUTES = {16: "wgmma", 4: "mma_word", 1: "mma_byte"}
 _ROUTE_IDS = {"mma_byte": 0, "mma_word": 1, "wgmma": 2}
 BM = 128  # output pixels per CTA
-BK = 64  # bytes of K per stage
-STAGES = {"wgmma": 4, "mma_word": 3, "mma_byte": 3}
-MMA_ROW = BK + 16  # the mma.sync routes' padded shared-memory row
+MMA_ROW = 64 + 16  # the mma.sync routes' stage row: 64 bytes of K, padded
+# K at and above which the wgmma route takes 128-byte stages in a 3-deep
+# ring (half the barriers per product) rather than 64-byte ones 4 deep: on
+# an H100 they were 9-14% faster at K = 1152-4608, even at 576, slower below
+DEEP_K = 1152
 MAX_SMEM = 232448  # what one CTA of an H100 may hold
 MAX_GRID = 2**31 - 1
 
@@ -50,6 +52,7 @@ class Plan(NamedTuple):
     route: str
     bm: int
     bn: int
+    bk: int  # bytes of K per stage
     stages: int
     smem: int  # dynamic shared memory bytes
     grid: int  # CTAs
@@ -76,18 +79,22 @@ def plan(b: int, h: int, w: int, c: int, f: int, k: int, stride: int, align: int
     The route follows the alignment: 16-byte copies multiplied by wgmma,
     4-byte copies or single bytes multiplied by mma.sync.  A CTA takes BM =
     128 output pixels and BN channels: 32 for F <= 32 (no half-idle tile),
-    64 for F <= 64, else 128 on the wgmma route and 64 on the others.  Its
-    shared memory holds the ring (wgmma: 4 stages of 64-byte rows; mma.sync:
-    3 stages of 80-byte rows) or the staged output tile of the widest
-    epilogue (int32 rows of BN values, each with room for its 16-byte
-    offset), whichever is larger."""
+    64 for F <= 64, else 128 on the wgmma route and 64 on the others.  K
+    advances BK = 64 bytes a stage, through a ring of 3 stages (mma.sync,
+    rows padded to 80 bytes) or 4 (wgmma); a wgmma tile of BN = 128 with
+    K = k*k*C >= DEEP_K takes 128-byte stages, 3 deep.  Shared memory holds
+    the ring or the staged output tile of the widest epilogue (int32 rows of
+    BN values, each with room for its 16-byte offset), whichever is
+    larger."""
     route = ROUTES[align]
     wide = route == "wgmma"
     bn = 32 if f <= 32 else 64 if f <= 64 or not wide else 128
-    ring = STAGES[route] * (BM + bn) * (BK if wide else MMA_ROW)
+    bk = 128 if wide and bn == 128 and k * k * c >= DEEP_K else 64
+    stages = 4 if wide and bk == 64 else 3
+    ring = stages * (BM + bn) * (bk if wide else MMA_ROW)
     smem = max(ring, BM * (bn * 4 + 16))
     m = b * out_size(h, k, stride) * out_size(w, k, stride)
-    return Plan(route, BM, bn, STAGES[route], smem, _ceil_div(m, BM) * _ceil_div(f, bn))
+    return Plan(route, BM, bn, bk, stages, smem, _ceil_div(m, BM) * _ceil_div(f, bn))
 
 
 def build():
@@ -100,7 +107,7 @@ def build():
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptrs = [ctypes.c_void_p] * 6  # x, w, scale, bias, oscale, out
-    tile = [ctypes.c_int] * 6  # route, bm, bn, stages, smem, grid
+    tile = [ctypes.c_int] * 7  # route, bm, bn, bk, stages, smem, grid
     lib.int8_conv_launch.argtypes = ptrs + [ctypes.c_int] * 9 + tile + [ctypes.c_void_p]
     lib.int8_conv_launch.restype = ctypes.c_int
     lib.int8_downsample_launch.argtypes = ptrs + [ctypes.c_int] * 5 + tile + [ctypes.c_void_p]
@@ -147,7 +154,7 @@ def _plan_for(name: str, q: torch.Tensor, qkernel: torch.Tensor, stride: int) ->
 
 
 def _tile_args(pl: Plan):
-    return _ROUTE_IDS[pl.route], pl.bm, pl.bn, pl.stages, pl.smem, pl.grid
+    return _ROUTE_IDS[pl.route], pl.bm, pl.bn, pl.bk, pl.stages, pl.smem, pl.grid
 
 
 def int8_conv(
