@@ -60,12 +60,9 @@ Phases; any failure exits non-zero:
      B=128 and B=1, of slice 2's at B=32 and of slice 3's at B=128.
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
-
-    python3 chip_smoke.py --kernels-only   # phases 1-3 alone: build, SASS, kernels vs plain
 """
 from __future__ import annotations
 
-import argparse
 import json
 import re
 import statistics
@@ -330,7 +327,7 @@ def build_kernels():
     print(f"built {', '.join(lib.name for lib, _ in builds)} in {time.perf_counter() - t0:.1f} s")
     for lib, ptxas in builds:
         for line in ptxas.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem", "Compiling", "wgmma", "arning")):
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling", "wgmma", "warning")):
                 print(f"  ptxas {lib.name.split('_')[0]}: {line.strip()}")
 
 
@@ -341,7 +338,7 @@ def check_int8_sass():
     sass = cuda_build.sass(int8_conv_kernel.build()[0])
     kernels = re.findall(r"Function : (\S*int8_(?:conv|downsample)_kernelILi(\d)E\S*)\n(.*?)(?=Function :|\Z)",
                          sass, re.S)
-    routes = {str(v): k for k, v in int8_conv_kernel._ROUTE_IDS.items()}
+    routes = {str(v): k for k, v in int8_conv_kernel.ROUTE_IDS.items()}
     check(kernels, "int8 SASS: no kernel found")
     shown = set()
     for name, route_id, body in kernels:
@@ -978,11 +975,7 @@ def profile_steps(steps, card):
                   f"{e.count // n:4d}x  {e.key[:90]}")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase 3: build, SASS, every kernel against its plain version")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
         return 1
@@ -1012,9 +1005,6 @@ def main(argv=None) -> int:
     nms_err, nms_cases = check_nms_kernel(rs, dev, card)
     corr_err = check_corr_kernel(dev)
     int8_cases, k3_err, conv_err = check_int8_kernels(dev)
-    if args.kernels_only:
-        print(json.dumps({"kernels_only": True, "int8_cases": int8_cases, "device": torch.cuda.get_device_name(0)}))
-        return 0
 
     # 4. slice 1: the detect path at 416 px, bf16
     nms_ms = {}

@@ -501,7 +501,7 @@ def _assert_plan(b, h, w, c, f, k, stride):
     assert (pl.route, pl.bn) == _intended(c, f), (b, h, w, c, f, k, stride)
     deep = pl.route == "wgmma" and pl.bn == 128 and k * k * c >= int8_conv_kernel.DEEP_K
     assert pl.bm == 128 and (pl.bk, pl.stages) == ((128, 3) if deep else (64, 4 if pl.route == "wgmma" else 3))
-    assert pl.smem <= int8_conv_kernel.MAX_SMEM
+    assert pl.smem <= 232448  # the shared memory one CTA of an H100 may hold
     assert pl.grid == -(-m // pl.bm) * -(-f // pl.bn) and pl.grid <= int8_conv_kernel.MAX_GRID
     return pl
 

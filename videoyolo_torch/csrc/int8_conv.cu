@@ -33,45 +33,53 @@
 // Design: an implicit GEMM.  M = the B*Ho*Wo output pixels, N = the F output
 // channels, K = KH*KW*C, taken tap by tap (k = (r*KW + s)*C + c).  A CTA
 // takes a 128-pixel x BN-channel output tile, BN = 32 for F <= 32, 64 for F
-// <= 64, else 128 (64 at most off the wgmma route).  K advances 64 bytes a
+// <= 64, else 128 (64 at most off the wgmma route).  K advances BK bytes a
 // stage through a ring of shared memory filled by cp.async: for each output
-// pixel of the tile, the 64 input bytes that the current taps reach,
-// zero-filled outside the image, and the matching 64 bytes of each weight
-// row.  The route is chosen by shape on the host (int8_conv_kernel.plan) and
-// checked here: an entry point refuses a combination it was not built for.
+// pixel of the tile, the BK input bytes that the current taps reach,
+// zero-filled outside the image, and the matching BK bytes of each weight
+// row.  The route and tile are chosen by shape on the host
+// (int8_conv_kernel.plan) and checked here: an entry point refuses a
+// combination it was not built for.
 //
-// - wgmma (C % 16 == 0: K3's cells and every direct cell but the stem).  The
-//   3x3 cells are bound by int8 operations on this card, the 1x1 cells and
-//   the 416-px downsample by bytes; only wgmma reaches the tensor cores' full
-//   rate, and it reads both operands from shared memory, so no fragment is
-//   loaded into registers.  Two consumer warpgroups (256 threads) each take
-//   64 pixels x BN channels with wgmma.mma_async m64nBNk32 s8, int32
-//   accumulators in registers.  Every thread also copies: 16-byte cp.async
-//   segments (each inside one tap) written straight into wgmma's K-major
-//   layout with the 64-byte swizzle, into a 4-stage ring that runs two
-//   stages ahead, with one wgmma group in flight behind the current one.
-//   Each stage is made visible to the async proxy (fence.proxy.async) before
-//   the barrier that hands it to wgmma, and a slot is refilled only after
-//   the group that read it has retired.  (The no-swizzle layout of 8-row x
-//   16-byte core matrices starved the tensor cores: its reads ran 1.3-1.6x
-//   slower on this card.)
+// - wgmma (C % 16 == 0: K3's cells and every direct cell but the stem).  On
+//   an H100 the 3x3 cells are bound by int8 operations and the 1x1 cells
+//   and the 416-px downsample by bytes; only wgmma reaches the tensor cores'
+//   full rate, and it reads both operands from shared memory, so no
+//   fragment passes through registers.  Two consumer warpgroups (256
+//   threads) each take 64 pixels x BN channels with wgmma.mma_async
+//   m64nBNk32 s8, int32 accumulators in registers.  Every thread also
+//   copies: 16-byte cp.async segments (each inside one tap) written straight
+//   into wgmma's K-major swizzled layout, two stages ahead of the stage
+//   multiplied, with one wgmma group in flight behind it.  BK = 64 with the
+//   64-byte swizzle, 4 stages; for deep K (int8_conv_kernel.DEEP_K) BK = 128 with the
+//   128-byte swizzle, 3 stages, half the barriers per product.  Each stage
+//   is made visible to the async proxy (fence.proxy.async) before the
+//   barrier that hands it to wgmma, and a slot is refilled only after the
+//   group that read it has retired.  What bounds it now: every thread
+//   waits at a CTA barrier each stage, and each CTA loads, multiplies and
+//   stores one tile with nothing to overlap its first loads and its
+//   epilogue (on an H100 the cells ran at 4-5x their bound).  The no-swizzle
+//   layout of 8-row x 16-byte core matrices starved the tensor cores: 1.3-
+//   1.6x slower.
 // - mma_word (C % 4 == 0: the 4-channel stem) and mma_byte (any C).  The
 //   stem is bound by bytes: 22M output pixels of 36 input bytes and 32
-//   channels each.  Four warps of mma.sync.m16n8k32 s8 over a 3-stage ring
-//   of rows padded to 80 bytes (fragment loads on 32 banks), copied 4 bytes
-//   at a time with cp.async, or gathered byte by byte.
+//   channels each, one K stage a CTA, so its CTAs' load latency and
+//   epilogue arithmetic set its pace (about 9x its bound).  Four warps of
+//   mma.sync.m16n8k32 s8 over a 3-stage ring of rows padded to 80 bytes
+//   (fragment loads on 32 banks), copied 4 bytes at a time with cp.async
+//   stepping through the taps, or gathered byte by byte.
 //
 // Every route stages its epilogue: each thread computes its outputs in
-// registers and writes them, typed, into the ring, which the main loop no
-// longer needs; then the CTA copies its tile to global memory row by row, 16
-// bytes a thread.  When the tile spans all of F, its output is one
-// contiguous block.
+// registers (each channel's scale and bias loaded once) and writes them,
+// typed, into the ring, which the main loop no longer needs; then the CTA
+// copies its tile to global memory row by row, 16 bytes a thread.  When the
+// tile spans all of F, its output is one contiguous block.
 //
 // What is left for later: TMA (its im2col mode) in place of the cp.async
-// loader, a producer warp with setmaxnreg, persistent CTAs that overlap one
-// tile's epilogue with the next one's loads, a swizzled layout, and one halo
-// tile per CTA reused across the taps (the input is now re-read per tap,
-// from L2).
+// loader, a producer warp with setmaxnreg and mbarriers in place of the CTA
+// barrier, persistent CTAs that overlap one tile's epilogue with the next
+// one's loads, and one halo tile per CTA reused across the taps (the input
+// is now re-read per tap, from L2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,7 +101,7 @@ constexpr int kMmaThreads = 128;
 constexpr int kMmaStages = 3;
 constexpr int kRow = kBK + 16;  // padded shared-memory row: 16-byte aligned, no bank conflicts
 // the wgmma route: two warpgroups; stages of BK = 64 bytes of K in a 4-stage
-// ring, or, for deep K, of 128 bytes in a 3-stage ring (two CTAs an SM)
+// ring, or of 128 bytes in a 3-stage ring (two CTAs an SM)
 constexpr int kWgThreads = 256;
 
 __host__ __device__ constexpr int threads_of(int route) {
@@ -228,8 +236,12 @@ __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a, uint64_t
       : "memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
@@ -256,7 +268,8 @@ template <int kBK>
 __device__ __forceinline__ uint64_t smem_desc(const int8_t* p) {
   constexpr uint64_t kLayout = kBK == 128 ? 1 : 2;  // the 128- or 64-byte swizzle
   const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (static_cast<uint64_t>(8 * kBK >> 4) << 32) | (kLayout << 62);
+  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (static_cast<uint64_t>(8 * kBK >> 4) << 32) |
+         (kLayout << 62);
 }
 
 // The input pixel that output pixel m reads at tap offset (0, 0), or img -1
@@ -704,7 +717,8 @@ int setup(ConvParams& p, const Tile& tile, const void* x, const void* w, const v
   if (tile.route < kRouteByte || tile.route > kRouteWgmma || tile.bm != kBM ||
       (tile.bn != 32 && tile.bn != 64 && !(wide && tile.bn == 128)) ||
       (tile.bk != 64 && !(wide && tile.bn == 128 && tile.bk == 128)) ||
-      tile.stages != stages_of(tile.route, tile.bk) || tile.smem != smem_bytes(tile.route, tile.bn, tile.bk)) {
+      tile.stages != stages_of(tile.route, tile.bk) ||
+      tile.smem != smem_bytes(tile.route, tile.bn, tile.bk)) {
     return -1;
   }
   // the widest copies that C and the pointers' alignment allow

@@ -37,14 +37,13 @@ _REAL_EPI = {torch.float32: EPI_F32, torch.bfloat16: EPI_BF16}
 # the routes by the alignment of C and the pointers, and their tiling (keep
 # in step with csrc/int8_conv.cu)
 ROUTES = {16: "wgmma", 4: "mma_word", 1: "mma_byte"}
-_ROUTE_IDS = {"mma_byte": 0, "mma_word": 1, "wgmma": 2}
+ROUTE_IDS = {"mma_byte": 0, "mma_word": 1, "wgmma": 2}
 BM = 128  # output pixels per CTA
 MMA_ROW = 64 + 16  # the mma.sync routes' stage row: 64 bytes of K, padded
 # K at and above which the wgmma route takes 128-byte stages in a 3-deep
 # ring (half the barriers per product) rather than 64-byte ones 4 deep: on
 # an H100 they were 9-14% faster at K = 1152-4608, even at 576, slower below
 DEEP_K = 1152
-MAX_SMEM = 232448  # what one CTA of an H100 may hold
 MAX_GRID = 2**31 - 1
 
 
@@ -154,7 +153,7 @@ def _plan_for(name: str, q: torch.Tensor, qkernel: torch.Tensor, stride: int) ->
 
 
 def _tile_args(pl: Plan):
-    return _ROUTE_IDS[pl.route], pl.bm, pl.bn, pl.bk, pl.stages, pl.smem, pl.grid
+    return ROUTE_IDS[pl.route], pl.bm, pl.bn, pl.bk, pl.stages, pl.smem, pl.grid
 
 
 def int8_conv(
@@ -240,6 +239,6 @@ def quant_downsample(
     return out
 
 
-for _fn in (int8_conv, quant_downsample):
-    _fn.launches = 0
-    _fn.route_launches = dict.fromkeys(_ROUTE_IDS, 0)
+int8_conv.launches = quant_downsample.launches = 0
+int8_conv.route_launches = dict.fromkeys(ROUTE_IDS, 0)
+quant_downsample.route_launches = dict.fromkeys(ROUTE_IDS, 0)
