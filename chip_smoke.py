@@ -10,14 +10,18 @@ Phases; any failure exits non-zero:
   2. build: the NMS kernel (videoyolo_torch/csrc/nms.cu), the cost-volume
      kernel (videoyolo_torch/csrc/correlation.cu) and the int8 conv kernels
      (videoyolo_torch/csrc/int8_conv.cu: K3 and the direct int8 cell), one
-     nvcc each, started together, for sm_90a;
+     nvcc each, started together, for sm_90a; no cost-volume instance that
+     the plan gives a case of CORR_CASES may spill, and the main path's
+     instances must hold 16-byte shared loads and 16-byte cp.async copies
+     in their SASS;
   3. kernels vs plain, on the card: the NMS kernel against
      ops/nms.py:nms_greedy_plain at the main path's shape and on edge cases
      (keep masks and packed rows, with and without the keep mask written,
      equal bit for bit); the cost-volume kernel against
      ops/correlation.py:correlation_plain in float32 at the three levels of
-     slice 2 and on edge cases (allclose rtol=atol=1e-5: the same products,
-     summed over C in another order); K3 and the int8 conv kernel against
+     slice 2 and on edge cases, the register tile's ragged edges among them
+     (allclose rtol=atol=1e-5: the same products, summed over C in another
+     order); K3 and the int8 conv kernel against
      ops/int8_conv.py's plain versions, bit for bit, at K3's four 416-px
      cells, at every cell kind of the int8 model and on edge cases that
      reach each route's ragged edges (a mismatch names its first differing
@@ -38,7 +42,8 @@ Phases; any failure exits non-zero:
      and the bf16 head on the kernel's routes must agree with the head on
      the plain version's routes within a stated tolerance; then the step's
      times, the kernel's time per level against its plain version and its
-     bound, and one request through the entry point with the temporal flags;
+     bound with the level's plan (R, group, CTAs, live share), and one
+     request through the entry point with the temporal flags;
   6. slice 3: Detector(YoloConfig(num_classes=20, pad_stem=True), bf16,
      quantize="int8") at 416 px with seeded random weights calibrated on 8
      seeded images answers requests of B=1, 8 and 128 with ds_conv="pallas"
@@ -213,6 +218,16 @@ CORR_CASES = [
     ("13x11", 4, 13, 11, 64, 4, 1),
     ("C1", 4, 20, 20, 1, 4, 1),
     ("C3", 4, 20, 20, 3, 4, 1),
+    # the register tile's ragged edges: W not a multiple of R or of the tile,
+    # C = 4 (one 16-byte unit), 6 (4-byte copies) and 1028 (a last chunk of
+    # 4), a ragged last group of displacement columns (steps 11 in groups of
+    # 7), one image of the smallest level
+    ("W50", 4, 50, 50, 64, 4, 1),
+    ("C4", 4, 20, 20, 4, 4, 1),
+    ("C6", 4, 20, 20, 6, 4, 1),
+    ("C1028", 2, 13, 13, 1028, 4, 1),
+    ("d5_ragged_group", 2, 26, 26, 64, 5, 1),
+    ("B1_13x13x1024", 1, 13, 13, 1024, 4, 1),
 ]
 
 
@@ -319,7 +334,8 @@ def check_entry_point(preds, n):
 
 
 def build_kernels():
-    """Every kernel source, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together.  Returns each
+    wrapper module's (library, ptxas report)."""
     t0 = time.perf_counter()
     sources = (nms_kernel, correlation_kernel, int8_conv_kernel)
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
@@ -329,6 +345,52 @@ def build_kernels():
         for line in ptxas.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling", "wgmma", "warning")):
                 print(f"  ptxas {lib.name.split('_')[0]}: {line.strip()}")
+    return dict(zip(sources, builds))
+
+
+def corr_instance(pl):
+    return pl.r, pl.gx, pl.gy
+
+
+def check_corr_build(ptxas):
+    """The cost-volume library: no ptxas spill in any kernel instance the
+    plan gives a case of CORR_CASES, and 16-byte shared loads (LDS.128) and
+    16-byte staging copies (LDGSTS ... .128) in the SASS of the main path's
+    instances (the three levels, the first cases).  Returns the main path's
+    instances."""
+    plans = [correlation_kernel.plan(b, h, w, c, d, s2) for _, b, h, w, c, d, s2 in CORR_CASES]
+    used = {corr_instance(pl) for pl in plans}
+    main = {corr_instance(pl) for pl in plans[:3]}
+    report = {}
+    for name, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry function|\Z)", ptxas, re.S):
+        inst = re.search(r"cost_volume_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        regs = re.search(r"Used (\d+) registers", body)
+        if inst and spill and regs:
+            report[tuple(map(int, inst.groups()))] = (int(regs.group(1)), int(spill.group(1)) + int(spill.group(2)))
+    for inst in sorted(used):
+        check(inst in report, f"cost volume ptxas: no report for the instance (R, GX, GY) = {inst}")
+        regs, spilled = report[inst]
+        check(spilled == 0, f"cost volume ptxas: the instance (R, GX, GY) = {inst} spills {spilled} bytes")
+        print(f"cost volume instance (R, GX, GY) = {inst}{' (main path)' if inst in main else ''}: "
+              f"{regs} registers, no spills")
+    sass = cuda_build.sass(correlation_kernel.build()[0])
+    kernels = re.findall(r"Function : (\S*cost_volume_kernelILi(\d+)ELi(\d+)ELi(\d+)E\S*)\n(.*?)(?=Function :|\Z)",
+                         sass, re.S)
+    seen = set()
+    for name, r, gx, gy, body in kernels:
+        inst = (int(r), int(gx), int(gy))
+        if inst not in main:
+            continue
+        seen.add(inst)
+        lines = [ln.strip() for ln in body.splitlines()]
+        for pattern, what in ((r"\bLDS\.128\b", "a 16-byte shared load"),
+                              (r"\bLDGSTS\.E[\w.]*\.128\b", "a 16-byte staging copy")):
+            hits = [ln for ln in lines if re.search(pattern, ln)]
+            check(hits, f"cost volume SASS: no {what} in the main path's instance {inst} ({name})")
+            print(f"cost volume SASS, instance {inst}: {len(hits)}x {what}, e.g. {' '.join(hits[0].split()[:6])}")
+    check(seen == main, f"cost volume SASS: main path instances {sorted(main)}, found {sorted(seen)}")
+    return main
 
 
 def check_int8_sass():
@@ -535,7 +597,7 @@ def serve_slice1(rs, dev, card, nms_ms):
     # the entry point, as a user runs it: one request of 8 images
     before = nms_greedy.launches
     preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
-                         "--seed", "1"])
+                         "--seed", "1", "--dtype", "bf16"])
     check(nms_greedy.launches - before == 1,
           f"entry point: {nms_greedy.launches - before} NMS kernel launches for 1 request")
     entries = check_entry_point(preds, 8)
@@ -616,11 +678,15 @@ def serve_slice2(rs, dev, card):
             k_ms = median_ms(lambda: cost_volume(f1, f2, SLICE2["corr_d"], 1), 50)
             p_ms = median_ms(lambda: correlation_plain(f1, f2, SLICE2["corr_d"], 1, 1, 1), 10)
         t_bytes, t_ops = corr_times(b, h, w, c, SLICE2["corr_d"], 1)
-        levels.append(dict(shape=[b, h, w, c], ms=k_ms, plain_ms=p_ms, bytes_ms=t_bytes, ops_ms=t_ops))
+        pl = correlation_kernel.plan(b, h, w, c, SLICE2["corr_d"], 1, correlation_kernel.aligned(f1, f2))
+        levels.append(dict(shape=[b, h, w, c], ms=k_ms, plain_ms=p_ms, bytes_ms=t_bytes, ops_ms=t_ops,
+                           plan=dict(r=pl.r, gx=pl.gx, gy=pl.gy, tile=list(pl.tile), threads=pl.threads,
+                                     copy=pl.copy, ctas=pl.ctas, live=pl.live)))
         print(
             f"cost volume B={b} {h}x{w}x{c} d={SLICE2['corr_d']} on {card}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, "
-            f"operations {t_ops:.4f})"
+            f"operations {t_ops:.4f}); plan R={pl.r}, group {pl.gy}x{pl.gx}, tile {pl.tile[0]}x{pl.tile[1]}, "
+            f"{pl.threads} threads, {pl.copy}-byte copies, {pl.ctas} CTAs, {pl.live:.3f} of the pixel slots live"
         )
     per_request = 2  # two cost volumes per level and request
     figures = dict(
@@ -641,7 +707,7 @@ def serve_slice2(rs, dev, card):
     # the entry point, as a user runs it: one request of 8 windows
     before = cost_volume.launches, nms_greedy.launches
     preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
-                         "--seed", "1", "--window", str(WINDOW), "--k_join_pos", "late",
+                         "--seed", "1", "--dtype", "bf16", "--window", str(WINDOW), "--k_join_pos", "late",
                          "--corr_pos", "early", "--corr_d", str(SLICE2["corr_d"])])
     made = cost_volume.launches - before[0], nms_greedy.launches - before[1]
     check(made == (CORR_LAUNCHES, 1), f"slice 2 entry point: launches (cost volume, NMS) {made}")
@@ -902,7 +968,7 @@ def serve_slice3(rs, dev, card):
     before = [c.launches for c in counters]
     routes_before = dict(int8_conv.route_launches)
     preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1",
-                         "--seed", "1", "--quantize", "int8"])
+                         "--seed", "1", "--dtype", "bf16", "--quantize", "int8"])
     made = tuple(c.launches - b for c, b in zip(counters, before))
     check(made == (0, 2 * INT8_LAUNCHES["direct"][1], 1),
           f"slice 3 entry point: launches (K3, int8 conv, NMS) {made} for one calibration batch and one request")
@@ -997,7 +1063,8 @@ def main() -> int:
     )
 
     # 2. build
-    build_kernels()
+    builds = build_kernels()
+    check_corr_build(builds[correlation_kernel][1])
     check_int8_sass()
 
     # 3. the kernels against their plain versions

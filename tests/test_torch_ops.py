@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from videoyolo_tpu.data.transforms import to_normalized as jax_to_normalized
 from videoyolo_tpu.ops import anchors as jax_anchors
 from videoyolo_tpu.ops import bbox as jax_bbox
@@ -165,19 +166,96 @@ def test_kernel_entry_raises_on_cpu_tensor():
     assert cost_volume.launches == 0
 
 
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def _assert_corr_plan(b, h, w, c, d, stride2, aligned=True):
+    """The cost-volume kernel's plan for one launch, held here, where no
+    card is (the C entry point refuses a plan that does not match): the
+    register tile and group are instances the kernel has, each CTA's
+    displacements are one run of output channels, the staged chunk and the
+    staged results fit the shared memory asked for, and the grid covers the
+    image and the displacement grid."""
+    k = correlation_kernel
+    pl = k.plan(b, h, w, c, d, stride2, aligned)
+    steps = 2 * (d // stride2) + 1
+    assert pl.r == (k.PIXELS if stride2 == 1 else 1) and pl.nacc == pl.r * pl.gx * pl.gy
+    assert pl.gx in k.GROUP_X and pl.gy in k.GROUP_Y and pl.gx <= steps and pl.gy <= steps
+    assert pl.threads // 32 in k.WARPS and pl.threads % 32 == 0
+    rows, cols = pl.tile
+    assert (rows, cols) == (k.ROWS, 4 * pl.r * pl.threads // 32)
+    assert pl.copy == (16 if aligned and c % 4 == 0 else 4)
+    # the staged chunk: the f1 tile and the f2 window, 16 channels a pixel,
+    # rows padded by 16 bytes; the staged results: a run of the group per pixel
+    win_h, win_w = rows + (pl.gy - 1) * stride2, cols + (pl.gx - 1) * stride2
+    staged = (rows * (cols * k.CHUNK + 4) + win_h * (win_w * k.CHUNK + 4)) * 4
+    assert pl.smem == max(staged, rows * cols * (pl.gx * pl.gy | 1) * 4) <= k.SMEM_BYTES
+    tiles_y, tiles_x = _ceil_div(h, rows), _ceil_div(w, cols)
+    assert tiles_y * rows >= h and tiles_x * cols >= w
+    assert pl.grid == (tiles_y * tiles_x, _ceil_div(steps, pl.gx) * _ceil_div(steps, pl.gy), b)
+    assert pl.grid[1] <= k.MAX_GROUPS and pl.ctas == pl.grid[0] * pl.grid[1] * b
+    assert pl.live == pytest.approx(h * w / (tiles_y * rows * tiles_x * cols))
+    # every group: its displacements are one run of output channels, and the
+    # groups cover the grid once
+    covered = []
+    for iy0 in range(0, steps, pl.gy):
+        for ix0 in range(0, steps, pl.gx):
+            chans = [iy * steps + ix for iy in range(iy0, min(iy0 + pl.gy, steps))
+                     for ix in range(ix0, min(ix0 + pl.gx, steps))]
+            assert chans == list(range(chans[0], chans[0] + len(chans)))
+            covered += chans
+    assert sorted(covered) == list(range(steps * steps))
+    return pl
+
+
 @pytest.mark.parametrize("d,stride2", [(0, 1), (1, 1), (2, 1), (4, 1), (4, 2), (20, 2), (20, 1),
                                        (40, 1), (7, 3), (500, 250)])
 def test_cost_volume_plan(d, stride2):
-    """The cost-volume kernel's work plan: each CTA's displacements are one
-    run of output channels, fit its accumulators, and its staged chunk fits
-    the shared memory the kernel asks for (the kernel refuses a plan that
-    does not, so the plan is held here, where no card is)."""
-    k = correlation_kernel
-    steps = 2 * (d // stride2) + 1
-    gx, gy, nacc = k.plan(d, stride2)
-    assert 1 <= gx <= steps and 1 <= gy <= steps and (gx == steps or gy == 1)
-    assert gx * gy <= nacc and nacc in k.ACCUMULATORS
-    results = k.THREADS * (gx * gy | 1) * 4
-    assert max(k.staged_bytes(gx, gy, stride2), results) <= k.SMEM_BYTES
+    """The plan at the 26x26x512 level of a B=32 request, for displacements
+    and strides the kernel takes."""
+    pl = _assert_corr_plan(32, 26, 26, 512, d, stride2)
     if (d, stride2) == (4, 1):  # the main path: 3 groups of 3 dy rows
-        assert (gx, gy, nacc) == (9, 3, 27)
+        assert (pl.r, pl.gx, pl.gy, pl.nacc) == (4, 9, 3, 108)
+
+
+# the main path's levels at B=32, d=4: (H = W, C) and the plan's (R, gx, gy,
+# tile, threads, grid)
+CORR_LEVELS = [
+    (52, 256, (4, 9, 3, (8, 32), 64, (14, 3, 32))),
+    (26, 512, (4, 9, 3, (8, 32), 64, (4, 3, 32))),
+    (13, 1024, (4, 9, 1, (8, 16), 32, (2, 9, 32))),
+]
+
+
+@pytest.mark.parametrize("h,c,want", CORR_LEVELS, ids=["52x52x256", "26x26x512", "13x13x1024"])
+def test_cost_volume_plan_of_main_path(h, c, want):
+    """Each level of the main path gets at least two CTAs an SM of an H100
+    (264) and keeps at least half of its pixel slots inside the image, with
+    16-byte copies."""
+    pl = _assert_corr_plan(32, h, h, c, 4, 1)
+    assert pl.ctas >= correlation_kernel.MIN_CTAS == 264 and pl.live >= 0.5
+    assert (pl.r, pl.gx, pl.gy, pl.tile, pl.threads, pl.grid) == want and pl.copy == 16
+
+
+@pytest.mark.parametrize("name,b,h,w,c,d,stride2", chip_smoke.CORR_CASES,
+                         ids=[case[0] for case in chip_smoke.CORR_CASES])
+def test_cost_volume_plan_of_card_cases(name, b, h, w, c, d, stride2):
+    """The cases chip_smoke.py holds against the plain version get a plan
+    the kernel takes."""
+    _assert_corr_plan(b, h, w, c, d, stride2)
+
+
+def test_cost_volume_copies_narrow_on_misalignment():
+    """16-byte copies need C % 4 == 0 and 16-byte aligned pointers and batch
+    strides; anything else takes 4-byte copies (the same tile)."""
+    k = correlation_kernel
+    window = torch.zeros(2, 3, 5, 5, 8)
+    assert k.aligned(window[:, 0], window[:, 1])
+    flat = torch.zeros(2 * 5 * 5 * 8 + 1)
+    assert not k.aligned(flat[1:].view(2, 5, 5, 8))
+    assert not k.aligned(torch.zeros(2 * 101).as_strided((2, 5, 5, 4), (101, 20, 4, 1)))  # batch stride 101
+    assert k.aligned(torch.zeros(1, 5, 5, 6))  # one image: its batch stride is never used
+    shape = (32, 52, 52, 256, 4, 1)
+    assert k.plan(*shape)._replace(copy=4) == k.plan(*shape, aligned=False)
+    assert _assert_corr_plan(4, 20, 20, 6, 4, 1).copy == 4

@@ -147,6 +147,13 @@ def test_detect_entry_point_on_cpu(tmp_path, capsys):
         assert all(len(e) == 6 and 0 <= min(e[2:]) and max(e[2:]) <= 1 for e in entries)
 
 
+def test_detect_defaults_to_float32():
+    """The entry point serves float32 unless asked, as detect_yolo3.py
+    builds its model (YoloConfig.dtype unset); bf16 is an opt-in."""
+    assert detect.DTYPES[detect.parse_args([]).dtype] == torch.float32
+    assert detect.DTYPES[detect.parse_args(["--dtype", "bf16"]).dtype] == torch.bfloat16
+
+
 def test_no_cpu_drift_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a host without CUDA")

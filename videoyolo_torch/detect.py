@@ -1,7 +1,7 @@
 """Detect entry point: answers a few requests of seeded synthetic images.
 
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 \
-        --num_requests 3 --seed 0 [--device cpu] [--dtype bf16|f32] [--out preds.json]
+        --num_requests 3 --seed 0 [--device cpu] [--dtype f32|bf16] [--out preds.json]
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
         --window 3,1 --k_join_pos late --corr_pos early --corr_d 4   # YOLOv3T windows
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
@@ -41,7 +41,8 @@ def parse_args(argv=None):
     p.add_argument("--num_requests", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="default: cuda (raises without a GPU)")
-    p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    p.add_argument("--dtype", choices=sorted(DTYPES), default="f32",
+                   help="the model's dtype; f32 as detect_yolo3.py serves, bf16 on request")
     p.add_argument("--out", default=None, help="write the detections as JSON")
     p.add_argument("--window", default="1,1", help="temporal window size of frames and stride")
     p.add_argument("--k_join_type", default=None, help="way to fuse k: max, mean or cat")

@@ -4,7 +4,8 @@ The kernel ports the TPU kernel `videoyolo_tpu/ops/pallas_correlation.py:
 correlation_pallas`: the correlation of kernel_size=1, stride1=1, multiply.
 Its plain PyTorch version is `ops/correlation.py:correlation_plain`, to which
 it agrees within float32 summation order (the same products, summed over C in
-another order).
+another order).  `plan` chooses each launch's tile, register tile and
+displacement group from the shape; the C entry point checks it.
 
 The shared library is built by `ops/cuda_build.py` on first use and bound
 with ctypes.  Importing this module needs neither nvcc nor a GPU.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -23,13 +24,94 @@ SOURCE = cuda_build.PKG / "csrc" / "correlation.cu"
 # no -fmad=false: the kernel is held to its plain version with a tolerance
 NVCC_FLAGS = ()
 
-# the kernel's tiling (keep in step with csrc/correlation.cu)
-TILE_W, TILE_H = 32, 8
-THREADS = TILE_W * TILE_H
-CHUNK = 32  # channels staged at a time: one per lane
-SMEM_BYTES = 112 * 1024  # two CTAs per SM
-ACCUMULATORS = (1, 4, 9, 16, 21, 25, 27, 32)  # the kernel's NACC instantiations
+# the kernel's tiling and instances (keep in step with csrc/correlation.cu)
+ROWS = 8  # output rows per tile: one per lane of a quarter-warp
+CHUNK = 16  # channels staged at a time: 64 bytes a pixel
+ROW_PAD = 4  # floats (16 bytes) after each staged row
+PIXELS = 4  # R: neighbouring output pixels a thread takes where stride2 == 1 (else 1)
+GROUP_X = (1, 3, 5, 7, 9)  # displacement columns per CTA
+GROUP_Y = (3, 1)  # displacement rows per CTA, the preferred first
+WARPS = (2, 1)  # warps per CTA, side by side, the preferred first
+SMEM_BYTES = 112 * 1024
+MIN_CTAS = 264  # two CTAs on each of an H100's 132 SMs
 MAX_BATCH = 65535  # the grid's z extent
+MAX_GROUPS = 65535  # the grid's y extent
+
+
+class Plan(NamedTuple):
+    r: int  # output pixels a thread takes, side by side in a row
+    gx: int  # displacement columns per CTA
+    gy: int  # displacement rows per CTA
+    nacc: int  # accumulators per thread: r * gx * gy
+    tile: Tuple[int, int]  # output (rows, columns) per CTA
+    threads: int
+    copy: int  # bytes per staging copy: 16, or 4 where C or the inputs are not 16-byte aligned
+    smem: int  # dynamic shared memory bytes
+    grid: Tuple[int, int, int]  # (pixel tiles, displacement groups, images)
+    live: float  # share of the tiles' pixel slots that lie inside the image
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _balanced(steps: int, most: int) -> int:
+    """The group size that splits `steps` into the fewest, most even groups
+    of at most `most`."""
+    return _ceil_div(steps, _ceil_div(steps, most))
+
+
+def _row_floats(n: int) -> int:
+    """Floats in one staged row of n pixels: an odd number of 16-byte units."""
+    return n * CHUNK + ROW_PAD
+
+
+def _make(b, h, w, c, steps, stride2, r, gx, gy, warps, aligned) -> Plan:
+    tw = 4 * r * warps
+    halo_w, halo_h = tw + (gx - 1) * stride2, ROWS + (gy - 1) * stride2
+    staged = (ROWS * _row_floats(tw) + halo_h * _row_floats(halo_w)) * 4
+    results = ROWS * tw * (gx * gy | 1) * 4
+    tiles_y, tiles_x = _ceil_div(h, ROWS), _ceil_div(w, tw)
+    return Plan(
+        r, gx, gy, r * gx * gy, (ROWS, tw), 32 * warps, 16 if aligned and c % 4 == 0 else 4,
+        max(staged, results), (tiles_y * tiles_x, _ceil_div(steps, gx) * _ceil_div(steps, gy), b),
+        h * w / (tiles_y * ROWS * tiles_x * tw),
+    )
+
+
+def plan(b: int, h: int, w: int, c: int, max_displacement: int, stride2: int, aligned: bool = True) -> Plan:
+    """How the kernel cuts one launch on (B, H, W, C) inputs; `aligned` when
+    both inputs' pointers and batch strides are 16-byte aligned.
+
+    A thread takes R = PIXELS neighbouring pixels of a row where stride2 == 1
+    (they share f2 pixels across displacement columns), else R = 1.  A CTA
+    takes 8 rows x 4*R*warps columns and a group of gy rows x gx columns of
+    the displacement grid: gx the fewest, most even groups of at most 9
+    columns (rounded up to an instance), gy 3 or 1, and gy > 1 only where gx
+    covers a whole row, so a group's displacements are one run of output
+    channels.  The first of (gy, warps) = (3, 2), (3, 1), (1, 2), (1, 1) whose
+    staged chunk fits SMEM_BYTES, that gives at least MIN_CTAS CTAs and that
+    keeps at least half of its pixel slots inside the image is taken; where
+    none does (a small launch), the fitting one with the most CTAs, those
+    with half their slots live first, then the most live.  The main path at B=32, d=4: 52x52 and
+    26x26 take (3, 2), 1,344 and 384 CTAs; 13x13 takes (1, 1), 576 CTAs of
+    one warp.  gx narrows only where no group fits the shared memory."""
+    steps = 2 * (max_displacement // stride2) + 1
+    r = PIXELS if stride2 == 1 else 1
+    widest = next(g for g in GROUP_X if g >= _balanced(steps, GROUP_X[-1]))
+    for gx in reversed([g for g in GROUP_X if g <= widest]):
+        fits = [
+            pl for gy in GROUP_Y if gy == 1 or gx == steps >= gy for warps in WARPS
+            for pl in [_make(b, h, w, c, steps, stride2, r, gx, gy, warps, aligned)] if pl.smem <= SMEM_BYTES
+        ]
+        if fits:
+            return next((pl for pl in fits if pl.ctas >= MIN_CTAS and pl.live >= 0.5),
+                        max(fits, key=lambda pl: (pl.live >= 0.5, pl.ctas, pl.live)))
+    raise AssertionError("unreachable: one warp of one displacement always fits")
 
 
 def build():
@@ -47,49 +129,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_longlong,  # batch strides of f1, f2
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, C
         ctypes.c_int, ctypes.c_int,  # max_displacement, stride2
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # gx, gy, nacc
+        *[ctypes.c_int] * 8,  # the plan: r, gx, gy, threads, copy, smem, tiles, groups
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
     return lib
-
-
-def _ceil_div(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _balanced(steps: int, most: int) -> int:
-    """The group size that splits `steps` into the fewest, most even groups
-    of at most `most`."""
-    return _ceil_div(steps, _ceil_div(steps, most))
-
-
-def staged_bytes(gx: int, gy: int, stride2: int) -> int:
-    """Shared memory of one staged chunk: CHUNK channels of the f1 tile and
-    of the f2 halo a gy x gx displacement group reaches (odd plane strides)."""
-    halo = (TILE_H + (gy - 1) * stride2) * (TILE_W + (gx - 1) * stride2) | 1
-    return CHUNK * (THREADS + 1 + halo) * 4
-
-
-def plan(max_displacement: int, stride2: int) -> Tuple[int, int, int]:
-    """How the kernel cuts the displacements: (gx, gy, nacc).
-
-    Each CTA takes gy rows x gx columns of the displacement grid (at most 32
-    displacements; gx == steps or gy == 1, so a group's displacements are
-    one run of output channels) and keeps `nacc >= gx*gy` accumulators per
-    thread.  Groups shrink (rows first) until a staged chunk fits
-    SMEM_BYTES."""
-    steps = 2 * (max_displacement // stride2) + 1
-    most = ACCUMULATORS[-1]
-    gx = _balanced(steps, most)
-    gy = _balanced(steps, max(1, most // gx))
-    while staged_bytes(gx, gy, stride2) > SMEM_BYTES and gx * gy > 1:
-        if gy > 1:
-            gy -= 1
-        else:
-            gx -= 1
-    nacc = next(n for n in ACCUMULATORS if n >= gx * gy)
-    return gx, gy, nacc
 
 
 def _check(name: str, t: torch.Tensor):
@@ -105,6 +149,11 @@ def _check(name: str, t: torch.Tensor):
     for size, stride, want in zip((h, w, c), t.stride()[1:], (w * c, c, 1)):
         if size > 1 and stride != want:
             raise ValueError(f"cost_volume takes {name} dense over (H, W, C), got strides {t.stride()}")
+
+
+def aligned(*ts: torch.Tensor) -> bool:
+    """Whether each tensor's pointer and batch stride allow 16-byte copies."""
+    return all(t.data_ptr() % 16 == 0 and (t.shape[0] == 1 or t.stride(0) % 4 == 0) for t in ts)
 
 
 def cost_volume(
@@ -130,18 +179,22 @@ def cost_volume(
         raise ValueError(f"cost_volume takes 1 <= B <= {MAX_BATCH} and H, W, C >= 1, got {tuple(f1.shape)}")
     if max_displacement < 0 or stride2 < 1:
         raise ValueError(f"cost_volume takes d >= 0 and stride2 >= 1, got {max_displacement}, {stride2}")
+    pl = plan(b, h, w, c, max_displacement, stride2, aligned(f1, f2))
+    if pl.grid[1] > MAX_GROUPS:
+        raise ValueError(f"cost_volume: {pl.grid[1]} displacement groups for d={max_displacement}, "
+                         f"stride2={stride2}, more than a grid holds")
     steps = 2 * (max_displacement // stride2) + 1
-    gx, gy, nacc = plan(max_displacement, stride2)
     out = torch.empty((b, h, w, steps * steps), dtype=torch.float32, device=f1.device)
     fn = _library().cost_volume_launch
     with torch.cuda.device(f1.device):
         err = fn(
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), f1.stride(0), f2.stride(0),
-            b, h, w, c, max_displacement, stride2, gx, gy, nacc,
+            b, h, w, c, max_displacement, stride2,
+            pl.r, pl.gx, pl.gy, pl.threads, pl.copy, pl.smem, pl.grid[0], pl.grid[1],
             torch.cuda.current_stream(f1.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"cost_volume launch failed with CUDA error {err}")
+        raise RuntimeError(f"cost_volume launch failed with CUDA error {err} ({pl})")
     cost_volume.launches += 1
     return out
 

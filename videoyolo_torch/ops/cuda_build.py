@@ -44,12 +44,13 @@ def build(source: Path, flags: Sequence[str] = ()) -> Tuple[Path, str]:
     built with these flags already.
 
     Returns the library's path and what ptxas reported (registers, shared
-    memory, spills; empty when the library was already there)."""
+    memory, spills), kept beside the library for later calls."""
     all_flags = (*BASE_FLAGS, *flags)
     key = hashlib.sha256(source.read_bytes() + " ".join(all_flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{key}.so"
+    report = lib.with_suffix(".ptxas")
     if lib.exists():
-        return lib, ""
+        return lib, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = BUILD_DIR / f"lib{source.stem}_{key}.{os.getpid()}.tmp"
     proc = subprocess.run(
@@ -58,5 +59,6 @@ def build(source: Path, flags: Sequence[str] = ()) -> Tuple[Path, str]:
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, lib)
     return lib, proc.stderr
