@@ -313,7 +313,7 @@ extern "C" int cost_volume_launch(const void* f1, const void* f2, void* out, lon
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) return cudaErrorInvalidValue;
   const int steps = 2 * (d / s2) + 1;
   const int warps = threads / 32;
-  if (!(r == 1 || (r == 4 && s2 == 1)) || gx > steps || (gx != steps && gy != 1) ||
+  if (!(r == 1 || ((r == 2 || r == 4) && s2 == 1)) || gx > steps || (gx != steps && gy != 1) ||
       threads % 32 != 0 || warps < 1 || warps > kMaxWarps) {
     return cudaErrorInvalidValue;
   }
@@ -337,5 +337,9 @@ extern "C" int cost_volume_launch(const void* f1, const void* f2, void* out, lon
   p.vec = copy == 16;
   const dim3 grid(tiles, groups, B);
   auto st = static_cast<cudaStream_t>(stream);
-  return r == 1 ? launch_gx<1>(gx, gy, p, warps, smem, grid, st) : launch_gx<4>(gx, gy, p, warps, smem, grid, st);
+  switch (r) {
+    case 1: return launch_gx<1>(gx, gy, p, warps, smem, grid, st);
+    case 2: return launch_gx<2>(gx, gy, p, warps, smem, grid, st);
+    default: return launch_gx<4>(gx, gy, p, warps, smem, grid, st);
+  }
 }
