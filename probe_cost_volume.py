@@ -9,8 +9,9 @@ them), on one CUDA card.
 Each variant is first held against the plain version (allclose rtol=atol=
 1e-5), then all are timed in turns (the order, then the reverse), median of
 30 launches each.  A variant is a build of the source (as it is, or with one
-line replaced: BUILDS) and a plan (the register tile R, the displacement
-group rows gy and the warps of a CTA) forced in place of
+line replaced: BUILDS, here the staged rows unpadded and the 16-byte copies
+cached in L1) and a plan (the register tile R, the displacement group rows
+gy and the warps of a CTA) forced in place of
 `correlation_kernel.plan`.  Prints the card, then one JSON line per level
 with each variant's ms, plan and the build's ptxas registers.
 """
@@ -38,13 +39,12 @@ LEVELS = [(52, 256), (26, 512), (13, 1024)]  # (H = W, C)
 BUILDS = {
     "base": None,
     "pad0": ("constexpr int kRowPad = 4;", "constexpr int kRowPad = 0;", dict(ROW_PAD=0)),
-    "unroll2": ("#pragma unroll 1\n    for (int q", "#pragma unroll 2\n    for (int q", {}),
-    "regs128": ("__launch_bounds__(32 * kMaxWarps, 1)", "__launch_bounds__(32 * kMaxWarps, 8)", {}),
+    "l1": ("cp.async.cg.shared.global [%0], [%1], 16, %2;", "cp.async.ca.shared.global [%0], [%1], 16, %2;", {}),
 }
 # the variants: every (R, gy, warps) on the source as it is; the other
-# builds with the plans the base build times best (filled in per level)
-PLANS = list(itertools.product((4, 2, 1), (3, 1), (2, 1)))
-OTHER_PLANS = [(4, 3, 2), (2, 3, 2), (1, 3, 2), (1, 1, 2)]
+# builds with the plan's two 8x8-pixel tilings
+PLANS = list(itertools.product((2, 1), (3, 1), (2, 1)))
+OTHER_PLANS = [(2, 3, 1), (1, 3, 2)]
 
 
 def library(name):

@@ -180,9 +180,9 @@ def _assert_corr_plan(b, h, w, c, d, stride2, aligned=True):
     k = correlation_kernel
     pl = k.plan(b, h, w, c, d, stride2, aligned)
     steps = 2 * (d // stride2) + 1
-    assert pl.r == (k.PIXELS if stride2 == 1 else 1) and pl.nacc == pl.r * pl.gx * pl.gy
-    assert pl.gx in k.GROUP_X and pl.gy in k.GROUP_Y and pl.gx <= steps and pl.gy <= steps
-    assert pl.threads // 32 in k.WARPS and pl.threads % 32 == 0
+    assert (pl.r, pl.gy, pl.threads // 32) in [cand[:3] for cand in k.CANDIDATES] and pl.threads % 32 == 0
+    assert (pl.r == 1 or stride2 == 1) and pl.nacc == pl.r * pl.gx * pl.gy
+    assert pl.gx in k.GROUP_X and pl.gx <= steps and pl.gy <= steps
     rows, cols = pl.tile
     assert (rows, cols) == (k.ROWS, 4 * pl.r * pl.threads // 32)
     assert pl.copy == (16 if aligned and c % 4 == 0 else 4)
@@ -216,15 +216,15 @@ def test_cost_volume_plan(d, stride2):
     and strides the kernel takes."""
     pl = _assert_corr_plan(32, 26, 26, 512, d, stride2)
     if (d, stride2) == (4, 1):  # the main path: 3 groups of 3 dy rows
-        assert (pl.r, pl.gx, pl.gy, pl.nacc) == (4, 9, 3, 108)
+        assert (pl.r, pl.gx, pl.gy, pl.nacc) == (2, 9, 3, 54)
 
 
 # the main path's levels at B=32, d=4: (H = W, C) and the plan's (R, gx, gy,
 # tile, threads, grid)
 CORR_LEVELS = [
-    (52, 256, (4, 9, 3, (8, 32), 64, (14, 3, 32))),
-    (26, 512, (4, 9, 3, (8, 32), 64, (4, 3, 32))),
-    (13, 1024, (4, 9, 1, (8, 16), 32, (2, 9, 32))),
+    (52, 256, (2, 9, 3, (8, 8), 32, (49, 3, 32))),
+    (26, 512, (2, 9, 3, (8, 8), 32, (16, 3, 32))),
+    (13, 1024, (1, 9, 3, (8, 8), 64, (4, 3, 32))),
 ]
 
 

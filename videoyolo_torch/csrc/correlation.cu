@@ -35,19 +35,22 @@
 //    8 distinct groups of banks, so every 16-byte shared load is free of
 //    conflicts.  Per 4 channels a thread loads its R f1 pixels and, for each
 //    of the group's GY displacement rows, the R + GX - 1 f2 pixels its R
-//    pixels reach (stride2 == 1; R = 1 otherwise), and does 4*R*GX*GY
-//    multiply-adds: at R=4, GX=9, GY=3, 40 loads of 16 bytes for 432 FMAs,
-//    where one thread per pixel needed a 4-byte load per FMA.  Each (pixel,
-//    displacement) is summed in channel order.
+//    pixels reach (R = 2 only where stride2 == 1), and does 4*R*GX*GY
+//    multiply-adds: at R=2, GX=9, GY=3, 32 loads of 16 bytes for 216 FMAs,
+//    at R=1 28 for 108, where one thread per pixel and a channel-major chunk
+//    needed a 4-byte load per FMA.  Each (pixel, displacement) is summed in
+//    channel order.
 //  * R, GX and GY are template arguments, so the R*GX*GY accumulators live
 //    in registers; displacements of a ragged last group are computed on
 //    staged zeros and not written.  The tile width, the group and the grid
 //    are the plan's (correlation_kernel.plan), which this file checks.
 //  * The results go through shared memory and leave as each pixel's run of
 //    the group's contiguous displacements.
-// No double buffering and no split over C: the CTAs of an SM (5 of two warps
-// on the main path's 52x52 level) overlap one's staging with another's
-// arithmetic.
+// No double buffering and no split over C: the CTAs of an SM overlap one's
+// staging with another's arithmetic, so the plan favours small CTAs on
+// 8x8-pixel tiles (one warp at R=2, two at R=1), many to an SM.  R=4 (184
+// registers at GX=9, GY=3) was an instance and lost at every level on an
+// H100: too few warps an SM to hide the staging's latency.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -143,8 +146,8 @@ __device__ __forceinline__ void dot4(float& acc, const float4& f, const float4& 
   acc = fmaf(f.w, g.w, acc);
 }
 
-// at least one CTA an SM: without it ptxas held several instances to fewer
-// registers, for occupancy, and spilled a few bytes (R=4 at 72-168 registers)
+// at least one CTA an SM: without it ptxas held several instances below the
+// registers they need, for occupancy, and spilled a few bytes in each
 template <int R, int GX, int GY>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
 cost_volume_kernel(const Params p) {
@@ -313,7 +316,7 @@ extern "C" int cost_volume_launch(const void* f1, const void* f2, void* out, lon
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) return cudaErrorInvalidValue;
   const int steps = 2 * (d / s2) + 1;
   const int warps = threads / 32;
-  if (!(r == 1 || ((r == 2 || r == 4) && s2 == 1)) || gx > steps || (gx != steps && gy != 1) ||
+  if (!(r == 1 || (r == 2 && s2 == 1)) || gx > steps || (gx != steps && gy != 1) ||
       threads % 32 != 0 || warps < 1 || warps > kMaxWarps) {
     return cudaErrorInvalidValue;
   }
@@ -337,9 +340,5 @@ extern "C" int cost_volume_launch(const void* f1, const void* f2, void* out, lon
   p.vec = copy == 16;
   const dim3 grid(tiles, groups, B);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (r) {
-    case 1: return launch_gx<1>(gx, gy, p, warps, smem, grid, st);
-    case 2: return launch_gx<2>(gx, gy, p, warps, smem, grid, st);
-    default: return launch_gx<4>(gx, gy, p, warps, smem, grid, st);
-  }
+  return r == 1 ? launch_gx<1>(gx, gy, p, warps, smem, grid, st) : launch_gx<2>(gx, gy, p, warps, smem, grid, st);
 }

@@ -28,18 +28,23 @@ NVCC_FLAGS = ()
 ROWS = 8  # output rows per tile: one per lane of a quarter-warp
 CHUNK = 16  # channels staged at a time: 64 bytes a pixel
 ROW_PAD = 4  # floats (16 bytes) after each staged row
-PIXELS = 4  # R: neighbouring output pixels a thread takes where stride2 == 1 (else 1)
 GROUP_X = (1, 3, 5, 7, 9)  # displacement columns per CTA
-GROUP_Y = (3, 1)  # displacement rows per CTA, the preferred first
-WARPS = (2, 1)  # warps per CTA, side by side, the preferred first
 SMEM_BYTES = 112 * 1024
-MIN_CTAS = 264  # two CTAs on each of an H100's 132 SMs
+SMS = 132  # an H100's SMs
+MIN_CTAS = 2 * SMS
+# the instances' (R pixels a thread, gy displacement rows, warps a CTA,
+# least CTAs), in order of preference: R=2 in one warp where the launch
+# fills the card four CTAs deep, else R=1 in two warps, both on 8x8-pixel
+# tiles; one displacement row a CTA where three are not allowed or give too
+# few CTAs; one warp of R=1 last
+CANDIDATES = ((2, 3, 1, 4 * SMS), (1, 3, 2, MIN_CTAS), (2, 1, 1, 4 * SMS), (1, 1, 2, MIN_CTAS),
+              (1, 1, 1, MIN_CTAS))
 MAX_BATCH = 65535  # the grid's z extent
 MAX_GROUPS = 65535  # the grid's y extent
 
 
 class Plan(NamedTuple):
-    r: int  # output pixels a thread takes, side by side in a row
+    r: int  # output pixels a thread takes, side by side in a row: the register tile
     gx: int  # displacement columns per CTA
     gy: int  # displacement rows per CTA
     nacc: int  # accumulators per thread: r * gx * gy
@@ -87,30 +92,38 @@ def plan(b: int, h: int, w: int, c: int, max_displacement: int, stride2: int, al
     """How the kernel cuts one launch on (B, H, W, C) inputs; `aligned` when
     both inputs' pointers and batch strides are 16-byte aligned.
 
-    A thread takes R = PIXELS neighbouring pixels of a row where stride2 == 1
-    (they share f2 pixels across displacement columns), else R = 1.  A CTA
-    takes 8 rows x 4*R*warps columns and a group of gy rows x gx columns of
-    the displacement grid: gx the fewest, most even groups of at most 9
-    columns (rounded up to an instance), gy 3 or 1, and gy > 1 only where gx
-    covers a whole row, so a group's displacements are one run of output
-    channels.  The first of (gy, warps) = (3, 2), (3, 1), (1, 2), (1, 1) whose
-    staged chunk fits SMEM_BYTES, that gives at least MIN_CTAS CTAs and that
-    keeps at least half of its pixel slots inside the image is taken; where
-    none does (a small launch), the fitting one with the most CTAs, those
-    with half their slots live first, then the most live.  The main path at B=32, d=4: 52x52 and
-    26x26 take (3, 2), 1,344 and 384 CTAs; 13x13 takes (1, 1), 576 CTAs of
-    one warp.  gx narrows only where no group fits the shared memory."""
+    A CTA takes 8 rows x 4*R*warps columns of output pixels, a thread R
+    neighbouring pixels of a row (R = 2 only where stride2 == 1: the two
+    share f2 pixels across displacement columns), and a group of gy rows x gx
+    columns of the displacement grid: gx the fewest, most even groups of at
+    most 9 columns (rounded up to an instance), gy 3 or 1, gy > 1 only where
+    gx covers a whole row, so a group's displacements are one run of output
+    channels.  The first of CANDIDATES whose staged chunk fits SMEM_BYTES,
+    that gives its least CTAs and keeps at least half of its pixel slots
+    inside the image is taken; where none does (a small launch), the fitting
+    one with the most CTAs, those with half their slots live first, then the
+    most live.  gx narrows only where no group fits the shared memory.
+
+    The candidates follow the times of every (R, gy, warps), R in 1, 2 and
+    4, at the main path's levels (B=32, d=4) on an H100 80GB HBM3 at 700 W
+    (probe_cost_volume.py): R=2, gy=3 in one warp was the fastest at
+    52x52x256 (0.366 ms; R=1 0.440, R=4 in two warps 0.510) and 26x26x512
+    (0.224; R=4 0.310); at 13x13x1024, with 384 such CTAs, R=1, gy=3 in two
+    warps was (0.254; R=2 in one warp 0.291, R=4 with gy=1 0.370).  R=4
+    lost everywhere: at 184 registers a thread, an SM holds too few warps to
+    hide the staging's latency.  So the main path takes R=2, gy=3, one warp
+    at 52x52 and 26x26 (4,704 and 1,536 CTAs) and R=1, gy=3, two warps at
+    13x13 (384 CTAs)."""
     steps = 2 * (max_displacement // stride2) + 1
-    r = PIXELS if stride2 == 1 else 1
     widest = next(g for g in GROUP_X if g >= _balanced(steps, GROUP_X[-1]))
     for gx in reversed([g for g in GROUP_X if g <= widest]):
         fits = [
-            pl for gy in GROUP_Y if gy == 1 or gx == steps >= gy for warps in WARPS
+            (pl, least) for r, gy, warps, least in CANDIDATES if (r == 1 or stride2 == 1) and (gy == 1 or gx == steps >= gy)
             for pl in [_make(b, h, w, c, steps, stride2, r, gx, gy, warps, aligned)] if pl.smem <= SMEM_BYTES
         ]
         if fits:
-            return next((pl for pl in fits if pl.ctas >= MIN_CTAS and pl.live >= 0.5),
-                        max(fits, key=lambda pl: (pl.live >= 0.5, pl.ctas, pl.live)))
+            return next((pl for pl, least in fits if pl.ctas >= least and pl.live >= 0.5),
+                        max((pl for pl, _ in fits), key=lambda pl: (pl.live >= 0.5, pl.ctas, pl.live)))
     raise AssertionError("unreachable: one warp of one displacement always fits")
 
 
