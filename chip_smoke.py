@@ -348,10 +348,6 @@ def build_kernels():
     return dict(zip(sources, builds))
 
 
-def corr_instance(pl):
-    return pl.r, pl.gx, pl.gy
-
-
 def check_corr_build(ptxas):
     """The cost-volume library: no ptxas spill in any kernel instance the
     plan gives a case of CORR_CASES, and 16-byte shared loads (LDS.128) and
@@ -359,8 +355,8 @@ def check_corr_build(ptxas):
     instances (the three levels, the first cases).  Returns the main path's
     instances."""
     plans = [correlation_kernel.plan(b, h, w, c, d, s2) for _, b, h, w, c, d, s2 in CORR_CASES]
-    used = {corr_instance(pl) for pl in plans}
-    main = {corr_instance(pl) for pl in plans[:3]}
+    used = {(pl.r, pl.gx, pl.gy) for pl in plans}
+    main = {(pl.r, pl.gx, pl.gy) for pl in plans[:3]}
     report = {}
     for name, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry function|\Z)", ptxas, re.S):
         inst = re.search(r"cost_volume_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)

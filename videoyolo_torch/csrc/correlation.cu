@@ -51,6 +51,16 @@
 // 8x8-pixel tiles (one warp at R=2, two at R=1), many to an SM.  R=4 (184
 // registers at GX=9, GY=3) was an instance and lost at every level on an
 // H100: too few warps an SM to hide the staging's latency.
+// Measured (H100 80GB HBM3, 700 W limit, chip_smoke.py): 0.369 / 0.226 /
+// 0.256 ms a launch at 52x52x256 / 26x26x512 / 13x13x1024 (B=32, d=4), 6-19x
+// the bound, against 0.670 / 0.382 / 0.472 for one thread a pixel on
+// channel-major chunks.  What bounds it now: each CTA waits for its chunk's
+// copies and then computes, with nothing of its own in flight, so the copies'
+// latency shows wherever an SM holds few CTAs (13x13: 384 CTAs); the 8x8
+// tiles re-stage f2 about 2.5 times a group (the window is 10x16 pixels);
+// and at R <= 2 the arithmetic still needs 0.15-0.26 16-byte shared loads a
+// multiply-add.  Without the row padding the kernel was 2.3-4x slower
+// (probe_cost_volume.py).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -129,9 +139,8 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int y0, int 
 
 __device__ __forceinline__ float4 load4(const float* s) { return *reinterpret_cast<const float4*>(s); }
 
-// blockIdx.y, read anew at each call: what is derived from it (the group's
-// origin) is recomputed after the main loop rather than carried across it,
-// where at 108 accumulators it was spilled
+// blockIdx.y, read anew at each call, so the group's origin is recomputed
+// after the main loop rather than held in registers across it
 __device__ __forceinline__ int group_index() {
   int v;
   asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(v));
