@@ -14,10 +14,14 @@ Phases; any failure exits non-zero:
      the plan gives a case of CORR_CASES may spill, and the main path's
      instances must hold 16-byte shared loads and 16-byte cp.async copies
      in their SASS;
-  3. kernels vs plain, on the card: the NMS kernel against
-     ops/nms.py:nms_greedy_plain at the main path's shape and on edge cases
-     (keep masks and packed rows, with and without the keep mask written,
-     equal bit for bit); the cost-volume kernel against
+  3. kernels vs plain, on the card: the NMS kernels (a mask launch and a
+     scan launch a call) against ops/nms.py:nms_greedy_plain at the main
+     path's shape and on edge cases, K above the old cap of 1,024 up to 8,192
+     among them, a K that is no multiple of 64, an image with no valid row
+     and an IoU exactly at the threshold (keep masks and packed rows, with
+     and without the keep mask written, equal bit for bit); then K1's time
+     at B=128 and B=1 on synthetic candidates, per call and with the launch
+     queue kept full, and each launch alone; the cost-volume kernel against
      ops/correlation.py:correlation_plain in float32 at the three levels of
      slice 2 and on edge cases, the register tile's ragged edges among them
      (allclose rtol=atol=1e-5: the same products, summed over C in another
@@ -31,8 +35,11 @@ Phases; any failure exits non-zero:
      416 px with seeded random weights answers requests of B=1, 8 and 128;
      the NMS kernel's launch count must rise by one per request, the outputs
      must be in range, and the B=128 detections must equal the plain NMS's
-     on the same candidates; then the detect step's times, and one request
-     through the entry point `python -m videoyolo_torch.detect`;
+     on the same candidates; K1's times on the model's candidates at B=128
+     and B=1; `postprocess(nms_topk=-1)` on the model's outputs at 64 px
+     (5,040 candidates an image, B=2) on the card against the same call on
+     the CPU; then the detect step's times, and one request through the
+     entry point `python -m videoyolo_torch.detect`;
   5. slice 2: Detector(YoloConfig(num_classes=20, k=3, k_join_pos="late",
      corr_pos="early", corr_d=4), bf16) at 416 px with seeded random weights
      answers requests of B=1, 8 and 32 windows of 3 frames; the cost-volume
@@ -83,7 +90,7 @@ from videoyolo_torch import detect
 from videoyolo_torch.data.transforms import to_normalized
 from videoyolo_torch.models.factory import YoloConfig
 from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual
-from videoyolo_torch.models.yolo3 import select_topk_candidates
+from videoyolo_torch.models.yolo3 import postprocess, select_topk_candidates
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
 from videoyolo_torch.ops.correlation_kernel import cost_volume
@@ -92,7 +99,7 @@ from videoyolo_torch.ops.int8_conv_kernel import int8_conv, quant_downsample
 from videoyolo_torch.ops.quantize import replace_quant
 from videoyolo_torch.ops.nms import nms_greedy_plain
 from videoyolo_torch.ops.nms_kernel import nms_greedy
-from videoyolo_torch.profiling import cuda_time_ms
+from videoyolo_torch.profiling import cuda_time_ms, queued_ms
 from videoyolo_torch.serving import NMS_THRESH, NMS_TOPK, Detector
 
 SIZE = 416
@@ -188,18 +195,33 @@ def kernel_cases(rs):
     neg[:, ::7, 0] = -1.0
     same = candidates(rs, 8, 400)
     same[:, :, 2:6] = same[:, :1, 2:6]
-    # (name, dets, post_nms, force_suppress)
+    none = candidates(rs, 4, 400)
+    none[1, :, 1] = 0.005  # image 1: every score below the threshold
+    none[2, :, 0] = -1.0  # image 2: every id invalid
+    # two boxes of area 2 overlapping in area 1: IoU 1/3 exactly, which does
+    # not suppress at a threshold of float32(1/3) (strict >)
+    third = np.array([[[0, 0.9, 0, 0, 2, 1], [0, 0.8, 1, 0, 3, 1]]], np.float32)
+    # (name, dets, post_nms, force_suppress, overlap threshold)
     return [
-        ("main_B128_K400", main, POST_NMS, False),
-        ("force_suppress", candidates(rs, 16, 400), POST_NMS, True),
-        ("below_valid_thresh", low, -1, False),
-        ("negative_ids", neg, POST_NMS, False),
-        ("K1", candidates(rs, 4, 1), POST_NMS, False),
-        ("K45", candidates(rs, 8, 45, classes=3), -1, False),
-        ("K1024", candidates(rs, 8, 1024), -1, False),
-        ("K1024_force", candidates(rs, 4, 1024), POST_NMS, True),
-        ("identical_boxes", same, -1, False),
-        ("identical_boxes_force", same, POST_NMS, True),
+        ("main_B128_K400", main, POST_NMS, False, NMS_THRESH),
+        ("force_suppress", candidates(rs, 16, 400), POST_NMS, True, NMS_THRESH),
+        ("below_valid_thresh", low, -1, False, NMS_THRESH),
+        ("negative_ids", neg, POST_NMS, False, NMS_THRESH),
+        ("no_valid_row", none, POST_NMS, False, NMS_THRESH),
+        ("K1", candidates(rs, 4, 1), POST_NMS, False, NMS_THRESH),
+        ("K45", candidates(rs, 8, 45, classes=3), -1, False, NMS_THRESH),
+        ("K1000_3_classes", candidates(rs, 4, 1000, classes=3), POST_NMS, False, NMS_THRESH),
+        ("K1024", candidates(rs, 8, 1024), -1, False, NMS_THRESH),
+        ("K1024_force", candidates(rs, 4, 1024), POST_NMS, True, NMS_THRESH),
+        ("K1025", candidates(rs, 4, 1025), -1, False, NMS_THRESH),
+        ("K1025_force", candidates(rs, 4, 1025), POST_NMS, True, NMS_THRESH),
+        ("K2048", candidates(rs, 2, 2048), POST_NMS, False, NMS_THRESH),
+        ("K2048_force", candidates(rs, 2, 2048), -1, True, NMS_THRESH),
+        ("K8192_B1", candidates(rs, 1, 8192), POST_NMS, False, NMS_THRESH),
+        ("identical_boxes", same, -1, False, NMS_THRESH),
+        ("identical_boxes_force", same, POST_NMS, True, NMS_THRESH),
+        ("iou_at_threshold", third, -1, False, float(np.float32(1 / 3))),
+        ("iou_above_threshold", third, -1, False, float(np.nextafter(np.float32(1 / 3), np.float32(0)))),
     ]
 
 
@@ -286,6 +308,33 @@ def bound(times):
 
 def median_ms(fn, iters, warmup=3):
     return statistics.median(cuda_time_ms(fn, iters=iters, warmup=warmup))
+
+
+def nms_times(d):
+    """K1's times on score-sorted candidates `d` as the main path calls it
+    (no keep mask written): `ms`, the median of CUDA events around each call
+    (a call that the host launches slower than the card runs it shows the
+    host's time); `queued_ms`, the device's time a call with the queue kept
+    full; `mask_ms` and `scan_ms`, each launch alone, queued."""
+    b, k, _ = d.shape
+    pl = nms_kernel.plan(b, k)
+    mask = torch.empty((b, k, pl.words), dtype=torch.int64, device=d.device)
+    packed = torch.empty((b, min(POST_NMS, k), 6), device=d.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = dict(ms=median_ms(lambda: nms_greedy(d, NMS_THRESH, VALID_THRESH, POST_NMS, return_keep=False), 50),
+               queued_ms=queued_ms(lambda: nms_greedy(d, NMS_THRESH, VALID_THRESH, POST_NMS, return_keep=False)))
+    out["mask_ms"] = queued_ms(lambda: nms_kernel.launch_mask(d, mask, pl, NMS_THRESH, False, stream))
+    out["scan_ms"] = queued_ms(lambda: nms_kernel.launch_scan(d, mask, packed, None, pl, VALID_THRESH, stream))
+    return out
+
+
+def print_nms_times(label, d, t, card, plain_ms=None):
+    b_ms, b_by = nms_bound(d, POST_NMS, False, keep=False)
+    print(f"nms {label} B={d.shape[0]} K={d.shape[1]} on {card}: kernel {t['ms']:.4f} ms a call "
+          f"({t['queued_ms']:.4f} queued: mask {t['mask_ms']:.4f} + scan {t['scan_ms']:.4f})"
+          + (f", plain {plain_ms:.3f} ms" if plain_ms is not None else "")
+          + f", bound {b_ms:.3g} ms ({b_by})")
+    return b_ms, b_by
 
 
 def plain_corr(corr, x):
@@ -422,35 +471,37 @@ def first_difference(out, ref):
 
 
 def check_nms_kernel(rs, dev, card):
-    """Phase 3, NMS: bit for bit against the plain version.  Returns (max
-    abs error, cases)."""
-    max_err = 0.0
+    """Phase 3, NMS: bit for bit against the plain version; then K1's times
+    on synthetic candidates at B=128 and B=1.  Returns (max abs error,
+    cases, {"B128": times, "B1": times})."""
+    max_err, kept = 0.0, {}
     cases = kernel_cases(rs)
-    for name, dets, post, force in cases:
+    for name, dets, post, force, thresh in cases:
         d = torch.from_numpy(np.ascontiguousarray(dets)).to(dev)
-        packed, keep = nms_greedy(d, NMS_THRESH, VALID_THRESH, post, force)
-        packed_only, no_keep = nms_greedy(d, NMS_THRESH, VALID_THRESH, post, force, return_keep=False)
-        ref_packed, ref_keep = nms_greedy_plain(d, NMS_THRESH, VALID_THRESH, post, force)
+        packed, keep = nms_greedy(d, thresh, VALID_THRESH, post, force)
+        packed_only, no_keep = nms_greedy(d, thresh, VALID_THRESH, post, force, return_keep=False)
+        ref_packed, ref_keep = nms_greedy_plain(d, thresh, VALID_THRESH, post, force)
         torch.cuda.synchronize()
         check(torch.equal(keep.bool(), ref_keep), f"{name}: keep masks differ")
         check(torch.equal(packed, ref_packed), f"{name}: packed rows differ")
         check(no_keep is None and torch.equal(packed_only, ref_packed),
               f"{name}: packed rows differ without the keep mask")
         max_err = max(max_err, float((packed - ref_packed).abs().max()))
+        kept[name] = int(keep.sum())
         print(
             f"nms {name}: B={d.shape[0]} K={d.shape[1]} force={force}: "
             f"{float(keep.sum(1).float().mean()):.1f} kept/image, equal"
         )
+    check((kept["iou_at_threshold"], kept["iou_above_threshold"]) == (2, 1),
+          f"nms: IoU 1/3 must keep both boxes at float32(1/3) and one just below it, kept {kept}")
     # timed as the main path calls it (box_nms): no keep mask written
     d = torch.from_numpy(np.ascontiguousarray(cases[0][1])).to(dev)
-    k_ms = median_ms(lambda: nms_greedy(d, NMS_THRESH, VALID_THRESH, POST_NMS, return_keep=False), 50)
-    p_ms = median_ms(lambda: nms_greedy_plain(d, NMS_THRESH, VALID_THRESH, POST_NMS), 20)
-    b_ms, b_by = nms_bound(d, POST_NMS, False, keep=False)
-    print(
-        f"nms synthetic B=128 K=400 on {card}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by})"
-    )
-    return max_err, len(cases)
+    times = {}
+    for label, x in (("B128", d), ("B1", d[:1].contiguous())):
+        times[label] = nms_times(x)
+        p_ms = median_ms(lambda: nms_greedy_plain(x, NMS_THRESH, VALID_THRESH, POST_NMS), 20)
+        print_nms_times("synthetic", x, times[label], card, p_ms)
+    return max_err, len(cases), times
 
 
 def check_corr_kernel(dev):
@@ -528,9 +579,50 @@ def check_int8_kernels(dev):
     return n, errs[0], errs[1]
 
 
+def check_all_pairs(det, rs, dev):
+    """`postprocess(nms_topk=-1)`, every (box, class) pair a candidate, on
+    the slice-1 model's outputs for two 64-px images (252 boxes x 20
+    classes = 5,040 candidates an image), on the card and on the CPU.  The
+    card's detections must equal the plain NMS's on the card's candidates,
+    and the CPU's where the two top-k orders agree; where they differ, they
+    may differ only in the order of tied scores (the top-k is exact modulo
+    ties).  Returns the max abs error."""
+    x = torch.from_numpy(rs.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)).to(dev)
+    with torch.inference_mode():
+        boxes, scores = det.model(to_normalized(x, dtype=det.dtype))
+        k = boxes.shape[1] * scores.shape[-1]
+        before = nms_greedy.launches
+        ids, sc, bb = postprocess(boxes, scores, nms_thresh=NMS_THRESH, nms_topk=-1, post_nms=POST_NMS)
+        launched = nms_greedy.launches - before
+        cands = select_topk_candidates(boxes, scores, topk=k).cpu()
+        boxes, scores = boxes.cpu(), scores.cpu()
+        cpu = postprocess(boxes, scores, nms_thresh=NMS_THRESH, nms_topk=-1, post_nms=POST_NMS)
+        cpu_cands = select_topk_candidates(boxes, scores, topk=k)
+    check(k == 5040 and cands.shape == (2, k, 6) and launched == 1,
+          f"all pairs: {k} candidates {tuple(cands.shape)}, {launched} NMS calls")
+    ref, ref_keep = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    card = torch.cat([ids, sc, bb], -1).cpu()
+    check(torch.equal(card, ref), "all pairs: the card's detections differ from the plain NMS on its candidates")
+    ties = sum(int(c[:, 1].numel() - c[:, 1].unique().numel()) for c in cands)
+    if torch.equal(cands, cpu_cands):
+        check(all(torch.equal(a.cpu(), b) for a, b in zip((ids, sc, bb), cpu)),
+              "all pairs: the card's detections differ from the CPU's")
+        agree = "the CPU's top-k order, and its detections"
+    else:
+        check(torch.equal(cands[..., 1], cpu_cands[..., 1]) and all(
+            sorted(map(tuple, a.tolist())) == sorted(map(tuple, b.tolist())) for a, b in zip(cands, cpu_cands)),
+            "all pairs: the card's candidates differ from the CPU's beyond the order of tied scores")
+        agree = "the CPU's candidates up to the order of tied scores"
+    print(f"all pairs at 64 px, B=2: {k} candidates an image ({ties} tied scores), one NMS call on the card; "
+          f"{int(ref_keep.sum())} kept; detections equal the plain NMS's on the card's candidates; "
+          f"candidates equal {agree}")
+    return float((card - ref).abs().max())
+
+
 def serve_slice1(rs, dev, card, nms_ms):
     """Phase 4.  Returns (detector, B=128 batch, B=1 batch, NMS launches,
-    NMS kernel and plain ms on the model's candidates, max abs error)."""
+    max abs error); K1's figures on the model's candidates go into
+    `nms_ms`."""
     t0 = time.perf_counter()
     det = Detector(
         YoloConfig(num_classes=NUM_CLASSES, pad_stem=True), dtype=torch.bfloat16,
@@ -566,18 +658,20 @@ def serve_slice1(rs, dev, card, nms_ms):
     print(f"B=128 request: detections equal the plain NMS's on the same candidates "
           f"({int(ref_keep.sum())} kept of {ref_keep.numel()})")
 
-    k_ms = median_ms(
-        lambda: nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS, return_keep=False), 50
-    )
+    t = nms_times(cands)
     p_ms = median_ms(lambda: nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS), 20)
-    b_ms, b_by = nms_bound(cands, POST_NMS, False, keep=False)
-    print(
-        f"nms model candidates B=128 K={cands.shape[1]} on {card}: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})"
-    )
-    nms_ms.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = print_nms_times("model candidates", cands, t, card, p_ms)
+    k_ms = t["ms"]
+    nms_ms.update(plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **t)
 
     x1 = torch.from_numpy(requests[0]).to(dev)
+    with torch.inference_mode():
+        cands1 = select_topk_candidates(*det.model(to_normalized(x1, dtype=det.dtype)), topk=NMS_TOPK)
+    t1 = nms_times(cands1)
+    b1_ms, _ = print_nms_times("model candidates", cands1, t1, card)
+    nms_ms["B1"] = dict(bound_ms=b1_ms, **t1)
+    max_err = max(max_err, check_all_pairs(det, rs, dev))
+
     with torch.inference_mode():
         t_fwd = median_ms(lambda: det.model(xn), 10)
         t_sel = median_ms(lambda: select_topk_candidates(boxes, scores, topk=NMS_TOPK), 20)
@@ -1065,7 +1159,7 @@ def main() -> int:
 
     # 3. the kernels against their plain versions
     rs = np.random.RandomState(0)
-    nms_err, nms_cases = check_nms_kernel(rs, dev, card)
+    nms_err, nms_cases, nms_synthetic = check_nms_kernel(rs, dev, card)
     corr_err = check_corr_kernel(dev)
     int8_cases, k3_err, conv_err = check_int8_kernels(dev)
 
@@ -1099,7 +1193,9 @@ def main() -> int:
             **nms_ms,
             "library_ms": None,
             "match": True,
-            "cases": nms_cases + 1,
+            "cases": nms_cases + 2,
+            "per": "one call (B=128 model candidates, K=400): two CUDA launches, mask and scan",
+            "synthetic": nms_synthetic,
             "launches_slice2": nms_launches2,
         },
         {

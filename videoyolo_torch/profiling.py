@@ -7,6 +7,7 @@ fallback: timing without a card raises.
 """
 from __future__ import annotations
 
+import statistics
 from typing import Callable, List
 
 import torch
@@ -30,3 +31,26 @@ def cuda_time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> 
         events.append((start, end))
     torch.cuda.synchronize()
     return [s.elapsed_time(e) for s, e in events]
+
+
+def queued_ms(fn: Callable[[], object], iters: int = 100, repeats: int = 3) -> float:
+    """Device ms per call of `fn()` with the launch queue kept full: a sleep
+    kernel holds the stream while `iters` calls are enqueued, and CUDA events
+    bracket the calls, so host time between calls does not count (median of
+    `repeats` runs).  Where the host launches a call slower than the card
+    runs it, `cuda_time_ms` shows the host's time and this the card's."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("queued_ms measures on the card; CUDA is not available")
+    fn()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # tens of ms: longer than enqueueing the calls
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
