@@ -69,7 +69,22 @@ Phases; any failure exits non-zero:
      on a small input, for slices 1, 2 and 3 (slice 3: every int8 tensor
      equal);
   8. profile: the device's busy share and top kernels of slice 1's step at
-     B=128 and B=1, of slice 2's at B=32 and of slice 3's at B=128.
+     B=128 and B=1, of slice 2's at B=32 and of slice 3's at B=128;
+  9. slice 4, training (the detectors of phases 4-6 freed first): the train
+     step of YOLOv3(num_classes=20, bf16, s2d_stem=True) at 416 px, B=48,
+     uint8 pixels with per-image color maps and gt padded to 56 rows (the
+     JAX package's timed step, bench.py:368-410) from a seeded init: images/s
+     as the median of 10 steps after 3 warm ones (CUDA events), the peak
+     memory, one profiled step (idle share, top device ops), and the same
+     step with the standard stem; one float32 step of the same model at
+     128 px, B=4 on the card and on the CPU from the same weights and batch
+     (losses, each leaf's update and the BN statistics within the stated
+     TRAIN_TOL); the overfit run of `videoyolo_torch.overfit` (bf16, 160 px,
+     B=8, 400 steps), which must pass the JAX package's rule; its checkpoint
+     written by `save_params`, loaded into a fresh model, whose eval step's
+     detections must equal the trained model's bit for bit, K1 launched once
+     an eval (counted); then a profiled overfit step (device ops a step, the
+     host's share).
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -80,17 +95,18 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from videoyolo_torch import detect
-from videoyolo_torch.data.transforms import to_normalized
+from videoyolo_torch import detect, overfit
+from videoyolo_torch.data.transforms import MEAN, STD, to_normalized
 from videoyolo_torch.models.factory import YoloConfig
-from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual
-from videoyolo_torch.models.yolo3 import postprocess, select_topk_candidates
+from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights
+from videoyolo_torch.models.yolo3 import YOLOv3, postprocess, select_topk_candidates
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
 from videoyolo_torch.ops.correlation_kernel import cost_volume
@@ -101,6 +117,9 @@ from videoyolo_torch.ops.nms import nms_greedy_plain
 from videoyolo_torch.ops.nms_kernel import nms_greedy
 from videoyolo_torch.profiling import cuda_time_ms, queued_ms
 from videoyolo_torch.serving import NMS_THRESH, NMS_TOPK, Detector
+from videoyolo_torch.train.checkpoint import load_into, load_variables
+from videoyolo_torch.train.lr import lr_schedule
+from videoyolo_torch.train.step import create_train_state, make_eval_step, make_train_step
 
 SIZE = 416
 NUM_CLASSES = 20
@@ -1131,6 +1150,145 @@ def profile_steps(steps, card):
                   f"{e.count // n:4d}x  {e.key[:90]}")
 
 
+TRAIN_BATCH = 48  # the JAX package's timed train step (bench.py:148)
+TRAIN_ROWS = 56  # the loader's padded gt rows
+OVERFIT_CLASSES = 3
+# card vs CPU, one float32 train step at 128 px, B=4: other conv algorithms
+# and summation orders, and BatchNorm in train mode amplifies rounding into
+# some leaves' updates (on the CPU, that step in float32 lands up to 0.106
+# of a leaf's largest update from the same step in float64, 0.005 in L2 over
+# all leaves, the BN statistics within 2.2e-6)
+TRAIN_TOL = dict(loss_rtol=1e-4, leaf=0.5, l2=0.05, stats_rtol=1e-3, stats_atol=1e-5)
+
+
+def train_batch(rs, b, size, device):
+    """The JAX package's timed train batch (bench.py:368-410): uint8 pixels,
+    normalize-only (3, 4) color maps, gt row 0 [10, 10, 100, 100] class 1,
+    padded to TRAIN_ROWS rows."""
+    gtb = np.full((b, TRAIN_ROWS, 4), -1, np.float32)
+    gti = np.full((b, TRAIN_ROWS, 1), -1, np.float32)
+    gtb[:, 0] = [10, 10, 100, 100]
+    gti[:, 0, 0] = 1
+    mean = np.array(MEAN, np.float32) * 255.0
+    std = np.array(STD, np.float32) * 255.0
+    cmat = np.concatenate([np.diag(1.0 / std), (-mean / std)[:, None]], axis=1).astype(np.float32)
+    batch = {"image": rs.randint(0, 255, (b, size, size, 3)).astype(np.uint8), "gt_boxes": gtb, "gt_ids": gti,
+             "color": np.broadcast_to(cmat, (b, 3, 4)).copy()}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def time_train_step(dev, card, s2d_stem: bool, profile: bool):
+    """The B=48 416-px bf16 train step from a seeded init: (median ms,
+    peak bytes, the last step's losses)."""
+    model = YOLOv3(num_classes=NUM_CLASSES, dtype=torch.bfloat16, s2d_stem=s2d_stem)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+    step = make_train_step(model, num_classes=NUM_CLASSES)
+    batch = train_batch(np.random.RandomState(0), TRAIN_BATCH, SIZE, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=10, warmup=3))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    check(all(np.isfinite(v) for v in losses.values()), f"train step losses not finite: {losses}")
+    stem = "s2d stem" if s2d_stem else "standard stem"
+    print(f"slice 4 train step B={TRAIN_BATCH} at {SIZE} px bf16, {stem}, on {card}: "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} images/s ({ms:.3f} ms/step, median of 10 after 3 warm), "
+          f"peak memory {peak / 2**30:.2f} GiB, losses after {state.step} steps "
+          + ", ".join(f"{k} {v:.4g}" for k, v in losses.items()))
+    if profile:
+        profile_steps([(f"slice 4 train B={TRAIN_BATCH} {stem}", lambda _: step(state, batch), None, 1, 14)], card)
+    return ms, peak, losses
+
+
+def check_train_card_vs_cpu():
+    """One float32 train step of the full-width s2d-stem model at 128 px,
+    B=4, on the card and on the CPU from the same weights and batch."""
+    model = YOLOv3(num_classes=NUM_CLASSES, s2d_stem=True)
+    init_weights(model, torch.Generator().manual_seed(1))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for device in ("cuda", "cpu"):
+        model.load_state_dict(start)
+        model.to(device, memory_format=torch.channels_last)
+        state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+        losses = make_train_step(model, num_classes=NUM_CLASSES)(state, train_batch(np.random.RandomState(1), 4, 128, device))
+        runs.append(({k: float(v) for k, v in losses.items()},
+                     {k: v.detach().double().cpu() for k, v in model.state_dict().items()}))
+    (card_loss, card), (cpu_loss, cpu) = runs
+    before = {k: v.double() for k, v in start.items()}
+    for k in cpu_loss:
+        check(abs(card_loss[k] - cpu_loss[k]) <= TRAIN_TOL["loss_rtol"] * abs(cpu_loss[k]),
+              f"float32 train step card vs CPU: loss {k} {card_loss[k]} vs {cpu_loss[k]}")
+    stats = [k for k in cpu if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in cpu if k not in stats and not k.endswith("num_batches_tracked")]
+    leaf = {k: float(((card[k] - before[k]) - (cpu[k] - before[k])).abs().max()
+                     / (cpu[k] - before[k]).abs().max().clamp_min(1e-30)) for k in params}
+    num = sum(float(((card[k] - cpu[k])).pow(2).sum()) for k in params)
+    den = sum(float((cpu[k] - before[k]).pow(2).sum()) for k in params)
+    l2 = (num / den) ** 0.5
+    worst = max(leaf, key=leaf.get)
+    stats_err = max(float((card[k] - cpu[k]).abs().max()) for k in stats)
+    check(leaf[worst] <= TRAIN_TOL["leaf"] and l2 <= TRAIN_TOL["l2"],
+          f"float32 train step card vs CPU: worst leaf update {worst} {leaf[worst]:.3g}, L2 {l2:.3g}")
+    check(all(torch.allclose(card[k], cpu[k], rtol=TRAIN_TOL["stats_rtol"], atol=TRAIN_TOL["stats_atol"])
+              for k in stats), f"float32 train step card vs CPU: BN statistics differ by {stats_err:.3g}")
+    print(f"slice 4 float32 train step at 128 px B=4, card vs CPU: losses within rtol "
+          f"{max(abs(card_loss[k] - cpu_loss[k]) / abs(cpu_loss[k]) for k in cpu_loss):.2e}, the update "
+          f"{l2:.2e} apart in L2, worst leaf {leaf[worst]:.3g} of its largest update ({worst}), median leaf "
+          f"{statistics.median(leaf.values()):.2e}, BN statistics max abs error {stats_err:.3g} ({TRAIN_TOL})")
+
+
+def train_slice4(dev, card):
+    """Phase 9.  Returns (the phase's figures, K1's launches on the
+    training path: the overfit run's eval and the round trip's two)."""
+    figures = {}
+    ms, peak, _ = time_train_step(dev, card, s2d_stem=True, profile=True)
+    figures.update(train_ms=ms, train_images_s=TRAIN_BATCH / ms * 1e3, peak_gib=peak / 2**30)
+    torch.cuda.empty_cache()
+    ms_std, peak_std, _ = time_train_step(dev, card, s2d_stem=False, profile=False)
+    figures.update(train_ms_standard_stem=ms_std, peak_gib_standard_stem=peak_std / 2**30)
+    print(f"slice 4 train step B={TRAIN_BATCH} at {SIZE} px bf16 on {card}: s2d stem "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} images/s, standard stem {TRAIN_BATCH / ms_std * 1e3:.1f} images/s")
+    torch.cuda.empty_cache()
+    check_train_card_vs_cpu()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nms_greedy.launches = 0
+        rec, model = overfit.run(overfit.parse_args(
+            ["--out", f"{tmp}/overfit_yolov3.json", "--save_prefix", f"{tmp}/yolo3"]))
+        check(rec["pass"], f"overfit run fails the JAX package's rule: {rec}")
+        fresh = load_into(YOLOv3(num_classes=OVERFIT_CLASSES, dtype=torch.bfloat16),
+                          load_variables(rec["checkpoint"])).to(dev, memory_format=torch.channels_last)
+        images = torch.from_numpy(overfit.synth_set(OVERFIT_CLASSES)[0]).to(dev)
+        trained, reloaded = make_eval_step(model)(images), make_eval_step(fresh)(images)
+        torch.cuda.synchronize()
+        k1 = nms_greedy.launches
+    check(k1 == 3, f"K1 launches on the training path: {k1}, expected 3 (one an eval)")
+    check(all(torch.equal(a, b) for a, b in zip(trained, reloaded)),
+          "the checkpoint's eval detections differ from the trained model's")
+    print(f"slice 4 overfit (bf16, 160 px, B=8, 400 steps) on {card}: passes the JAX package's rule; "
+          f"loss {rec['loss_first']:.2f} -> {rec['loss_last']:.4f}, mean top-1 IoU {rec['mean_top1_iou']:.4f}, "
+          f"class accuracy {rec['top1_class_acc']}, {rec['step_ms']:.2f} ms/step on the host's clock")
+    print(f"slice 4 checkpoint round trip: save_params -> load_variables -> a fresh model; eval detections "
+          f"equal bit for bit ({int((reloaded[0] >= 0).sum())} rows); K1 launches on the path: {k1}")
+    print("overfit record: " + json.dumps(rec))
+
+    # the overfit step's host cost: one B=8 160-px step of the trained model
+    state = create_train_state(model, lr_schedule("constant", 0.0, steps_per_epoch=1, epochs=1))
+    step = make_train_step(model, num_classes=OVERFIT_CLASSES)
+    images_np, gtb, gti = overfit.synth_set(OVERFIT_CLASSES)
+    batch = {"image": images, "gt_boxes": torch.from_numpy(gtb).to(dev), "gt_ids": torch.from_numpy(gti).to(dev)}
+    step_ms = median_ms(lambda: step(state, batch), 20)
+    q_ms = queued_ms(lambda: step(state, batch), iters=20)
+    print(f"slice 4 overfit step B=8 at 160 px bf16 on {card}: {step_ms:.3f} ms with events around each step, "
+          f"{q_ms:.3f} ms with the launch queue full")
+    profile_steps([("slice 4 overfit step B=8 160 px", lambda _: step(state, batch), None, 5, 6)], card)
+    figures.update(overfit=rec, overfit_step_ms=step_ms, overfit_step_queued_ms=q_ms)
+    return figures, k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -1182,6 +1340,11 @@ def main() -> int:
     profile_steps([("slice 1 B=128", det1, x128, 3, 8), ("slice 1 B=1", det1, x1, 20, 4),
                    ("slice 2 B=32", det2, x32, 3, 10), ("slice 3 B=128", det3, x128_3, 3, 10)], card)
 
+    # 9. slice 4: training
+    del det1, det2, det3, x128, x1, x32, x128_3
+    torch.cuda.empty_cache()
+    train_figures, k1_slice4 = train_slice4(dev, card)
+
     kernels = [
         {
             "name": "nms_greedy",
@@ -1197,6 +1360,7 @@ def main() -> int:
             "per": "one call (B=128 model candidates, K=400): two CUDA launches, mask and scan",
             "synthetic": nms_synthetic,
             "launches_slice2": nms_launches2,
+            "launches_slice4": k1_slice4,
         },
         {
             "name": "cost_volume",
@@ -1244,6 +1408,7 @@ def main() -> int:
             **{k: conv[k] for k in ("ms_1x1", "int_mm_1x1_ms", "cells_1x1", "route_launches", "classes")},
         },
     ]
+    print(json.dumps({"slice4_training": train_figures}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -307,7 +307,9 @@ def test_bf16_narrow():
 def test_factory_surface():
     m = build_model(YoloConfig(num_classes=20, pad_stem=True, dtype=torch.bfloat16))
     assert m.backbone.conv0.Conv_0.weight.shape == (32, 4, 3, 3)
-    assert m.backbone.conv0.Conv_0.weight.dtype == torch.bfloat16
+    # float32 master parameters, the conv computed in bf16 (flax's nn.Conv)
+    assert m.backbone.conv0.Conv_0.weight.dtype == torch.float32
+    assert m.backbone.conv0.Conv_0.dtype == m.output0.prediction.dtype == torch.bfloat16
     assert m.backbone.conv0.BatchNorm_0.running_var.dtype == torch.float32
     assert m.output0.anchors.dtype == torch.float32
     head = yolo3_no_backbone(["a", "b"])
@@ -317,10 +319,14 @@ def test_factory_surface():
         YoloConfig(num_classes=2, temporal=True),
         YoloConfig(num_classes=2, new_model=True),
         YoloConfig(num_classes=2, k=3, motion_stream="flownet"),
-        YoloConfig(num_classes=2, s2d_stem=True),
-        YoloConfig(num_classes=2, remat=True),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.zeros(1, 32, 32, 3))  # train mode
+    # slice 4 builds the s2d stem and remat, and trains the 2D model
+    s2d = build_model(YoloConfig(num_classes=2, s2d_stem=True, remat="stem"))
+    assert s2d.backbone.conv0.Conv_0.weight.shape == (128, 12, 3, 3)
+    assert s2d.backbone.stage1.ConvBNLeaky_0.Conv_0.weight.shape == (64, 128, 2, 2)
+    assert s2d.backbone.remat_stages == 3 and build_model(YoloConfig(num_classes=2, remat=True)).remat
+    assert m(torch.zeros(1, 32, 32, 3))["bbox"].shape == (1, 63, 4)  # train mode
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
+        build_model(YoloConfig(num_classes=2, k=3))(torch.zeros(1, 3, 32, 32, 3))  # train mode

@@ -5,9 +5,12 @@ The cells take and return NCHW tensors; the models keep them in
 package.  Submodules are named after the flax tree paths (`Conv_0`,
 `BatchNorm_0`), which makes the weight bridge (utils/flax_bridge.py) a walk.
 
-`dtype` mirrors flax's: the conv computes in it (bf16 on the main path),
-while the BatchNorm parameters and statistics stay float32 and normalise the
-conv's output in its own dtype.
+`dtype` mirrors flax's: the parameters are float32 (the masters that SGD
+updates) and the conv casts its kernel to `dtype` and computes in it (bf16 on
+the main path), while the BatchNorm parameters and statistics stay float32
+and normalise the conv's output in its own dtype.  In train mode BatchNorm
+normalises with the batch's statistics and updates the running ones as
+flax does (`BatchNorm`).
 
 The temporal layers (`time_distributed`, `TemporalPooling`, `Corr`) take
 NHWC windows (B, T, H, W, C), as in the JAX package.
@@ -22,19 +25,21 @@ upsample) are torch ops in the JAX package's order of operations.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.correlation import correlation
 from ..ops.int8_conv import dequant_leaky, int8_conv, quant_downsample, requantize
 
 BN_EPS = 1e-5
-# flax's momentum 0.9 (weight of the running average) is torch's 0.1
-# (weight of the new batch)
-BN_MOMENTUM = 0.1
+# flax's momentum: the weight of the running average (torch's BatchNorm
+# momentum is the new batch's weight, 1 - this)
+BN_MOMENTUM = 0.9
 LEAKY_SLOPE = 0.1
 QUANT_MODES = ("fused", "fused_calib")
 # the input rows above which the JAX package keeps a downsample off its
@@ -60,6 +65,119 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     nhwc = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
     return nhwc.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2)
+
+
+class Conv2d(nn.Conv2d):
+    """flax's `nn.Conv`: float32 parameters, cast to `dtype` at each call,
+    and the conv computed in `dtype`.  `padding` is an int, or (left, right,
+    top, bottom) for an asymmetric zero pad.
+
+    Where no gradient is taken, the cast parameters are kept until the
+    float32 ones change, so serving casts each kernel once."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
+                 padding=0, bias: bool = False, dtype: torch.dtype | None = None):
+        pad4 = tuple(padding) if isinstance(padding, (tuple, list)) else None
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=0 if pad4 else padding, bias=bias)
+        self.pad4 = pad4
+        self.dtype = dtype or torch.float32
+        self._cast_cache = {}
+
+    def _cast(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        if p.dtype == self.dtype:
+            return p
+        if torch.is_grad_enabled() and p.requires_grad:
+            return p.to(self.dtype)
+        key = (p.data_ptr(), p.device, p._version)
+        hit = self._cast_cache.get(name)
+        if hit is None or hit[0] != key:
+            hit = self._cast_cache[name] = (key, p.detach().to(self.dtype))
+        return hit[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad4:
+            x = F.pad(x, self.pad4)
+        bias = None if self.bias is None else self._cast("bias", self.bias)
+        return F.conv2d(x, self._cast("weight", self.weight), bias, self.stride, self.padding)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over dim 1.
+
+    Eval normalises with the running statistics.  Train normalises with the
+    batch's and updates the running ones as flax's `_compute_stats` does:
+    float32 reductions whatever the input's dtype, the biased variance, and
+    ra = 0.9 ra + 0.1 stat (torch's own update takes the unbiased
+    variance).  The batch's mean and 1/sqrt(var + eps) come from the
+    normalising kernel itself, so the statistics cost no pass of their own;
+    flax computes var as E[x^2] - E[x]^2, the kernel as a mean of squared
+    deviations, equal up to float32 rounding (held against flax's
+    `batch_stats` in tests/test_torch_train.py).  `phases` > 1 pools the
+    statistics of `phases` channel groups of `num_features` channels each
+    (the space-to-depth stem: channel p * C + c is channel c).
+
+    While `frozen` (the recompute of `remat`), train mode leaves the
+    running statistics alone."""
+
+    def __init__(self, num_features: int, phases: int = 1):
+        super().__init__(num_features, eps=BN_EPS, momentum=1 - BN_MOMENTUM)
+        self.phases = phases
+        self.frozen = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.phases > 1:  # NHWC memory (B, H, W, P, C) as rows of C channels: a view
+            b, _, h, w = x.shape
+            x = x.permute(0, 2, 3, 1).reshape(-1, self.num_features)
+        if not self.training:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        else:
+            # the native op, not F.batch_norm: it also takes a batch of one
+            # value per channel (variance 0), as flax does
+            y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            if not self.frozen:
+                self._update_stats(mean, invstd)
+        if self.phases > 1:
+            y = y.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+        return y
+
+    @torch.no_grad()
+    def _update_stats(self, mean: torch.Tensor, invstd: torch.Tensor):
+        # ra + 0.1 (stat - ra): flax's 0.9 ra + 0.1 stat in five launches
+        # (a step runs 72 of these), equal up to float32 rounding
+        var = invstd.pow(-2).sub_(self.eps).clamp_min_(0.0)
+        self.running_mean.lerp_(mean, 1 - BN_MOMENTUM)
+        self.running_var.lerp_(var, 1 - BN_MOMENTUM)
+
+
+@contextmanager
+def frozen_stats(module: nn.Module, frozen: bool = True):
+    """Leave the running statistics of every `BatchNorm` in `module` alone
+    inside the block."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.frozen for m in bns]
+    for m in bns:
+        m.frozen = frozen or m.frozen
+    try:
+        yield
+    finally:
+        for m, f in zip(bns, before):
+            m.frozen = f
+
+
+def remat(module: nn.Module, *args):
+    """`module(*args)` rematerialised: its activations are recomputed in the
+    backward pass instead of kept (`torch.utils.checkpoint`, the counterpart
+    of flax's `nn.remat`).  jax's remat is pure, so the BN running statistics
+    update once; here the recompute runs with them frozen."""
+    calls = []
+
+    def run(*a):
+        with frozen_stats(module, bool(calls)):
+            calls.append(1)
+            return module(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class QTensor(NamedTuple):
@@ -129,15 +247,16 @@ class ConvBNLeaky(_QuantState):
         qout: bool = True,
         ds_conv: str = "direct",
         real_input: bool = False,
+        padding=None,
     ):
         super().__init__()
         self.kernel, self.stride, self.quant = kernel, stride, quant or None
         if self.quant is None:
-            self.Conv_0 = nn.Conv2d(
-                in_channels, features, kernel, stride=stride, padding=kernel // 2, bias=False,
-                dtype=dtype,
+            self.Conv_0 = Conv2d(
+                in_channels, features, kernel, stride=stride,
+                padding=kernel // 2 if padding is None else padding, dtype=dtype,
             )
-            self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+            self.BatchNorm_0 = BatchNorm(features)
             return
         if self.quant not in QUANT_MODES:
             raise NotImplementedError(f"int8 mode {quant!r} (dynamic and static scales) {_DEFERRED} 9a")
@@ -260,7 +379,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     weights on every device."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / fan_in**0.5
                 m.weight.copy_(w)

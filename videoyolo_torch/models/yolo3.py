@@ -2,7 +2,8 @@
 
 Eval-mode forward: (boxes (B, N, 4) pixels, scores (B, N, C)), levels in
 deep -> shallow order; the post-processing (two-stage exact top-k, then
-greedy NMS) works on those compact tensors.  Cells run NCHW in
+greedy NMS) works on those compact tensors.  Train mode returns the raw
+heads the loss reads (`decode_predictions`).  Cells run NCHW in
 `channels_last` memory; images and routes come in NHWC.  With `quant`
 "fused" the model is the fused-int8 detector of ops/quantize.py:quantize_fused
 (int8 from cell to cell, real-valued tips into the prediction convs).
@@ -17,7 +18,7 @@ from torch import nn
 from ..ops.anchors import DEFAULT_ANCHORS, DEFAULT_STRIDES, grid_offsets
 from ..ops.nms import box_nms
 from .darknet import DARKNET53_CHANNELS, Darknet53
-from .layers import ConvBNLeaky, QTensor, quant_concat, upsample2x
+from .layers import Conv2d, ConvBNLeaky, QTensor, quant_concat, remat, upsample2x
 
 FPN_CHANNELS = (512, 256, 128)
 
@@ -61,7 +62,7 @@ class YOLOOutput(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.stride = stride
-        self.prediction = nn.Conv2d(
+        self.prediction = Conv2d(
             in_channels, len(anchors) * (5 + num_classes), 1, bias=True, dtype=dtype
         )
         # float32 whatever the model's dtype (373 is not a bf16 value);
@@ -73,11 +74,12 @@ class YOLOOutput(nn.Module):
 
     def forward(self, tip: torch.Tensor):
         return decode_predictions(
-            self.prediction(tip), self.anchors, self.stride, self.num_classes
+            self.prediction(tip), self.anchors, self.stride, self.num_classes, self.training
         )
 
 
-def decode_predictions(pred: torch.Tensor, anchors: torch.Tensor, stride: int, num_classes: int):
+def decode_predictions(pred: torch.Tensor, anchors: torch.Tensor, stride: int, num_classes: int,
+                       train: bool = False):
     """Anchor decode of a raw NCHW prediction map (B, A*(5+C), H, W), in
     float32 whatever the map's dtype:
 
@@ -87,7 +89,9 @@ def decode_predictions(pred: torch.Tensor, anchors: torch.Tensor, stride: int, n
       bbox    = (cx - w/2, cy - h/2, cx + w/2, cy + h/2)
 
     Returns (bbox (B, HWA, 4), class_score (B, HWA, C), conf (B, HWA, 1)),
-    rows in (y, x, anchor) order as in the JAX package."""
+    rows in (y, x, anchor) order as in the JAX package; with `train`, the
+    dict of `bbox` and the raw heads `raw_centers` (B, HWA, 2), `raw_scales`
+    (B, HWA, 2), `objness` (B, HWA, 1) and `class_pred` (B, HWA, C)."""
     b, _, h, w = pred.shape
     num_anchors = anchors.shape[0]
     # NHWC first: (B, H, W, A*(5+C)) -> (B, HW, A, 5+C) is then a reshape
@@ -104,6 +108,14 @@ def decode_predictions(pred: torch.Tensor, anchors: torch.Tensor, stride: int, n
     half = scales / 2.0
     bbox = torch.cat([centers - half, centers + half], dim=-1)
 
+    if train:
+        return {
+            "bbox": bbox.reshape(b, -1, 4),
+            "raw_centers": raw_centers.reshape(b, -1, 2),
+            "raw_scales": raw_scales.reshape(b, -1, 2),
+            "objness": objness.reshape(b, -1, 1),
+            "class_pred": class_pred.reshape(b, -1, num_classes),
+        }
     conf = torch.sigmoid(objness)
     class_score = torch.sigmoid(class_pred) * conf
     return bbox.reshape(b, -1, 4), class_score.reshape(b, -1, num_classes), conf.reshape(b, -1, 1)
@@ -116,9 +128,14 @@ class YOLOv3(nn.Module):
     `use_backbone=False`, a tuple of three NHWC routes (r1, r2, r3), shallow
     to deep, whose channel counts are `route_channels`.
 
-    Eval mode only (`model.eval()`); returns (boxes (B, N, 4) pixels, scores
+    Eval mode (`model.eval()`) returns (boxes (B, N, 4) pixels, scores
     (B, N, C)), or scores (B, N, 1) objectness if `agnostic`; with
-    `return_levels`, the per-level (boxes, scores) pairs instead.
+    `return_levels`, the per-level (boxes, scores) pairs instead.  Train
+    mode returns the dict of `decode_predictions(train=True)`, each level's
+    heads concatenated deep -> shallow, all float32.
+
+    `remat` (train mode): True rematerialises the whole backbone, "stem"
+    its first three stages (layers.remat).
 
     `quant` "fused" (or its calibration twin "fused_calib") builds the
     fused-int8 model, which ops/quantize.py:quantize_fused converts from a
@@ -150,8 +167,8 @@ class YOLOv3(nn.Module):
             s2d_stem=s2d_stem, pad_stem=pad_stem, return_levels=return_levels, quant=quant,
             ds_conv=ds_conv, dtype=dtype,
         )
-        if remat:
-            raise NotImplementedError("rematerialisation is training work (slice 4), see ROADMAP.md")
+        if remat not in (False, None, True, "full", "stem"):
+            raise ValueError(f"remat must be False, True, 'full' or 'stem', got {remat!r}")
         if quant and not use_backbone:
             raise NotImplementedError(
                 "the int8 head on real-valued routes (static input scales) is deferred, "
@@ -161,9 +178,11 @@ class YOLOv3(nn.Module):
         self.use_backbone = use_backbone
         self.return_levels = return_levels
         self.dtype = dtype or torch.float32
+        self.remat = remat
         if use_backbone:
             self.backbone = Darknet53(
-                s2d_stem=s2d_stem, pad_stem=pad_stem, quant=quant, ds_conv=ds_conv, dtype=dtype
+                s2d_stem=s2d_stem, pad_stem=pad_stem, quant=quant, ds_conv=ds_conv, dtype=dtype,
+                remat_stages=3 if remat == "stem" else 0,
             )
             route_channels = DARKNET53_CHANNELS[-3:]
 
@@ -189,11 +208,12 @@ class YOLOv3(nn.Module):
                 cin = channels[i + 1] + route_channels[1 - i]
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "the train-mode forward comes with slice 4 (training), see ROADMAP.md; call .eval()"
-            )
-        routes = self.backbone(x) if self.use_backbone else tuple(x)
+        if not self.use_backbone:
+            routes = tuple(x)
+        elif self.remat and self.remat != "stem" and self.training and torch.is_grad_enabled():
+            routes = remat(self.backbone, x)
+        else:
+            routes = self.backbone(x)
         if len(routes) != 3:
             raise ValueError(f"YOLOv3 takes three routes, got {len(routes)}")
         routes = [
@@ -216,6 +236,8 @@ class YOLOv3(nn.Module):
                 else:
                     y = torch.cat([upsample2x(y), routes[1 - i]], dim=1)
 
+        if self.training:
+            return {key: torch.cat([o[key] for o in level_outs], dim=1) for key in level_outs[0]}
         if self.return_levels:
             k = 2 if self.agnostic else 1
             return tuple((o[0], o[k]) for o in level_outs)
@@ -314,3 +336,15 @@ def postprocess_levels(
     _, idx = torch.topk(merged[..., 1], k, dim=-1)
     cands = torch.gather(merged, 1, idx[..., None].expand(-1, -1, 6))
     return _nms_tail(cands, nms_thresh, post_nms, force_suppress)
+
+
+def postprocess_tout(boxes: torch.Tensor, scores: torch.Tensor, **kwargs):
+    """`postprocess` that also takes per-timestep outputs (models/yolo3.py:416-448):
+    (B, T, N, ...) boxes and scores fold T into the batch for the top-k and
+    NMS, and the detections unfold to (B, T, P, ...).  (B, N, ...) inputs
+    go straight to `postprocess`; `kwargs` are its keywords."""
+    if boxes.dim() == 4:
+        b, t = boxes.shape[:2]
+        dets = postprocess(boxes.flatten(0, 1), scores.flatten(0, 1), **kwargs)
+        return tuple(a.reshape((b, t) + a.shape[1:]) for a in dets)
+    return postprocess(boxes, scores, **kwargs)

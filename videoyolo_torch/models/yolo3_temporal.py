@@ -95,7 +95,7 @@ class YOLOOutputConvT(YOLOOutput):
         if tip.dim() == 5:
             b, t = tip.shape[:2]
             return tuple(o.reshape((b, t) + o.shape[1:]) for o in self(tip.flatten(0, 1)))
-        return super().forward(tip.to(self.prediction.weight.dtype).permute(0, 3, 1, 2))
+        return super().forward(tip.to(self.prediction.dtype).permute(0, 3, 1, 2))
 
 
 def _validate(k_join_type, k_join_pos, rnn_pos, corr_pos, corr_d):
@@ -214,7 +214,8 @@ class YOLOv3T(nn.Module):
     def forward(self, x: torch.Tensor):
         if self.training:
             raise NotImplementedError(
-                "the train-mode forward comes with slice 4 (training), see ROADMAP.md; call .eval()"
+                "training YOLOv3T is the temporal-training slice, deferred, see ROADMAP.md Queue 1 "
+                "item 16; call .eval()"
             )
         routes = self.frame_routes(x)
         if routes[0].dim() == 5 and self.early_join:

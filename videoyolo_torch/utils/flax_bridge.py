@@ -7,6 +7,7 @@ The port names its submodules after the flax tree paths
 `transition0`, ...), so the bridge walks the tree and renames leaves only:
 
   params      kernel (HWIO) -> weight (OIHW)
+              kernel (in, out) -> weight (out, in)     a dense layer
               scale         -> weight (BatchNorm)
               bias          -> bias
               qkernel (HWIO int8) -> qkernel (OIHW)    the fused-int8 leaves
@@ -14,11 +15,16 @@ The port names its submodules after the flax tree paths
   batch_stats mean          -> running_mean (+ num_batches_tracked = 0)
               var           -> running_var
 
-`state_dict_to_flax` is the inverse for a float model: its state_dict as
-the JAX package's variables, which ops/quantize.py converts.
+The s2d stem's leaves keep their paths: `conv0/Conv_0/kernel` (3, 3, 12,
+128) and `stage1/ConvBNLeaky_0/Conv_0/kernel` (2, 2, 128, 64) map to
+`conv0.Conv_0.weight` (128, 12, 3, 3) and `stage1.ConvBNLeaky_0.Conv_0.weight`
+(64, 128, 2, 2); the stem's BatchNorm keeps its 32 channels.
 
-Reading a flax msgpack checkpoint file is deferred (see ROADMAP.md): the
-card's machine has neither flax nor msgpack.
+`state_dict_to_flax` is the inverse for a float model (float32 master
+parameters, trained or not): its state_dict as the JAX package's
+variables, which ops/quantize.py converts and train/checkpoint.py writes
+as flax msgpack.  Leaves may be numpy arrays or torch tensors (a bfloat16
+leaf read from a checkpoint is a torch tensor: numpy has no bfloat16).
 """
 from __future__ import annotations
 
@@ -37,12 +43,13 @@ _LEAVES = {
 
 
 def walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
-    """(path, array) of every leaf of a nested dict."""
+    """(path, array) of every leaf of a nested dict; torch tensors stay
+    tensors."""
     for key, value in tree.items():
         if hasattr(value, "items"):
             yield from walk(value, path + (key,))
         else:
-            yield path + (key,), np.asarray(value)
+            yield path + (key,), value if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
 def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
@@ -56,11 +63,14 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
             *mods, leaf = path
             if leaf not in names:
                 raise ValueError(f"no bridge for {coll} leaf {'/'.join(path)}")
-            if leaf in ("kernel", "qkernel"):
-                if arr.ndim != 4:
-                    raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, got {arr.shape}")
-                arr = arr.transpose(3, 2, 0, 1)
-            state[".".join(mods + [names[leaf]])] = torch.from_numpy(np.ascontiguousarray(arr))
+            t = torch.as_tensor(arr)
+            if leaf == "kernel" and t.dim() == 2:
+                t = t.T
+            elif leaf in ("kernel", "qkernel"):
+                if t.dim() != 4:
+                    raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, got {tuple(t.shape)}")
+                t = t.permute(3, 2, 0, 1)
+            state[".".join(mods + [names[leaf]])] = t.contiguous()
             if leaf == "mean":
                 state[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0, dtype=torch.long)
     return state
@@ -80,6 +90,8 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
             coll, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
         elif leaf == "weight" and arr.dim() == 4:
             coll, name, arr = "params", "kernel", arr.permute(2, 3, 1, 0)
+        elif leaf == "weight" and arr.dim() == 2:
+            coll, name, arr = "params", "kernel", arr.T
         elif leaf == "weight" and arr.dim() == 1:
             coll, name = "params", "scale"
         elif leaf == "bias":
