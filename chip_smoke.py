@@ -122,6 +122,26 @@ Phases; any failure exits non-zero:
      back: its model's raw boxes and scores and its first batch's
      detections equal the trained model's bit for bit; the warm detect loop
      on each dataset (80, 200 and 30 classes, 1,024 JPEGs each).
+ 12. slice 7, VID windows and YOLOv3T training: K2's adjoint (the backward
+     kernel of videoyolo_torch/csrc/correlation.cu, built in phase 2 with
+     no ptxas spill) against ops/correlation_kernel.py's plain adjoint at
+     the train step's three levels at B=16 and B=1 and on edge cases, every
+     pair two frames of a window taken with its batch stride (allclose
+     rtol=atol=1e-5); the Corr output of the slice model (YOLOv3T, 30
+     classes, k=3, late join, early correlation d=4) carrying CostVolume's
+     backward and the stage-1 stem getting a non-zero gradient from the
+     cost volumes alone; one float32 window train step (128 px, B=2
+     windows) on the card against the CPU within TRAIN_TOL; the B=16-window
+     416-px bf16 train step timed as in phase 9 (windows/s, frames/s, peak
+     memory, a profiled step's idle share), K2 launched 6 times forward and
+     6 adjoint a step, each level's forward and adjoint timed on the step's
+     routes against the adjoint's bound and plain version; `overfit
+     --config k3` to the JAX rule; a VID tree of 6 train and 4 val snippets
+     (640x360), the window loaders' rates, the train twin with --window 3,1
+     one epoch (B=16, validated on windows), the detect twin (B=32 windows)
+     from its checkpoint with the raw outputs and the first batch's
+     detections bit-equal to the trained model's, and a warm windowed
+     detect loop beside the step alone; K1 and K2 counted on each path.
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -154,14 +174,23 @@ from videoyolo_torch.data.loader import DetectionLoader
 from videoyolo_torch.data.mscoco import COCODetection
 from videoyolo_torch.data.pascalvoc import VOCDetection
 from videoyolo_torch.data.prefetch import device_prefetch
-from videoyolo_torch.data.transforms import MEAN, STD, MixupDetection, YOLO3DefaultTrainTransform, to_normalized
+from videoyolo_torch.data.transforms import (
+    MEAN,
+    STD,
+    MixupDetection,
+    YOLO3DefaultTrainTransform,
+    YOLO3VideoInferenceTransform,
+    YOLO3VideoTrainTransform,
+    to_normalized,
+)
 from videoyolo_torch.models.darknet import Darknet53
-from videoyolo_torch.models.factory import YoloConfig
+from videoyolo_torch.models.factory import YoloConfig, build_model
 from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights
 from videoyolo_torch.models.yolo3 import YOLOv3, postprocess, select_topk_candidates
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
-from videoyolo_torch.ops.correlation_kernel import cost_volume
+from videoyolo_torch.ops.color import apply_color
+from videoyolo_torch.ops.correlation_kernel import cost_volume, cost_volume_backward, cost_volume_backward_plain
 from videoyolo_torch.ops.int8_conv import int8_conv_plain, quant_downsample_plain
 from videoyolo_torch.ops.int8_conv_kernel import int8_conv, quant_downsample
 from videoyolo_torch.ops.quantize import replace_quant
@@ -486,6 +515,13 @@ def check_corr_build(ptxas):
         regs = re.search(r"Used (\d+) registers", body)
         if inst and spill and regs:
             report[tuple(map(int, inst.groups()))] = (int(regs.group(1)), int(spill.group(1)) + int(spill.group(2)))
+    adjoint = re.search(r"cost_volume_backward_kernel\S*'(.*?)(?=Compiling entry function|\Z)", ptxas, re.S)
+    check(adjoint is not None, "cost volume ptxas: no report for cost_volume_backward_kernel")
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", adjoint.group(1))
+    regs = re.search(r"Used (\d+) registers", adjoint.group(1))
+    check(spill is not None and int(spill.group(1)) + int(spill.group(2)) == 0,
+          f"cost volume ptxas: cost_volume_backward_kernel spills ({adjoint.group(1).strip()[:200]})")
+    print(f"cost volume adjoint kernel: {regs.group(1) if regs else '?'} registers, no spills")
     for inst in sorted(used):
         check(inst in report, f"cost volume ptxas: no report for the instance (R, GX, GY) = {inst}")
         regs, spilled = report[inst]
@@ -1179,9 +1215,11 @@ def check_reference(rs):
 
 
 def profile_steps(steps, card):
-    """Phase 8: device busy share, launches and top kernels of each step."""
+    """Phase 8: device busy share, launches and top kernels of each step.
+    Returns {label: {wall_ms, busy_ms, idle_share, ops}} a step."""
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
     for label, det, x, n, top in steps:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1202,6 +1240,9 @@ def profile_steps(steps, card):
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
             print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step  "
                   f"{e.count // n:4d}x  {e.key[:90]}")
+        out[label] = {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                      "ops": sum(e.count for e in events) // n}
+    return out
 
 
 TRAIN_BATCH = 48  # the JAX package's timed train step (bench.py:148)
@@ -1256,10 +1297,9 @@ def time_train_step(dev, card, s2d_stem: bool, profile: bool):
     return ms, peak, losses
 
 
-def check_train_card_vs_cpu():
-    """One float32 train step of the full-width s2d-stem model at 128 px,
-    B=4, on the card and on the CPU from the same weights and batch."""
-    model = YOLOv3(num_classes=NUM_CLASSES, s2d_stem=True)
+def check_train_card_vs_cpu(label, model, batch_fn, num_classes, what):
+    """One float32 train step of a full-width model on the card and on the
+    CPU from the same weights (seed 1) and batch (`batch_fn(device)`)."""
     init_weights(model, torch.Generator().manual_seed(1))
     start = {k: v.clone() for k, v in model.state_dict().items()}
     runs = []
@@ -1267,14 +1307,14 @@ def check_train_card_vs_cpu():
         model.load_state_dict(start)
         model.to(device, memory_format=torch.channels_last)
         state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
-        losses = make_train_step(model, num_classes=NUM_CLASSES)(state, train_batch(np.random.RandomState(1), 4, 128, device))
+        losses = make_train_step(model, num_classes=num_classes)(state, batch_fn(device))
         runs.append(({k: float(v) for k, v in losses.items()},
                      {k: v.detach().double().cpu() for k, v in model.state_dict().items()}))
     (card_loss, card), (cpu_loss, cpu) = runs
     before = {k: v.double() for k, v in start.items()}
     for k in cpu_loss:
         check(abs(card_loss[k] - cpu_loss[k]) <= TRAIN_TOL["loss_rtol"] * abs(cpu_loss[k]),
-              f"float32 train step card vs CPU: loss {k} {card_loss[k]} vs {cpu_loss[k]}")
+              f"{label} float32 train step card vs CPU: loss {k} {card_loss[k]} vs {cpu_loss[k]}")
     stats = [k for k in cpu if k.endswith(("running_mean", "running_var"))]
     params = [k for k in cpu if k not in stats and not k.endswith("num_batches_tracked")]
     leaf = {k: float(((card[k] - before[k]) - (cpu[k] - before[k])).abs().max()
@@ -1285,13 +1325,14 @@ def check_train_card_vs_cpu():
     worst = max(leaf, key=leaf.get)
     stats_err = max(float((card[k] - cpu[k]).abs().max()) for k in stats)
     check(leaf[worst] <= TRAIN_TOL["leaf"] and l2 <= TRAIN_TOL["l2"],
-          f"float32 train step card vs CPU: worst leaf update {worst} {leaf[worst]:.3g}, L2 {l2:.3g}")
+          f"{label} float32 train step card vs CPU: worst leaf update {worst} {leaf[worst]:.3g}, L2 {l2:.3g}")
     check(all(torch.allclose(card[k], cpu[k], rtol=TRAIN_TOL["stats_rtol"], atol=TRAIN_TOL["stats_atol"])
-              for k in stats), f"float32 train step card vs CPU: BN statistics differ by {stats_err:.3g}")
-    print(f"slice 4 float32 train step at 128 px B=4, card vs CPU: losses within rtol "
-          f"{max(abs(card_loss[k] - cpu_loss[k]) / abs(cpu_loss[k]) for k in cpu_loss):.2e}, the update "
+              for k in stats), f"{label} float32 train step card vs CPU: BN statistics differ by {stats_err:.3g}")
+    rtol = max(abs(card_loss[k] - cpu_loss[k]) / abs(cpu_loss[k]) for k in cpu_loss)
+    print(f"{label} float32 train step at {what}, card vs CPU: losses within rtol {rtol:.2e}, the update "
           f"{l2:.2e} apart in L2, worst leaf {leaf[worst]:.3g} of its largest update ({worst}), median leaf "
           f"{statistics.median(leaf.values()):.2e}, BN statistics max abs error {stats_err:.3g} ({TRAIN_TOL})")
+    return {"loss_rtol": rtol, "l2": l2, "worst_leaf": leaf[worst], "stats_err": stats_err}
 
 
 def train_slice4(dev, card):
@@ -1306,7 +1347,9 @@ def train_slice4(dev, card):
     print(f"slice 4 train step B={TRAIN_BATCH} at {SIZE} px bf16 on {card}: s2d stem "
           f"{TRAIN_BATCH / ms * 1e3:.1f} images/s, standard stem {TRAIN_BATCH / ms_std * 1e3:.1f} images/s")
     torch.cuda.empty_cache()
-    check_train_card_vs_cpu()
+    check_train_card_vs_cpu("slice 4", YOLOv3(num_classes=NUM_CLASSES, s2d_stem=True),
+                            lambda device: train_batch(np.random.RandomState(1), 4, 128, device), NUM_CLASSES,
+                            "128 px B=4")
 
     with tempfile.TemporaryDirectory() as tmp:
         nms_greedy.launches = 0
@@ -1945,11 +1988,11 @@ def write_det_tree(root: str, images, jpegs) -> None:
         f.write("\n".join(lines) + "\n")
 
 
-def vid_snippet(s: int):
+def vid_snippet(s: int, seed: int = 3000):
     """Snippet s of the VID tree: its frames (VID_H x VID_W, a smooth
     background with 1-3 solid boxes moving in straight lines, each box in
     every frame) and each frame's boxes as (x0, y0, x1, y1, class, track)."""
-    rs = np.random.RandomState(3000 + s)
+    rs = np.random.RandomState(seed + s)
     bg = _background(rs, VID_H, VID_W)
     tracks = []
     for t in range(1 + s % 3):
@@ -1969,31 +2012,36 @@ def vid_snippet(s: int):
     return frames, labels
 
 
-def write_vid_tree(root: str) -> None:
-    """`root`/ImageNetVID/ILSVRC: VID_SNIPPETS val snippets of VID_FRAMES
-    .JPEG frames, frame ids 1, 2, ... in the split file, an XML a frame with
-    each box's WordNet id and track id."""
+def write_vid_tree(root: str, splits=(("val", VID_SNIPPETS, 3000),)) -> None:
+    """`root`/ImageNetVID/ILSVRC: for each (split, snippets, seed) that many
+    snippets of VID_FRAMES .JPEG frames (`vid_snippet` from the seed),
+    frame ids 1, 2, ... in the split file, an XML a frame with each box's
+    WordNet id and track id; the snippets are encoded in a thread pool."""
     wn = load_names("imagenetvid_wn")
     base = os.path.join(root, "ImageNetVID", "ILSVRC")
     os.makedirs(os.path.join(base, "ImageSets", "VID"), exist_ok=True)
-    lines = []
-    for s in range(VID_SNIPPETS):
-        video = f"ILSVRC2015_val_{s:08d}"
+
+    def write(split, s, seed):
+        video = f"ILSVRC2015_{split}_{s:08d}"
         for d in ("Data", "Annotations"):
-            os.makedirs(os.path.join(base, d, "VID", "val", video), exist_ok=True)
-        frames, labels = vid_snippet(s)
+            os.makedirs(os.path.join(base, d, "VID", split, video), exist_ok=True)
+        frames, labels = vid_snippet(s, seed)
         for f, (img, boxes) in enumerate(zip(frames, labels)):
-            lines.append(f"{video}/{f:06d} {len(lines) + 1}")
-            with open(os.path.join(base, "Data", "VID", "val", video, f"{f:06d}.JPEG"), "wb") as fh:
+            with open(os.path.join(base, "Data", "VID", split, video, f"{f:06d}.JPEG"), "wb") as fh:
                 fh.write(encode_jpeg(img))
             objs = "".join(f"<object><trackid>{t}</trackid><name>{wn[c]}</name><bndbox><xmin>{x0}</xmin>"
                            f"<ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox></object>"
                            for x0, y0, x1, y1, c, t in boxes)
-            with open(os.path.join(base, "Annotations", "VID", "val", video, f"{f:06d}.xml"), "w") as fh:
+            with open(os.path.join(base, "Annotations", "VID", split, video, f"{f:06d}.xml"), "w") as fh:
                 fh.write(f"<annotation><size><width>{VID_W}</width><height>{VID_H}</height></size>{objs}"
                          "</annotation>")
-    with open(os.path.join(base, "ImageSets", "VID", "val.txt"), "w") as fh:
-        fh.write("\n".join(lines) + "\n")
+        return [f"{video}/{f:06d}" for f in range(len(frames))]
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        for split, snippets, seed in splits:
+            names = [n for video in pool.map(lambda s: write(split, s, seed), range(snippets)) for n in video]
+            with open(os.path.join(base, "ImageSets", "VID", f"{split}.txt"), "w") as fh:
+                fh.write("\n".join(f"{n} {i + 1}" for i, n in enumerate(names)) + "\n")
 
 
 class _PerSampleVOC(VOCDetection):
@@ -2212,6 +2260,357 @@ def data_slice6(dev, card):
     return figures, k1["total"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: slice 7, VID windows from disk and YOLOv3T training
+# ---------------------------------------------------------------------------
+
+# the slice's model: the factory's YOLOv3T on ImageNet-VID's 30 classes with
+# the flags that run the correlation (`train_yolov3 --dataset vid --window
+# 3,1 --k_join_pos late --corr_pos early --corr_d 4`)
+SLICE7 = dict(num_classes=30, k=WINDOW, k_join_pos="late", corr_pos="early", corr_d=4)
+SLICE7_CLASSES = SLICE7["num_classes"]
+TRAIN_WINDOWS = 16  # 48 frames: the frames of the B=48 2D step
+WINDOW_DETECT_BATCH = 32  # slice 2's B=32 windows
+CORR_BWD_LAUNCHES = 6  # per train step: the adjoint of each of the six cost volumes
+VID_TRAIN_SNIPPETS, VID_EVERY7 = 6, 2
+WINDOW_LOOP = 512  # windows of the warm detect loop: the val windows over and over
+# (name, B, H, W, C, d, stride2): the train step's three levels at B=16 and
+# B=1, then an odd size at d=2, a stride2 of 2 and C=3; every pair is two
+# frames of a (B, 3, H, W, C) window, taken with its batch stride
+CORR_BWD_CASES = [
+    ("level1_52x52x256", 16, 52, 52, 256, 4, 1),
+    ("level2_26x26x512", 16, 26, 26, 512, 4, 1),
+    ("level3_13x13x1024", 16, 13, 13, 1024, 4, 1),
+    ("level1_B1", 1, 52, 52, 256, 4, 1),
+    ("level2_B1", 1, 26, 26, 512, 4, 1),
+    ("level3_B1", 1, 13, 13, 1024, 4, 1),
+    ("d2_13x11", 3, 13, 11, 64, 2, 1),
+    ("d4_stride2", 4, 26, 26, 64, 4, 2),
+    ("C3", 2, 11, 9, 3, 2, 1),
+]
+
+
+def corr_backward_times(b, h, w, c, d, stride2):
+    """(bytes time, operations time) in ms of one adjoint launch on an
+    H100: g (B, H, W, D), f1 and f2 read once and gf1, gf2 written once,
+    against a multiply and an add for each of gf1's and gf2's terms whose
+    partner lies inside the image, and a divide per output."""
+    steps = d // stride2
+    offsets = [i * stride2 for i in range(-steps, steps + 1)]
+    n_disp = len(offsets) ** 2
+    nbytes = (b * h * w * n_disp + 4 * b * h * w * c) * 4
+    inside = sum(max(0, h - abs(dy)) for dy in offsets) * sum(max(0, w - abs(dx)) for dx in offsets)
+    ops = 4 * b * c * inside + 2 * b * h * w * c
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def check_corr_backward(dev):
+    """Phase 12: the adjoint kernel against its plain version in float32
+    on every case of CORR_BWD_CASES (allclose rtol=atol=1e-5, K2's
+    tolerance: the same products summed in another order).  Returns the
+    max abs error."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    max_err = 0.0
+    for name, b, h, w, c, d, s2 in CORR_BWD_CASES:
+        window = torch.randn(b, WINDOW, h, w, c, generator=gen, device=dev)
+        f1, f2 = window[:, 0], window[:, 1]
+        g = torch.randn(b, h, w, num_corr_channels(d, s2), generator=gen, device=dev)
+        got = cost_volume_backward(g, f1, f2, d, s2)
+        want = cost_volume_backward_plain(g, f1, f2, d, s2)
+        torch.cuda.synchronize()
+        err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+        check(all(a.shape == r.shape == (b, h, w, c) for a, r in zip(got, want)), f"adjoint {name}: shapes")
+        check(all(bool(torch.allclose(a, r, **CORR_TOL)) for a, r in zip(got, want)),
+              f"cost volume adjoint {name}: max abs error {err}")
+        max_err = max(max_err, err)
+        print(f"cost volume adjoint {name}: B={b} {h}x{w}x{c} d={d} stride2={s2}, frames of a window "
+              f"(batch stride {f1.stride(0)}): max abs error {err:.3g}, allclose")
+    return max_err
+
+
+def window_batch(rs, b, size, device):
+    """`train_batch` for windows: (B, 3, S, S, 3) uint8 windows of
+    neighbouring frames of one clip, one normalize-only colour map a
+    window, gt row 0 [10, 10, 100, 100] class 1."""
+    clip = rs.randint(0, 255, (b + WINDOW - 1, size, size, 3)).astype(np.uint8)
+    batch = train_batch(rs, b, size, "cpu")
+    batch["image"] = torch.from_numpy(np.stack([clip[i:i + WINDOW] for i in range(b)]))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def slice7_model(dtype=torch.bfloat16):
+    model = build_model(YoloConfig(**SLICE7, dtype=dtype))
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def check_gradient_through_cost_volume(dev):
+    """The stage-1 route through the Corr layer on the card in train mode:
+    the output carries CostVolume's backward (the step fails without it),
+    and the stage-1 weights get a non-zero gradient from the cost-volume
+    channels alone.  Returns the gradient's largest magnitude."""
+    model = slice7_model().to(dev, memory_format=torch.channels_last).train()
+    x = apply_color(*(window_batch(np.random.RandomState(3), 2, 128, dev)[k] for k in ("image", "color")))
+    route = model.frame_routes(x)[0]
+    corr = model.corr(route)
+    check(corr.grad_fn is not None, "slice 7: the Corr output has no grad_fn: the cost volume cuts the gradient")
+    names, stack, seen = set(), [corr.grad_fn], set()
+    while stack:
+        fn = stack.pop()
+        if fn is None or id(fn) in seen:
+            continue
+        seen.add(id(fn))
+        names.add(fn.name())
+        stack.extend(nxt for nxt, _ in fn.next_functions)
+    check(any("CostVolume" in n for n in names), f"slice 7: no CostVolume backward in the Corr graph: {sorted(names)}")
+    before = cost_volume_backward.launches
+    base = route.shape[1] * route.shape[-1]  # the time-folded channels; the rest are the two cost volumes
+    corr[..., base:].float().square().sum().backward()
+    torch.cuda.synchronize()
+    check(cost_volume_backward.launches - before == 2, "slice 7: the adjoint kernel did not run twice")
+    grad = model.stage1.conv0.Conv_0.weight.grad
+    top = float(grad.abs().max()) if grad is not None else 0.0
+    check(grad is not None and top > 0 and bool(torch.isfinite(grad).all()),
+          f"slice 7: the stage-1 stem gets no gradient through the cost volume ({top})")
+    print(f"slice 7 gradient through the cost volume (stage-1 route, B=2 windows at 128 px, bf16): the Corr output's "
+          f"graph holds {sorted(n for n in names if 'CostVolume' in n)}, 2 adjoint launches, the stem's largest "
+          f"gradient {top:.3g}")
+    return top
+
+
+def time_window_step(dev, card):
+    """The B=16-window 416-px bf16 train step of the slice model from a
+    seeded init: times (median of 10 after 3 warm, CUDA events), peak
+    memory, K2's forward and adjoint launches a step, a profiled step, and
+    K2 forward and adjoint per level on the step's own routes."""
+    model = slice7_model().to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+    step = make_train_step(model, num_classes=SLICE7_CLASSES)
+    batch = window_batch(np.random.RandomState(0), TRAIN_WINDOWS, SIZE, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=10, warmup=3))
+    peak = torch.cuda.max_memory_allocated()
+    cost_volume.launches = cost_volume_backward.launches = 0
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    torch.cuda.synchronize()
+    launches = (cost_volume.launches, cost_volume_backward.launches)
+    check(launches == (CORR_LAUNCHES, CORR_BWD_LAUNCHES), f"slice 7 train step: K2 (forward, adjoint) launches {launches}")
+    check(all(np.isfinite(v) for v in losses.values()), f"slice 7 train step losses not finite: {losses}")
+    prof = profile_steps([(f"slice 7 train B={TRAIN_WINDOWS} windows", lambda _: step(state, batch), None, 1, 14)], card)
+    idle = next(iter(prof.values()), {}).get("idle_share")
+    figures = dict(ms=ms, windows_s=TRAIN_WINDOWS / ms * 1e3, frames_s=TRAIN_WINDOWS * WINDOW / ms * 1e3,
+                   peak_gib=peak / 2**30, idle_share=idle, launches=dict(zip(("forward", "adjoint"), launches)),
+                   losses=losses)
+    print(f"slice 7 train step B={TRAIN_WINDOWS} windows of {WINDOW} frames at {SIZE} px bf16 on {card}: "
+          f"{figures['windows_s']:.1f} windows/s, {figures['frames_s']:.1f} frames/s ({ms:.3f} ms/step, median of "
+          f"10 after 3 warm), peak memory {peak / 2**30:.2f} GiB, idle share {idle}, K2 launches a step: "
+          f"{launches[0]} forward + {launches[1]} adjoint")
+    # K2 forward and adjoint on the step's routes, level by level
+    levels = []
+    model.eval()
+    with torch.no_grad():
+        frames = model.frame_routes(apply_color(batch["image"], batch["color"]))
+    d = SLICE7["corr_d"]
+    for r in frames:
+        b, _, h, w, c = r.shape
+        f = r.float()  # the window as the Corr layer hands it over
+        f1, f2 = f[:, 0], f[:, 1]
+        g = torch.randn(b, h, w, num_corr_channels(d, 1), device=dev)
+        fwd = median_ms(lambda: cost_volume(f1, f2, d, 1), 20)
+        bwd = median_ms(lambda: cost_volume_backward(g, f1, f2, d, 1), 20)
+        bwd_plain = median_ms(lambda: cost_volume_backward_plain(g, f1, f2, d, 1), 3, warmup=1)
+        tb, to = corr_backward_times(b, h, w, c, d, 1)
+        fb, fo = corr_times(b, h, w, c, d, 1)
+        levels.append(dict(shape=[b, h, w, c], forward_ms=fwd, adjoint_ms=bwd, adjoint_plain_ms=bwd_plain,
+                           adjoint_bytes_ms=tb, adjoint_ops_ms=to, forward_bound_ms=max(fb, fo)))
+        print(f"slice 7 K2 on the step's routes B={b} {h}x{w}x{c} d={d} on {card}: forward {fwd:.4f} ms, adjoint "
+              f"{bwd:.4f} ms (plain {bwd_plain:.3f} ms, bound {max(tb, to):.4f} ms: bytes {tb:.4f}, operations "
+              f"{to:.4f})")
+    figures["levels"] = levels
+    figures["k2_forward_ms"] = 2 * sum(lv["forward_ms"] for lv in levels)
+    figures["k2_adjoint_ms"] = 2 * sum(lv["adjoint_ms"] for lv in levels)
+    print(f"slice 7 K2 a train step: forward {figures['k2_forward_ms']:.4f} ms + adjoint {figures['k2_adjoint_ms']:.4f} "
+          f"ms over {CORR_LAUNCHES} + {CORR_BWD_LAUNCHES} launches, of the {ms:.3f} ms step")
+    del model, state, batch
+    return figures
+
+
+def data_slice7(dev, card):
+    """Phase 12.  Returns (the phase's figures, the kernels' launches on its
+    paths, the adjoint's figures for the kernels line)."""
+    figures, k1, k2 = {}, {}, {}
+    workers = os.cpu_count() or 1
+    figures["adjoint_max_abs_err"] = check_corr_backward(dev)
+    figures["grad_through_cost_volume"] = check_gradient_through_cost_volume(dev)
+    torch.cuda.empty_cache()
+    figures["card_vs_cpu"] = check_train_card_vs_cpu(
+        "slice 7", slice7_model(dtype=None), lambda device: window_batch(np.random.RandomState(1), 2, 128, device),
+        SLICE7_CLASSES, "128 px, B=2 windows")
+    torch.cuda.empty_cache()
+    figures["train_step"] = time_window_step(dev, card)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nms_greedy.launches = 0
+        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_k3.json", "--config", "k3"]))
+        k1["overfit_k3"] = nms_greedy.launches
+        check(rec["pass"], f"overfit k3 fails the JAX package's rule: {rec}")
+        print(f"slice 7 overfit k3 (YOLOv3T k=3, late max join, bf16, 160 px, B=8 static windows, 400 steps) on "
+              f"{card}: passes the JAX package's rule; loss {rec['loss_first']:.2f} -> {rec['loss_last']:.4f}, mean "
+              f"top-1 IoU {rec['mean_top1_iou']:.4f}, class accuracy {rec['top1_class_acc']}, "
+              f"{rec['step_ms']:.2f} ms/step on the host's clock")
+        figures["overfit_k3"] = rec
+    torch.cuda.empty_cache()
+
+    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", VID_SNIPPETS, 3000)))
+        figures["tree_s"] = time.perf_counter() - t0
+        vid = f"{tmp}/ImageNetVID/ILSVRC"
+        val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=VID_EVERY7, window=(WINDOW, 1),
+                                   inference=True)
+        train = ImageNetVidDetection(root=vid, splits=[(2017, "train")], every=VID_EVERY7, window=(WINDOW, 1))
+        print(f"slice 7 VID tree: {VID_TRAIN_SNIPPETS} train and {VID_SNIPPETS} val snippets of {VID_FRAMES} "
+              f"{VID_W}x{VID_H} frames, written in {figures['tree_s']:.1f} s; {len(train)} train and {len(val)} val "
+              f"windows of {WINDOW} at every {VID_EVERY7}th frame")
+
+        # the loader alone on windows: the train route (B=16, 416 px) and the inference route
+        loaders = {}
+        order = np.random.RandomState(0).permutation(np.tile(np.arange(len(train)), 4))
+        rs, rnd = np.random.RandomState(0), random.Random(0)
+        loader = DetectionLoader(train, TRAIN_WINDOWS, last_batch="discard", num_workers=workers,
+                                 sampler=lambda epoch: order, num_samples=len(order), shape_sizes=[SIZE],
+                                 transform_factory=lambda w, h: YOLO3VideoTrainTransform(WINDOW, w, h, rs, rnd))
+        vorder = np.tile(np.arange(len(val)), -(-WINDOW_LOOP // len(val)))[:WINDOW_LOOP]
+        runs = (("train", TRAIN_WINDOWS, loader),
+                ("inference", WINDOW_DETECT_BATCH,
+                 DetectionLoader(val, WINDOW_DETECT_BATCH, num_workers=workers, sampler=lambda epoch: vorder,
+                                 num_samples=len(vorder), inference_transform=YOLO3VideoInferenceTransform(SIZE, SIZE))))
+        for name, b, pass_ in runs:
+            # a pass of a few batches: the rate over the whole pass, first batch included (each
+            # worker takes a whole batch, so the second half arrives at once), and the first apart
+            t0 = time.perf_counter()
+            times = [time.perf_counter() for _ in pass_]
+            total = times[-1] - t0
+            loaders[name] = {"batches": len(times), "first_batch_s": times[0] - t0, "windows_s": len(times) * b / total,
+                             "frames_s": len(times) * b * WINDOW / total}
+        figures["loader"] = loaders
+        for k, v in loaders.items():
+            print(f"slice 7 window loader, {k} route ({SIZE} px, {workers} workers) on {card}'s host: {v}")
+
+        # the train twin: bf16, B=16 windows, 416 px, one epoch, validated on val windows
+        exp = f"{tmp}/exp"
+        argv = ["--dataset", "vid", "--dataset_root", tmp, "--window", f"{WINDOW},1", "--k_join_pos", "late",
+                "--corr_pos", "early", "--corr_d", str(SLICE7["corr_d"]), "--every", str(VID_EVERY7),
+                "--batch_size", str(TRAIN_WINDOWS), "--data_shape", str(SIZE), "--no_random_shape", "--epochs", "1",
+                "--nopretrained_cnn", "--dtype", "bf16", "--save_prefix", "0000", "--experiment_root", exp,
+                "--save_interval", "1", "--log_interval", "1", "--num_workers", str(workers)]
+        nms_greedy.launches = cost_volume.launches = cost_volume_backward.launches = 0
+        model, stats = train_yolov3.main(argv)
+        torch.cuda.synchronize()
+        n_steps, n_val = len(train) // TRAIN_WINDOWS, -(-len(val) // TRAIN_WINDOWS)
+        k1["train_twin_validation"] = nms_greedy.launches
+        k2["train_twin"] = (cost_volume.launches, cost_volume_backward.launches)
+        check(k1["train_twin_validation"] == n_val, f"slice 7 K1 launches in the train twin: {nms_greedy.launches}")
+        check(k2["train_twin"] == (CORR_LAUNCHES * (n_steps + n_val), CORR_BWD_LAUNCHES * n_steps),
+              f"slice 7 K2 (forward, adjoint) launches in the train twin: {k2['train_twin']} for {n_steps} steps "
+              f"and {n_val} validation batches")
+        ep = stats["epochs"][0]
+        rest = ep["steps"][1:]
+        secs = sum(t for _, t, _ in rest)
+        twin = {"samples_s": ep["samples_s"], "wait_share": ep["wait_s"] / ep["seconds"], "steps": len(ep["steps"]),
+                "steady_windows_s": len(rest) * TRAIN_WINDOWS / secs if secs else None,
+                "steady_wait_share": sum(w for _, _, w in rest) / secs if secs else None,
+                "first_step_ms": ep["steps"][0][1] * 1e3, "val": stats["val"], "logged": list(speed)}
+        figures["train_twin"] = twin
+        print(f"slice 7 train twin (VID windows, bf16, B={TRAIN_WINDOWS}, {SIZE} px, one epoch of {ep['samples']} "
+              f"windows) on {card}: {ep['samples_s']:.1f} windows/s over the epoch, {twin['steady_windows_s']} past the "
+              f"first step, waiting on the prefetcher {twin['steady_wait_share']} of that; first step "
+              f"{twin['first_step_ms']:.0f} ms; validation (VOC mAP, {len(val)} windows) "
+              f"{stats['val'][0]['seconds']:.2f} s, mAP {stats['val'][0]['map']}; K2 {k2['train_twin']}, "
+              f"K1 {k1['train_twin_validation']}")
+        ckpt = f"{exp}/0000/yolo3_darknet53_vid_0000.params"
+        check(os.path.exists(ckpt), f"the train twin wrote no checkpoint {ckpt}")
+
+        # the detect twin from that checkpoint: B=32 windows from disk
+        argv_d = ["--dataset", "vid", "--dataset_root", tmp, "--window", f"{WINDOW},1", "--k_join_pos", "late",
+                  "--corr_pos", "early", "--corr_d", str(SLICE7["corr_d"]), "--every", str(VID_EVERY7),
+                  "--model_path", ckpt, "--data_shape", str(SIZE), "--batch_size", str(WINDOW_DETECT_BATCH),
+                  "--dtype", "bf16", "--save_dir", f"{tmp}/res", "--save_prefix", "vid", "--num_workers",
+                  str(workers), "--metrics", "voc"]
+        nms_greedy.launches = cost_volume.launches = 0
+        t0 = time.perf_counter()
+        preds = detect.main(argv_d)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_batches = -(-len(val) // WINDOW_DETECT_BATCH)
+        k1["detect_twin"], k2["detect_twin"] = nms_greedy.launches, (cost_volume.launches, 0)
+        check((nms_greedy.launches, cost_volume.launches) == (n_batches, CORR_LAUNCHES * n_batches),
+              f"slice 7 detect twin launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)}")
+        check(os.path.exists(f"{tmp}/res/vid/voc.txt"), "the window detect twin wrote no voc.txt")
+        figures["detect_twin"] = {"windows": len(val), "seconds": secs, "windows_s_disk_to_metrics": len(val) / secs,
+                                  "detections": sum(map(len, preds.values())),
+                                  "voc": open(f"{tmp}/res/vid/voc.txt").read().splitlines()[-1]}
+        print(f"slice 7 detect twin (VID windows from the checkpoint, bf16, B={WINDOW_DETECT_BATCH}, {SIZE} px) on "
+              f"{card}: {len(val)} windows to the metrics in {secs:.2f} s (model load included); "
+              f"{figures['detect_twin']}")
+
+        # the checkpoint read back: the first batch's raw outputs and detections equal the trained model's
+        cfg = YoloConfig(**SLICE7)
+        twin_det = Detector(cfg, detect.load_model_variables(ckpt, cfg), dtype=torch.bfloat16, data_shape=SIZE)
+        tf = YOLO3VideoInferenceTransform(SIZE, SIZE)
+        idxs = range(min(WINDOW_DETECT_BATCH, len(val)))
+        images = torch.from_numpy(np.stack([
+            tf(np.stack([native.decode(p) for p in val.window_paths(i)]), val.label_and_size(i)[0])[0] for i in idxs
+        ])).to(dev)
+        model.eval()
+        with torch.inference_mode():
+            raw_twin, raw_trained = twin_det.model(twin_det._normalized(images)), model(images)
+        check(all(torch.equal(a, b) for a, b in zip(raw_twin, raw_trained)),
+              "the raw outputs of the window checkpoint's model differ from the trained model's")
+        ids, sc, bb = (a.cpu().numpy() for a in make_eval_step(model)(images))
+        ref = {}
+        for n, i in enumerate(idxs):
+            collect_boxes(ref, val.sample_path(i), ids[n], sc[n], np.clip(bb[n], 0, SIZE), SIZE)
+        paths = [val.sample_path(i) for i in idxs]
+        check(all(preds.get(p, []) == ref.get(p, []) for p in paths),
+              "the window detect twin's detections from the checkpoint differ from the trained model's eval step")
+        print(f"slice 7 checkpoint -> detect twin --model_path: raw boxes and scores equal the trained model's bit for "
+              f"bit, and so do the first batch's {sum(map(len, ref.values()))} detections")
+        del model
+
+        # the warm windowed detect loop, JPEG frames on disk to predictions
+        order = np.tile(np.arange(len(val)), -(-WINDOW_LOOP // len(val)))[:WINDOW_LOOP]
+        for label in ("warm", "timed"):
+            nms_greedy.launches = cost_volume.launches = 0
+            t0 = time.perf_counter()
+            detect.detect_dataset(twin_det, val, DetectionLoader(
+                val, WINDOW_DETECT_BATCH, num_workers=workers, sampler=lambda epoch: order, num_samples=len(order),
+                inference_transform=tf), max_do=WINDOW_LOOP)
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+        n_batches = -(-WINDOW_LOOP // WINDOW_DETECT_BATCH)
+        k1["detect_loop"], k2["detect_loop"] = nms_greedy.launches, (cost_volume.launches, 0)
+        check((nms_greedy.launches, cost_volume.launches) == (n_batches, CORR_LAUNCHES * n_batches),
+              f"slice 7 detect loop launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)}")
+        with torch.inference_mode():
+            step_ms = median_ms(lambda: twin_det(images), 10)
+        figures["detect_loop"] = {"windows": WINDOW_LOOP, "seconds": loop_s, "windows_s": WINDOW_LOOP / loop_s,
+                                  "frames_s": WINDOW_LOOP * WINDOW / loop_s,
+                                  "step_alone_windows_s": len(idxs) / step_ms * 1e3}
+        print(f"slice 7 detect loop on VID windows (bf16, B={WINDOW_DETECT_BATCH}, {SIZE} px, warm) on {card}: "
+              f"{WINDOW_LOOP} windows to predictions in {loop_s:.3f} s, {WINDOW_LOOP / loop_s:.1f} windows/s "
+              f"({WINDOW_LOOP * WINDOW / loop_s:.1f} frames/s); the step alone {figures['detect_loop']['step_alone_windows_s']:.1f} windows/s")
+        del twin_det
+        torch.cuda.empty_cache()
+    k1["total"] = sum(v for v in k1.values())
+    k2["total"] = [sum(v[0] for v in k2.values()), sum(v[1] for v in k2.values())]
+    figures["k1"], figures["k2"] = k1, k2
+    print(f"slice 7 launches: K1 {k1}, K2 (forward, adjoint) {k2}")
+    return figures, k1["total"], k2["total"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -2276,6 +2675,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice6_figures, k1_slice6 = data_slice6(dev, card)
 
+    # 12. slice 7: VID windows from disk, YOLOv3T training, K2's adjoint
+    torch.cuda.empty_cache()
+    slice7_figures, k1_slice7, k2_slice7 = data_slice7(dev, card)
+    step7 = slice7_figures["train_step"]
+    adjoint = dict(
+        ms=step7["k2_adjoint_ms"],
+        plain_ms=2 * sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
+        bound_ms=2 * sum(max(lv["adjoint_bytes_ms"], lv["adjoint_ops_ms"]) for lv in step7["levels"]),
+        bound_by=("bytes" if sum(lv["adjoint_bytes_ms"] for lv in step7["levels"])
+                  >= sum(lv["adjoint_ops_ms"] for lv in step7["levels"]) else "operations"),
+    )
+
     kernels = [
         {
             "name": "nms_greedy",
@@ -2294,6 +2705,7 @@ def main() -> int:
             "launches_slice4": k1_slice4,
             "launches_slice5": k1_slice5,
             "launches_slice6": k1_slice6,
+            "launches_slice7": k1_slice7,
         },
         {
             "name": "cost_volume",
@@ -2311,6 +2723,26 @@ def main() -> int:
             "cases": len(CORR_CASES) + 3,
             "per": f"one B=32 request: {CORR_LAUNCHES} launches",
             "levels": corr["levels"],
+            "launches_slice7": k2_slice7[0],
+            "train_step_ms": step7["k2_forward_ms"],
+            "train_step_launches": step7["launches"]["forward"],
+        },
+        {
+            "name": "cost_volume_backward",
+            "route": "cuda",
+            "source": "videoyolo_torch/csrc/correlation.cu",
+            "replaces": "videoyolo_tpu/ops/pallas_correlation.py:63 (its adjoint: the TPU kernel has none; the JAX "
+                        "package differentiates videoyolo_tpu/ops/correlation.py:64-80)",
+            "launches": step7["launches"]["adjoint"],
+            "max_abs_err": slice7_figures["adjoint_max_abs_err"],
+            **adjoint,
+            "library_ms": None,
+            "match": True,
+            "cases": len(CORR_BWD_CASES),
+            "per": f"one B={TRAIN_WINDOWS}-window train step: {CORR_BWD_LAUNCHES} launches",
+            "levels": [{k: lv[k] for k in ("shape", "adjoint_ms", "adjoint_plain_ms", "adjoint_bytes_ms",
+                                           "adjoint_ops_ms")} for lv in step7["levels"]],
+            "launches_slice7": k2_slice7[1],
         },
         {
             "name": "quant_downsample",
@@ -2344,6 +2776,7 @@ def main() -> int:
     print(json.dumps({"slice4_training": train_figures}))
     print(json.dumps({"slice5_data": data_figures}))
     print(json.dumps({"slice6_data": slice6_figures}))
+    print(json.dumps({"slice7_windows": slice7_figures}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -19,6 +19,8 @@ from videoyolo_tpu.models import layers as jlayers
 from videoyolo_tpu.models import yolo3 as jyolo3
 from videoyolo_torch.models import darknet, layers, yolo3
 from videoyolo_torch.models.factory import YoloConfig, build_model, yolo3_darknet53, yolo3_no_backbone
+from videoyolo_torch.models.yolo3_temporal import YOLOv3T
+from videoyolo_torch.train.step import create_train_state, make_train_step
 from videoyolo_torch.utils.flax_bridge import flax_to_state_dict
 
 torch.set_num_threads(2)
@@ -328,5 +330,13 @@ def test_factory_surface():
     assert s2d.backbone.stage1.ConvBNLeaky_0.Conv_0.weight.shape == (64, 128, 2, 2)
     assert s2d.backbone.remat_stages == 3 and build_model(YoloConfig(num_classes=2, remat=True)).remat
     assert m(torch.zeros(1, 32, 32, 3))["bbox"].shape == (1, 63, 4)  # train mode
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
-        build_model(YoloConfig(num_classes=2, k=3))(torch.zeros(1, 3, 32, 32, 3))  # train mode
+    # YOLOv3T trains (ROADMAP.md Queue 1 item 16); with per-frame heads (no
+    # join) its train mode gives them a time axis, as JAX's does, and the
+    # per-timestep loss of t_out models raises (item 8)
+    assert build_model(YoloConfig(num_classes=2, k=3))(torch.zeros(1, 3, 32, 32, 3))["bbox"].shape == (1, 63, 4)
+    tm = YOLOv3T(num_classes=2, k=3)
+    assert tm(torch.zeros(1, 3, 32, 32, 3))["bbox"].shape == (1, 3, 63, 4)  # train mode
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+        make_train_step(tm, num_classes=2)(create_train_state(tm, lambda step: 0.0), {
+            "image": torch.zeros(1, 3, 32, 32, 3), "gt_boxes": torch.full((1, 1, 4), -1.0),
+            "gt_ids": torch.full((1, 1, 1), -1.0)})

@@ -326,8 +326,11 @@ def test_train_twin_flags(monkeypatch):
     naming their items."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     for argv in (["--syncbn"], ["--dataset", "coco", "--mixup", "--host_color"], ["--dataset", "det"],
-                 ["--dataset", "vid", "--every", "5", "--noallow_empty"], ["--dataset", "coco", "--dataset_val", "voc"]):
+                 ["--dataset", "vid", "--every", "5", "--noallow_empty"], ["--dataset", "coco", "--dataset_val", "voc"],
+                 ["--dataset", "vid", "--window", "3,1", "--k_join_pos", "late", "--corr_pos", "early"]):
         train_yolov3.check_ported(train_yolov3.parse_args(argv))
+    with pytest.raises(ValueError, match="video dataset"):  # train_yolov3.py:775-776
+        train_yolov3.check_ported(train_yolov3.parse_args(["--window", "3,1"]))
     monkeypatch.setenv("WORLD_SIZE", "1")
     train_yolov3.check_ported(train_yolov3.parse_args(["--syncbn"]))
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -335,7 +338,9 @@ def test_train_twin_flags(monkeypatch):
         train_yolov3.check_ported(train_yolov3.parse_args(["--syncbn"]))
     monkeypatch.delenv("WORLD_SIZE")
     for argv, item in ((["--dataset", "comb"], "item 2c"), (["--dataset", "yt"], "item 2d"),
-                       (["--dataset", "voc,coco"], "item 2c"), (["--window", "3,1"], "item 16"),
+                       (["--dataset", "voc,coco"], "item 2c"),
+                       (["--dataset", "vid", "--window", "3,1", "--mult_out"], "item 8"),
+                       (["--dataset", "vid", "--window", "3,1", "--block_conv_type", "21"], "item 6"),
                        (["--features_dir", "f"], "item 13"), (["--trained_on", "voc"], "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             train_yolov3.check_ported(train_yolov3.parse_args(argv))

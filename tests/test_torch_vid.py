@@ -133,11 +133,12 @@ def test_vid_nonempty_cache_matches_jax(tmp_path, every):
 
 
 def test_vid_unported_options_raise(vid_root):
-    for kw, item in ((dict(window=(3, 1)), "item 2e"), (dict(mult_out=True), "item 2e"),
-                     (dict(videos=True), "item 2e"), (dict(features_dir="x"), "item 13")):
+    for kw, item in ((dict(window=(3, 1), mult_out=True), "item 8"), (dict(mult_out=True), "item 8"),
+                     (dict(videos=True), "item 11"), (dict(features_dir="x"), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], **kw)
-    assert not hasattr(ImageNetVidDetection, "window_paths")
+    # windows are ported (tests/test_torch_windows.py)
+    assert _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], window=(3, 1)).window == (3, 1)
 
 
 def test_generate_motion_ious_matches_jax(tmp_path):

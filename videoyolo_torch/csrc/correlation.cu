@@ -308,7 +308,104 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
   }
 }
 
+// The adjoint of the cost volume: given g = dL/dout (B, H, W, D), the
+// gradients of f1 and f2 (B, H, W, C), both gathers, with (oy, ox) the
+// displacement of channel d and every term outside the image zero:
+//   gf1[b, y, x, c] = sum_d g[b, y, x, d] * f2[b, y+oy, x+ox, c] / C
+//   gf2[b, y, x, c] = sum_d g[b, y-oy, x-ox, d] * f1[b, y-oy, x-ox, c] / C
+// The TPU kernel has no backward (the JAX package differentiates the XLA
+// form, videoyolo_tpu/ops/correlation.py:64-80); this kernel is the port's
+// own, held against ops/correlation_kernel.py:cost_volume_backward_plain.
+// One thread per output element, c fastest, so a warp reads 32 neighbouring
+// channels of one f pixel and one g value (a broadcast); blockIdx.y picks
+// gf1 (0) or gf2 (1), so one launch writes both.  Each sum runs over the
+// displacements in channel order of the cost volume (d = 0 .. D-1), then
+// divides by C.  No shared memory, no atomics.
+// Bound on an H100 SXM at 700 W (train step, B=16 windows, d=4, D=81): at
+// 52x52x256 the launch must read g (14 MB) and f1, f2 (89 MB) and write gf1,
+// gf2 (89 MB), 0.057 ms at 3.35 TB/s, and do 2 x 0.82 G multiply-adds (two
+// operations each) on the in-image products, 0.049 ms at 67 TFLOP/s.  This simple design reads
+// each f value once per displacement (through L1 and L2), so it runs far
+// above that bound; staging the f window as the forward does is later work.
+struct BackwardParams {
+  const float* g;
+  const float* f1;
+  const float* f2;
+  float* gf1;
+  float* gf2;
+  long long bs1, bs2;  // batch strides of f1, f2, elements
+  long long n;         // B * H * W * C
+  int H, W, C, steps, s2;
+};
+
+__global__ void __launch_bounds__(256) cost_volume_backward_kernel(const BackwardParams p) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const int c = static_cast<int>(i % p.C);
+  const long long pix = i / p.C;
+  const int x = static_cast<int>(pix % p.W);
+  const int y = static_cast<int>((pix / p.W) % p.H);
+  const long long b = pix / (static_cast<long long>(p.W) * p.H);
+  const int s = p.steps / 2, D = p.steps * p.steps;
+  const long long plane = static_cast<long long>(p.H) * p.W;
+  float acc = 0.f;
+  if (blockIdx.y == 0) {
+    // gf1: this pixel's g against f2 at (y + oy, x + ox)
+    const float* gp = p.g + pix * D;
+    const float* f = p.f2 + b * p.bs2 + c;
+    for (int iy = 0; iy < p.steps; ++iy) {
+      const int yy = y + (iy - s) * p.s2;
+      if (yy < 0 || yy >= p.H) continue;
+      for (int ix = 0; ix < p.steps; ++ix) {
+        const int xx = x + (ix - s) * p.s2;
+        if (xx < 0 || xx >= p.W) continue;
+        acc = fmaf(gp[iy * p.steps + ix], f[(static_cast<long long>(yy) * p.W + xx) * p.C], acc);
+      }
+    }
+    p.gf1[i] = acc / static_cast<float>(p.C);
+  } else {
+    // gf2: g and f1 at (y - oy, x - ox), the pixels whose displacement d
+    // reaches this one
+    const float* gp = p.g + b * plane * D;
+    const float* f = p.f1 + b * p.bs1 + c;
+    for (int iy = 0; iy < p.steps; ++iy) {
+      const int yy = y - (iy - s) * p.s2;
+      if (yy < 0 || yy >= p.H) continue;
+      for (int ix = 0; ix < p.steps; ++ix) {
+        const int xx = x - (ix - s) * p.s2;
+        if (xx < 0 || xx >= p.W) continue;
+        const long long q = static_cast<long long>(yy) * p.W + xx;
+        acc = fmaf(gp[q * D + iy * p.steps + ix], f[q * p.C], acc);
+      }
+    }
+    p.gf2[i] = acc / static_cast<float>(p.C);
+  }
+}
+
 }  // namespace
+
+// g (B, H, W, D) f32, contiguous; f1, f2 (B, H, W, C) f32, each dense over
+// (H, W, C) with batch strides bs1, bs2 (elements); gf1, gf2 (B, H, W, C)
+// f32, contiguous, written whole.  `blocks` is the wrapper's ceil(B*H*W*C /
+// 256), checked here.  Returns the CUDA error of the launch (0 on success).
+extern "C" int cost_volume_backward_launch(const void* g, const void* f1, const void* f2, void* gf1,
+                                           void* gf2, long long bs1, long long bs2, int B, int H, int W,
+                                           int C, int d, int s2, long long blocks, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) return cudaErrorInvalidValue;
+  BackwardParams p;
+  p.n = static_cast<long long>(B) * H * W * C;
+  if (blocks != (p.n + 255) / 256 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.g = static_cast<const float*>(g);
+  p.f1 = static_cast<const float*>(f1);
+  p.f2 = static_cast<const float*>(f2);
+  p.gf1 = static_cast<float*>(gf1);
+  p.gf2 = static_cast<float*>(gf2);
+  p.bs1 = bs1, p.bs2 = bs2;
+  p.H = H, p.W = W, p.C = C, p.steps = 2 * (d / s2) + 1, p.s2 = s2;
+  cost_volume_backward_kernel<<<dim3(static_cast<unsigned>(blocks), 2), 256, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
 
 // f1, f2 (B, H, W, C) f32 on the current device, each dense over (H, W, C)
 // with batch strides bs1, bs2 (elements); out (B, H, W, D) f32, contiguous.

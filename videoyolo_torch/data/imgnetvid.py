@@ -1,8 +1,11 @@
-"""ImageNet-VID video object detection dataset, single frames (port of
-videoyolo_tpu/data/imgnetvid.py:30-526).
+"""ImageNet-VID video object detection dataset, frames and windows of
+frames (port of videoyolo_tpu/data/imgnetvid.py:30-526).
 
 Each sample is one frame, keyed by its frame id (the second column of
-`ImageSets/VID/<split>.txt`, whose first column is `<video>/<frame>`):
+`ImageSets/VID/<split>.txt`, whose first column is `<video>/<frame>`), or,
+with `window=(k, step)` and k > 1, the window of k frames of its video
+centred on it, every `step`-th, clamped at the video's ends (the sampler of
+videoyolo_tpu/data/imgnetvid.py:337-356), labelled by the key frame:
 
   * `every` keeps the frames whose number is a multiple of it, and
     `frames_per_video` keeps about that many frames of each video;
@@ -16,10 +19,13 @@ Each sample is one frame, keyed by its frame id (the second column of
     `generate_motion_ious` when missing (the FGFA protocol).
 
 Images are `Data/VID/<split>/<video>/<frame>.JPEG`, decoded by the JPEG
-core.  Windows of frames (`window[0] > 1`, `mult_out`, `window_paths`) and
-whole videos (`videos=True`) come with the video transforms, ROADMAP.md
-Queue 1 item 2e; pre-extracted features (`features_dir`) with item 13.
-They raise NotImplementedError.
+core; a window's sample is its k frames stacked (k, H, W, 3), and
+`window_paths` names them.  Windows keep every frame (`allow_empty` is
+forced on, as in the JAX package).  Per-frame labels of the whole window
+(`mult_out`) come with YOLOv3Temporal's t_out heads, ROADMAP.md Queue 1
+item 8; whole videos (`videos=True`) with streaming, item 11;
+pre-extracted features (`features_dir`) with item 13.  They raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -53,11 +59,13 @@ class ImageNetVidDetection(DetectionDataset):
         features_dir: Optional[str] = None,
         mult_out: bool = False,
     ):
-        if videos or window[0] > 1 or mult_out:
+        if mult_out:
             raise NotImplementedError(
-                "VID windows and whole videos (window, mult_out, videos) come with the video transforms, "
-                "ROADMAP.md Queue 1 item 2e"
+                "per-frame labels of a window (mult_out) come with YOLOv3Temporal's t_out heads, "
+                "ROADMAP.md Queue 1 item 8"
             )
+        if videos:
+            raise NotImplementedError("whole VID videos (videos=True) come with streaming, ROADMAP.md Queue 1 item 11")
         if features_dir is not None:
             raise NotImplementedError(
                 "VID with pre-extracted features (features_dir) comes with the extract twin, "
@@ -72,6 +80,9 @@ class ImageNetVidDetection(DetectionDataset):
         super().__init__(transform=transform, inference=inference)
         self.root = os.path.expanduser(root)
         self._splits = list(splits)
+        self._window_size, self._window_step = int(window[0]), int(window[1])
+        if self._window_size > 1:
+            allow_empty = True  # a window's frames are all kept (imgnetvid.py:57-58)
         self._allow_empty = allow_empty
         self._coco_path = os.path.join(
             self.root, "jsons", "_".join(str(s[0]) + s[1] for s in self._splits) + ".json"
@@ -86,6 +97,7 @@ class ImageNetVidDetection(DetectionDataset):
             for frame_name, frame_id in zip(video[2], video[3])
         }
         self.all_samples = dict(self.samples)
+        self._windows = self._window_ids() if self._window_size > 1 else None
         self._every = int(every)
         self._frames_per_video = int(frames_per_video)
         if every != 1:
@@ -126,12 +138,44 @@ class ImageNetVidDetection(DetectionDataset):
     def get_sample_ids(self):
         return self.sample_ids
 
+    @property
+    def window(self):
+        """(k, step) of the windows; k = 1 for single frames."""
+        return self._window_size, self._window_step
+
     def sample_path(self, idx):
+        """The (key) frame's path."""
         return self._image_path.format(*self.samples[self.sample_ids[idx]])
 
+    def window_paths(self, idx):
+        """The paths of the window's k frames, in time order."""
+        return [self._image_path.format(*self.all_samples[sid]) for sid in self._windows[self.sample_ids[idx]]]
+
     def __getitem__(self, idx):
-        img = read_image(self.sample_path(idx))
-        return self._transformed(img, self._load_label(idx)[:, :-1], idx)
+        label = self._load_label(idx)[:, :-1]
+        if self._window_size > 1:
+            img = np.stack([read_image(p) for p in self.window_paths(idx)])
+        else:
+            img = read_image(self.sample_path(idx))
+        return self._transformed(img, label, idx)
+
+    def _window_ids(self) -> Dict[int, List[int]]:
+        """Each frame id's window: k frame ids of its video, every step-th,
+        centred on it and clamped to the video's first and last frames; an
+        even k drops the last (videoyolo_tpu/data/imgnetvid.py:337-356)."""
+        windows = {}
+        half, step = self._window_size // 2, self._window_step
+        for video in self.videos.values():
+            ids = video[3]
+            for i in range(len(ids)):
+                window = [ids[max(0, i - back)] for back in range(half * step, step - 1, -step)]
+                window.append(ids[i])
+                for fwd in range(step, half * step + 1, step):
+                    if len(window) == self._window_size:
+                        break
+                    window.append(ids[min(len(ids) - 1, i + fwd)])
+                windows[ids[i]] = window
+        return windows
 
     def label_and_size(self, idx):
         """The label as `__getitem__` gives it (no track id) and the size

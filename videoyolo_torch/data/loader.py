@@ -29,7 +29,17 @@ Three routes, all through the JPEG core (native.py):
     the core's resampler (native.crop_resize_pad, where the JAX package
     calls cv2), giving uint8 pixels with a colour map, or normalised
     float32 pixels (`device_color=False`).  `gt_mix` carries the blend
-    ratios under mixup.
+    ratios under mixup.  With a video train transform (one with `k`), a
+    sample is a window of VID frames: the plan is drawn from the key
+    frame's label and header, and the worker decodes the k frames and cuts
+    each with the sample's plan, giving (B, k, H, W, 3) batches with one
+    colour map a window; mixup raises on windows, as the JAX package's
+    MixupDetection fails on them;
+  * the per-sample inference route, `inference_transform` (a
+    YOLO3VideoInferenceTransform: the JAX detect CLI's route for windows,
+    detect_yolo3.py:989-992): the labels now, then in a worker the k
+    frames decoded, each resized (interp 9) and normalised, (B, k, H, W, 3)
+    float32 with `idx`.
 
 The JAX loader samples the plans (and the blends) in its worker threads;
 the port samples each batch's in the order the batches are submitted, so
@@ -47,7 +57,7 @@ import numpy as np
 
 from .. import native
 from .base import check_jpeg
-from .transforms import MixupDetection, mix_labels, mix_pixels, with_mix_column
+from .transforms import MixupDetection, check_mixable, mix_labels, mix_pixels, with_mix_column
 
 __all__ = ["pad_labels", "collate_detection", "DetectionLoader"]
 
@@ -73,11 +83,12 @@ def pad_labels(labels: Sequence[np.ndarray], max_boxes: int) -> np.ndarray:
 
 
 def collate_detection(samples, max_boxes: int = 56, mixup: bool = False) -> Dict[str, np.ndarray]:
-    """(uint8 img, label, (3, 4) colour map) or (float32 img, label)
-    samples -> a fixed-shape batch dict; `mixup` adds `gt_mix`, the labels'
-    last column."""
+    """(uint8 img, label, (3, 4) colour map), (float32 img, label) or
+    (float32 img, label, idx) samples -> a fixed-shape batch dict; an img is
+    an image (H, W, 3) or a window (k, H, W, 3), stacked to (B, ...);
+    `mixup` adds `gt_mix`, the labels' last column, and an idx `idx`."""
     labels = pad_labels([np.atleast_2d(s[1]) for s in samples], max_boxes)
-    color = len(samples[0]) > 2
+    color = len(samples[0]) > 2 and getattr(samples[0][2], "shape", None) == (3, 4)
     imgs = np.stack([s[0] for s in samples])
     batch = {
         "image": imgs if color else imgs.astype(np.float32),
@@ -89,6 +100,8 @@ def collate_detection(samples, max_boxes: int = 56, mixup: bool = False) -> Dict
         batch["gt_mix"] = labels[..., -1:]
     if color:
         batch["color"] = np.stack([s[2] for s in samples])
+    elif len(samples[0]) > 2:
+        batch["idx"] = np.asarray([s[2] for s in samples], np.int64)
     return batch
 
 
@@ -98,9 +111,10 @@ class DetectionLoader:
     transform_factory: (width, height) -> train transform with `plan`; one
     per shape bucket group.  native_decode: (h, w) of the inference batch,
     labelled through `label_transform` (a YOLO3DefaultInferenceTransform)
-    when given.  A dataset wrapped in a MixupDetection trains with mixup:
-    its blends are drawn by the per-sample route and collated as
-    `gt_mix`."""
+    when given.  inference_transform: a YOLO3VideoInferenceTransform, the
+    labelled inference route for windows.  A dataset wrapped in a
+    MixupDetection trains with mixup: its blends are drawn by the
+    per-sample route and collated as `gt_mix`."""
 
     def __init__(
         self,
@@ -116,13 +130,15 @@ class DetectionLoader:
         shape_interval: int = 10,
         native_decode: Optional[Sequence[int]] = None,
         label_transform=None,
+        inference_transform=None,
         sampler=None,
         num_samples: Optional[int] = None,
     ):
         if last_batch not in ("keep", "discard"):
             raise ValueError(f"last_batch must be keep or discard, got {last_batch!r}")
-        if native_decode is None and transform_factory is None:
-            raise ValueError("a loader needs native_decode=(h, w) or a train transform_factory")
+        if native_decode is None and transform_factory is None and inference_transform is None:
+            raise ValueError("a loader needs native_decode=(h, w), an inference_transform or a train "
+                             "transform_factory")
         self._dataset = dataset
         self._batch_size = batch_size
         self._shuffle = shuffle
@@ -136,6 +152,7 @@ class DetectionLoader:
         self._shape_interval = max(1, shape_interval)
         self._native_hw = tuple(native_decode) if native_decode else None
         self._label_transform = label_transform
+        self._inference_tf = inference_transform
         self._sampler = sampler
         self._num_samples = num_samples
         self._epoch = 0
@@ -182,6 +199,8 @@ class DetectionLoader:
         """What a batch needs from the host's state, taken now (the plans
         are drawn here, in submission order); returns the decode to run
         in a worker."""
+        if self._inference_tf is not None:
+            return self._window_inference_job(chunk)
         paths = [check_jpeg(self._dataset.sample_path(int(j))) for j in chunk]
         if self._native_hw is not None:
             labels = [self._dataset.label_and_size(int(j))[0] for j in chunk]
@@ -222,10 +241,17 @@ class DetectionLoader:
         and partner, then the plan); the pixels in the worker."""
         mixer = self._dataset if self._mixup else None
         base = mixer.dataset if mixer is not None else self._dataset
+        k = getattr(transform, "k", 1)
+        if mixer is not None:
+            check_mixable(k)
         specs = []
         for j, path in zip(chunk, paths):
             label = base.label_and_size(int(j))[0]
             h, w = native.image_size(path)
+            if k > 1:
+                frames = [check_jpeg(p) for p in base.window_paths(int(j))]
+                specs.append((frames, None, 1.0, transform.plan(label, w, h)))
+                continue
             partner, lambd = None, 1.0
             if mixer is not None:
                 lambd, j2 = mixer.draw()
@@ -241,11 +267,27 @@ class DetectionLoader:
         def decode():
             samples = []
             for path, partner, lambd, plan in specs:
+                if k > 1:
+                    samples.append(transform.apply(np.stack([native.decode(p) for p in path]), plan))
+                    continue
                 img = native.decode(path)
                 if partner is not None:
                     img = mix_pixels(img, native.decode(partner), lambd)
                 samples.append(transform.apply(img, plan))
             return collate_detection(samples, self._max_boxes, self._mixup)
+
+        return decode
+
+    def _window_inference_job(self, chunk) -> Callable[[], Dict[str, np.ndarray]]:
+        """The inference route for windows: the labels now, the frames in
+        the worker (decode, resize with interp 9, normalise each)."""
+        specs = [([check_jpeg(p) for p in self._dataset.window_paths(int(j))],
+                  self._dataset.label_and_size(int(j))[0], int(j)) for j in chunk]
+
+        def decode():
+            return collate_detection(
+                [self._inference_tf(np.stack([native.decode(p) for p in frames]), label, j)
+                 for frames, label, j in specs], self._max_boxes)
 
         return decode
 

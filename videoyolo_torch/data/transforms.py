@@ -13,6 +13,8 @@ On the device: `to_normalized`.  On the host:
     decoded pixels, with the colour map returned for the device or applied
     here (`device_color=False`, the train twin's --host_color);
   * `YOLO3DefaultInferenceTransform`: resize (interp 9) and normalise;
+  * `YOLO3VideoTrainTransform` and `YOLO3VideoInferenceTransform`: the same
+    on (k, H, W, 3) windows, one plan (one set of draws) for all k frames;
   * the pixel helpers `imresize`, `crop_resize_pad` and `apply_color_np`,
     and `MixupDetection`, which blends pairs of images and their labels.
 
@@ -396,7 +398,7 @@ class YOLO3DefaultTrainTransform:
         return self._device_color
 
     def __call__(self, src, label):
-        h, w, _ = src.shape
+        h, w = src.shape[-3:-1]
         return self.apply(src, self.plan(label, w, h))
 
     def apply(self, src, plan):
@@ -436,6 +438,46 @@ class YOLO3DefaultInferenceTransform:
         return img, self.label(label, w, h)
 
 
+class YOLO3VideoTrainTransform(YOLO3DefaultTrainTransform):
+    """The train augmentation of a window (videoyolo_tpu/data/transforms.py:
+    530-572): one plan, drawn as the 2D transform draws it (geometry,
+    filter, then colour: the JAX video transform's order), applied to each
+    of the k frames; the label is the key frame's.  `apply` takes the
+    decoded (k, h, w, 3) window and returns (uint8 (k, H, W, 3), bbox,
+    colour map) with `device_color`, else the normalised float32 window."""
+
+    def __init__(self, k, width, height, rs: np.random.RandomState, rnd: random.Random,
+                 mean=MEAN, std=STD, device_color: bool = True):
+        super().__init__(width, height, rs, rnd, mean, std, device_color)
+        self._k = k
+
+    @property
+    def k(self) -> int:
+        return self._k
+
+    def apply(self, src, plan):
+        bbox, rect, flip, interp, mat = plan
+        imgs = np.stack([native.crop_resize_pad(f, rect, self._height, self._width, interp, self.fill, flip)
+                         for f in src])
+        if self._device_color:
+            return imgs, bbox.astype(np.float32), mat
+        return apply_color_np(imgs, mat), bbox.astype(np.float32)
+
+
+class YOLO3VideoInferenceTransform(YOLO3DefaultInferenceTransform):
+    """Resize (interp 9) and normalise each frame of a (k, H, W, 3) window
+    (videoyolo_tpu/data/transforms.py:575-589); the label scales from the
+    frames' size."""
+
+    def __call__(self, src, label, idx=None):
+        _, h, w, _ = src.shape
+        imgs = np.stack([normalized_np(imresize(f, self._width, self._height, interp=9), self._mean, self._std)
+                         for f in src])
+        if idx is not None:
+            return imgs, self.label(label, w, h), idx
+        return imgs, self.label(label, w, h)
+
+
 # --------------------------------------------------------------------------
 # mixup (videoyolo_tpu/data/transforms.py:623-684)
 # --------------------------------------------------------------------------
@@ -443,6 +485,19 @@ class YOLO3DefaultInferenceTransform:
 def with_mix_column(label: np.ndarray, ratio: float) -> np.ndarray:
     """`label` with the mix ratio appended as its last column."""
     return np.hstack((label, np.full((label.shape[0], 1), ratio, label.dtype)))
+
+
+def check_mixable(frames: int):
+    """Mixup blends single images.  The JAX package's `MixupDetection._mix`
+    builds an (H, W, 3) canvas from the first two axes of what the dataset
+    gives, so a (k, H, W, 3) window raises a numpy broadcasting ValueError
+    there; the port raises this ValueError instead, before drawing
+    anything."""
+    if frames != 1:
+        raise ValueError(
+            f"mixup blends single images, got windows of {frames} frames: the JAX package's MixupDetection "
+            "fails on windows (--mixup with --window), and so does the port"
+        )
 
 
 def mix_pixels(img1: np.ndarray, img2: np.ndarray, lambd: float) -> np.ndarray:
@@ -519,6 +574,7 @@ class MixupDetection:
 
     def __getitem__(self, idx):
         img1, label1 = self._dataset[idx][:2]
+        check_mixable(img1.shape[0] if img1.ndim == 4 else 1)
         lambd, idx2 = self.draw()
         if idx2 is None:
             img, label = img1, with_mix_column(label1, 1.0)

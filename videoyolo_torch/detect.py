@@ -10,6 +10,8 @@ or on seeded synthetic requests.
     python -m videoyolo_torch.detect --dataset coco --metrics coco,voc ...
     python -m videoyolo_torch.detect --dataset det --metrics voc ...
     python -m videoyolo_torch.detect --dataset vid --every 2 --metrics vid [--metric_agnostic] ...
+    python -m videoyolo_torch.detect --dataset vid --window 3,1 --k_join_pos late --corr_pos early \
+        --corr_d 4 --metrics voc ...   # YOLOv3T on VID windows
 
 With `--dataset`, detect_yolo3.py's dataset path on its validation splits:
 `voc` is VOC 2007 test under `<dataset_root>/PascalVOC/VOCdevkit`, `coco`
@@ -34,6 +36,18 @@ without their classes).
 `--model_path` takes the JAX package's flax msgpack or an MXNet `.params`
 file (the reference's gluon checkpoints); without it the weights are
 seeded random, with a warning.
+With `--window k[,step]` and k > 1 on `vid`, each sample is the window of
+k frames around a val frame (the VID window sampler) and the model is
+YOLOv3T with the temporal flags (`--k_join_type`, `--k_join_pos`,
+`--block_conv_type` '2', `--corr_pos`, `--corr_d`, read only with
+`--corr_pos`, as detect_yolo3.py reads them).  The windows take the JAX
+detect CLI's Python route (detect_yolo3.py:989-992): each frame decoded,
+resized with interp 9 and normalised, in the loader's workers; the
+detections are the key frame's, cached under its name.  The cost volumes
+run on K2 and the NMS on K1 for each batch.  The metrics then read each
+image's size as detect_yolo3.py's `evaluate` reads it for a window, from
+the first two axes of the stacked (k, H, W, 3) frames, so their numbers
+are the JAX CLI's (ROADMAP.md Queue 3: a fault of the reference, mirrored).
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -59,6 +73,7 @@ Both modes run on the card unless `--device cpu` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -76,6 +91,7 @@ from .data.loader import DetectionLoader
 from .data.mscoco import COCODetection
 from .data.pascalvoc import VOCDetection
 from .data.prefetch import device_prefetch
+from .data.transforms import YOLO3VideoInferenceTransform
 from .metrics.imgnetvid import VIDDetectionMetric
 from .metrics.mscoco import COCODetectionMetric
 from .metrics.pascalvoc import VOCMApMetric
@@ -100,6 +116,7 @@ def parse_args(argv=None):
     p.add_argument("--window", default="1,1", help="temporal window size of frames and stride")
     p.add_argument("--k_join_type", default=None, help="way to fuse k: max, mean or cat")
     p.add_argument("--k_join_pos", default=None, help="position of the k fuse: early or late")
+    p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2 (3 and 21: item 6)")
     p.add_argument("--corr_pos", default=None, help="position of the correlation: early or late")
     p.add_argument("--corr_d", type=int, default=4, help="the d of the correlation")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
@@ -183,10 +200,10 @@ def main(argv=None):
 _ITEMS = {"comb": "2c", "yt": "2d"}
 
 
-def get_dataset(names, dataset_root: str, every: float = 25):
+def get_dataset(names, dataset_root: str, every: float = 25, window=(1, 1)):
     """`--dataset` -> an inference dataset (detect_yolo3.py:145-192): the
-    validation split of voc, coco, det or vid (frames, every `every`th), or
-    JPEG files, directories and `.txt` lists."""
+    validation split of voc, coco, det or vid (frames, every `every`th, or
+    their `window`s), or JPEG files, directories and `.txt` lists."""
     if names[0] == "voc":
         return VOCDetection(
             root=os.path.join(dataset_root, "PascalVOC", "VOCdevkit"), splits=[(2007, "test")],
@@ -200,7 +217,7 @@ def get_dataset(names, dataset_root: str, every: float = 25):
                                  allow_empty=True, inference=True)
     if names[0] == "vid":
         return ImageNetVidDetection(root=os.path.join(dataset_root, "ImageNetVID", "ILSVRC"),
-                                    splits=[(2017, "val")], every=int(every), inference=True)
+                                    splits=[(2017, "val")], every=int(every), window=window, inference=True)
     if names[0] in _ITEMS:
         raise NotImplementedError(f"the {names[0]} dataset: see ROADMAP.md Queue 1 item {_ITEMS[names[0]]}")
     img_files = []
@@ -308,13 +325,18 @@ def evaluate(metrics, dataset, predictions):
     """Update the metrics from the normalised predictions, with each
     image's sample id (detect_yolo3.py:920-952).  Each image's size comes
     from its JPEG header (the JAX package decodes the image for it: the
-    same numbers)."""
+    same numbers).  For a window, detect_yolo3.py reads the size from the
+    first two axes of the stacked (k, H, W, 3) frames, (h, w) = (k, H): its
+    fault, mirrored so that both packages score alike (ROADMAP.md Queue 3)."""
     sample_ids = (
         dataset.get_sample_ids() if hasattr(dataset, "get_sample_ids") else dataset.sample_ids
     ) if hasattr(dataset, "sample_ids") else list(range(len(dataset)))
+    k = getattr(dataset, "window", (1, 1))[0]
     for idx in range(len(dataset)):
         img_path = dataset.sample_path(idx)
         h, w = native.image_size(img_path)
+        if k > 1:
+            h, w = k, h
         y = dataset.label_and_size(idx)[0]
         preds = np.asarray(predictions.get(img_path, np.zeros((0, 6))), dtype=np.float64).reshape(-1, 6)
         det_bboxes = preds[None, :, 2:6] * np.array([w, h, w, h])
@@ -330,7 +352,7 @@ def load_model_variables(path: str, cfg: YoloConfig):
     (Detector refolds a 3-channel stem for pad_stem)."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    template = variables_of(build_model(YoloConfig(num_classes=cfg.num_classes)))
+    template = variables_of(build_model(dataclasses.replace(cfg, pad_stem=False, s2d_stem=False, dtype=None)))
     return load_detector_params(path, template)
 
 
@@ -354,10 +376,24 @@ def detect_dataset(det: Detector, dataset, loader, max_do=-1):
     return boxes_out
 
 
+def dataset_config(args, num_classes: int) -> YoloConfig:
+    """The dataset path's model (detect_yolo3.py:270-301): YOLOv3 with the
+    standard stem, or YOLOv3T with the temporal flags under --window k > 1."""
+    k = int(args.window.split(",")[0])
+    if k <= 1:
+        return YoloConfig(num_classes=num_classes)
+    return YoloConfig(num_classes=num_classes, k=k, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
+                      block_conv_type=args.block_conv_type, corr_pos=args.corr_pos,
+                      corr_d=args.corr_d if args.corr_pos else None)
+
+
 def main_dataset(args):
     """detect_yolo3.py's main on a dataset: detect (or read the cache),
     write the cache, evaluate.  Returns the predictions."""
-    dataset = get_dataset(args.dataset.split(","), args.dataset_root, args.every)
+    window = tuple(([int(w) for w in args.window.split(",")] + [1])[:2])
+    if window[0] > 1 and args.dataset.split(",")[0] != "vid":
+        raise ValueError("--window k > 1 needs a video dataset (detect_yolo3.py:960-963): --dataset vid")
+    dataset = get_dataset(args.dataset.split(","), args.dataset_root, args.every, window)
     classes = dataset.classes or ["object"]
     save_dir = os.path.join(args.save_dir, args.save_prefix)
     os.makedirs(save_dir, exist_ok=True)
@@ -367,13 +403,15 @@ def main_dataset(args):
         if args.skip_existing:
             indices = _missing_indices(save_dir, dataset, args.max_do) or None
             logging.info("resuming detect: %d samples still to run", len(indices or ()))
+        s = args.data_shape
+        route = (dict(inference_transform=YOLO3VideoInferenceTransform(s, s)) if window[0] > 1
+                 else dict(native_decode=(s, s)))
         loader = DetectionLoader(
-            dataset, batch_size=args.batch_size, num_workers=args.num_workers,
-            native_decode=(args.data_shape, args.data_shape),
+            dataset, batch_size=args.batch_size, num_workers=args.num_workers, **route,
             sampler=None if indices is None else (lambda epoch: np.asarray(indices, np.int64)),
             num_samples=None if indices is None else len(indices),
         )
-        cfg = YoloConfig(num_classes=len(classes))  # the standard stem, as detect_yolo3.py's default
+        cfg = dataset_config(args, len(classes))  # the standard stem, as detect_yolo3.py's default
         variables = None
         if args.model_path:
             variables = load_model_variables(args.model_path, cfg)
@@ -386,8 +424,9 @@ def main_dataset(args):
         boxes = detect_dataset(det, dataset, loader, args.max_do)
         secs = time.perf_counter() - t0
         n = len(indices) if indices is not None else min(len(dataset), args.max_do if args.max_do >= 0 else len(dataset))
-        print(f"detected {n} images at {args.data_shape} px on {det.device} in {secs:.3f} s "
-              f"({n / max(secs, 1e-9):.1f} images/s from JPEG on disk)", flush=True)
+        name = f"windows of {window[0]} frames" if window[0] > 1 else "images"
+        print(f"detected {n} {name} at {args.data_shape} px on {det.device} in {secs:.3f} s "
+              f"({n / max(secs, 1e-9):.1f} {name.split()[0]}/s from JPEG on disk)", flush=True)
         save_predictions(save_dir, dataset, boxes, args.max_do, indices=indices)
         predictions = load_predictions(save_dir, dataset, args.max_do) if indices is not None else boxes
         if predictions is None:

@@ -6,8 +6,8 @@
 
 Protocol: reset() / update(preds, gts) / get() -> (names, values), fed with
 numpy arrays (post-NMS detections brought to the host).
-`VOCMApMetricTemporal` comes with temporal training, ROADMAP.md Queue 1
-item 16.
+`VOCMApMetricTemporal` (per-timestep outputs) comes with `YOLOv3Temporal`'s
+t_out heads, ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 

@@ -46,6 +46,9 @@ QUANT_MODES = ("fused", "fused_calib")
 # Pallas kernel (a VMEM limit of the TPU, layers.py:157-159); mirrored so the
 # outputs stay the JAX package's (lifting it: ROADMAP.md Queue 1 item 9d)
 K3_MAX_ROWS = 208
+# the cost volumes' dtype whatever the model's: `Corr` casts its window to
+# it, as the JAX package's Corr casts to float32 (layers.py:517)
+CORR_DTYPE = torch.float32
 # 1/127 in float32: XLA computes `amax / 127.0` as amax times this
 _INV_127 = (torch.tensor(1.0) / torch.tensor(127.0)).item()
 _DEFERRED = "is deferred, see ROADMAP.md Queue 1 item"
@@ -451,7 +454,10 @@ class Corr(nn.Module):
     keep='none' -> (B, n, H, W, D): the stacked cost volumes.
     `comp_mid` also compares the middle frame with itself.  Each frame goes
     to `correlation` as a slice of the window (its batch stride is the
-    window's), so the CUDA kernel reads it in place."""
+    window's), so the CUDA kernel reads it in place.  In train mode the
+    gradient reaches each frame through its own channels and through the
+    comparisons it takes part in (the middle frame through all of them),
+    and returns to the window's dtype through the cast's backward."""
 
     def __init__(
         self, d: int, t: int, kernel_size: int = 1, stride: int = 1, keep: str = "all",
@@ -472,7 +478,7 @@ class Corr(nn.Module):
         if t != self.t:
             raise ValueError(f"Corr over t={self.t} frames got a window of {t}")
         mid = t // 2
-        x32 = x.float()
+        x32 = x.to(CORR_DTYPE)
         corrs = [
             correlation(
                 x32[:, i], x32[:, mid], self.d, kernel_size=self.kernel_size,

@@ -5,17 +5,23 @@ videoyolo_tpu/models/yolo3_temporal.py:52-375).
 frame, then the k frames join early (on the routes) or late (on the tips) by
 max, mean or a fold of time into channels, and a correlation block (`Corr`,
 cost volumes of frames 0 and 2 against the middle one) runs early or late.
-Eval mode only; it returns (boxes (B, N, 4), scores (B, N, C)) as `YOLOv3`
-does.
+Eval mode returns (boxes (B, N, 4), scores (B, N, C)) as `YOLOv3` does;
+train mode the raw-head dict of `YOLOv3`'s train mode
+(yolo3_temporal.py:241-256 `_finish`), with a leading time axis where no
+join collapses the window (per-frame heads).  In train mode BatchNorm takes
+its statistics over the B*k frames folded into the batch, as the JAX
+package's `time_distributed` does, and the cost volumes are differentiated
+through `ops/correlation.CostVolume` (the adjoint kernel on the card).
 
 The temporal tensors are NHWC, 5-D per frame and 4-D once joined, as in the
 JAX package; each conv cell sees an NCHW view of them (`channels_last`
 memory).  The cells cast their input to the model's dtype, as flax's convs
 do: the correlation routes are float32 and meet the bf16 cells there.
 
-Not ported yet (they raise NotImplementedError naming the slice): the
-conv-RNN (`rnn_pos`), 3D and 2+1D blocks, custom backbones, the streaming
-split (`feed`), int8 cells, and `YOLOv3Temporal`.
+Not ported yet (they raise NotImplementedError naming the slice and the
+ROADMAP.md item): the conv-RNN (`rnn_pos`, item 5), 3D and 2+1D blocks
+(item 6), custom backbones (item 7), the streaming split (`feed`, item 11),
+int8 cells (item 9a), and `YOLOv3Temporal` (item 8).
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from .yolo3 import FPN_CHANNELS, YOLOOutput
 
 __all__ = ["YOLOv3T"]
 
-_LATER = "comes with slice 5 (the rest of the temporal family), see ROADMAP.md"
+_LATER = "comes with slice 5 (the rest of the temporal family), see ROADMAP.md Queue 1 item"
 
 
 def _fold_time_into_channels(x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +63,7 @@ class _TCell(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if conv_type != "2":
-            raise NotImplementedError(f"3D and 2+1D cells: {_LATER}")
+            raise NotImplementedError(f"3D and 2+1D cells: {_LATER} 6")
         self.dtype = dtype or torch.float32
         self.ConvBNLeaky_0 = ConvBNLeaky(in_channels, features, kernel=kernel, dtype=dtype)
 
@@ -89,12 +95,16 @@ class YOLODetectionBlockT(nn.Module):
 
 class YOLOOutputConvT(YOLOOutput):
     """`YOLOOutput` on an NHWC tip (yolo3_temporal.py:140-163): a 5-D tip is
-    decoded per frame, with outputs (B, T, N, ...)."""
+    decoded per frame, with outputs (B, T, N, ...) (in train mode, each
+    value of the raw-head dict)."""
 
     def forward(self, tip: torch.Tensor):
         if tip.dim() == 5:
             b, t = tip.shape[:2]
-            return tuple(o.reshape((b, t) + o.shape[1:]) for o in self(tip.flatten(0, 1)))
+            out = self(tip.flatten(0, 1))
+            if isinstance(out, dict):
+                return {k: v.reshape((b, t) + v.shape[1:]) for k, v in out.items()}
+            return tuple(o.reshape((b, t) + o.shape[1:]) for o in out)
         return super().forward(tip.to(self.prediction.dtype).permute(0, 3, 1, 2))
 
 
@@ -147,13 +157,13 @@ class YOLOv3T(nn.Module):
         if quant:
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
         if rnn_pos is not None:
-            raise NotImplementedError(f"the conv-RNN (rnn_pos): {_LATER}")
+            raise NotImplementedError(f"the conv-RNN (rnn_pos): {_LATER} 5")
         if block_conv_type != "2":
-            raise NotImplementedError(f"3D and 2+1D blocks: {_LATER}")
+            raise NotImplementedError(f"3D and 2+1D blocks: {_LATER} 6")
         if backbone is not None:
-            raise NotImplementedError(f"custom and two-stream backbones: {_LATER}")
+            raise NotImplementedError(f"custom and two-stream backbones: {_LATER} 7")
         if feed is not None:
-            raise NotImplementedError(f"the streaming split (feed): {_LATER}")
+            raise NotImplementedError(f"the streaming split (feed): {_LATER} 11")
         self.k = k or 1
         self.k_join_type = k_join_type
         self.agnostic = agnostic
@@ -212,11 +222,6 @@ class YOLOv3T(nn.Module):
         return self.pool(x)
 
     def forward(self, x: torch.Tensor):
-        if self.training:
-            raise NotImplementedError(
-                "training YOLOv3T is the temporal-training slice, deferred, see ROADMAP.md Queue 1 "
-                "item 16; call .eval()"
-            )
         routes = self.frame_routes(x)
         if routes[0].dim() == 5 and self.early_join:
             routes = [self._join(r) for r in routes]
@@ -237,7 +242,8 @@ class YOLOv3T(nn.Module):
 
     def head(self, routes):
         """Routes after any early join or correlation -> the detection
-        blocks, late join or correlation, outputs: (boxes, scores)."""
+        blocks, late join or correlation, outputs: (boxes, scores), or in
+        train mode the raw-head dict, levels deep -> shallow."""
         level_outs = []
         y = routes[-1]
         for i in range(3):
@@ -254,6 +260,8 @@ class YOLOv3T(nn.Module):
                 # here, as the next conv would
                 y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
 
+        if self.training:
+            return {key: torch.cat([o[key] for o in level_outs], dim=-2) for key in level_outs[0]}
         boxes = torch.cat([o[0] for o in level_outs], dim=-2)
         scores = torch.cat([o[2 if self.agnostic else 1] for o in level_outs], dim=-2)
         return boxes, scores

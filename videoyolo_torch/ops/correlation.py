@@ -8,18 +8,22 @@ size `kernel_size^2 * C`; f2 is zero outside the image.
 `correlation_plain` is the plain PyTorch version, in the JAX package's XLA
 order: pad, one shifted product per displacement summed over C, stack, the
 k x k patch sum, divide, subsample.  `correlation` dispatches as the JAX
-package does: kernel_size=1, stride1=1, multiply on a CUDA tensor goes to the
-CUDA kernel (`correlation_kernel.cost_volume`); a CPU tensor, and every other
-configuration on either device, to the plain version.
+package does: kernel_size=1, stride1=1, multiply on CUDA tensors goes to
+`CostVolume`, whose forward is the CUDA kernel
+(`correlation_kernel.cost_volume`) and whose backward is the adjoint kernel
+(`correlation_kernel.cost_volume_backward`), whether a gradient is taken or
+not; a CPU tensor, and every other configuration on either device, to the
+plain version, which autograd differentiates.  A kernel that fails to build
+or launch raises: nothing on the card falls back to the plain version.
 """
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
-from .correlation_kernel import cost_volume
+from .correlation_kernel import cost_volume, cost_volume_backward, cost_volume_backward_plain
 
-__all__ = ["correlation", "correlation_plain", "num_corr_channels"]
+__all__ = ["CostVolume", "correlation", "correlation_plain", "num_corr_channels"]
 
 
 def num_corr_channels(max_displacement: int, stride2: int = 1) -> int:
@@ -68,6 +72,31 @@ def correlation_plain(
     return out
 
 
+class CostVolume(torch.autograd.Function):
+    """The cost volume of kernel_size=1, stride1=1, multiply with its
+    adjoint: `CostVolume.apply(f1, f2, max_displacement, stride2)`.  On CUDA
+    tensors the forward is K2 and the backward the adjoint kernel; on CPU
+    tensors their plain versions (`correlation_plain`,
+    `cost_volume_backward_plain`).  f1 and f2 are saved as given (frame
+    slices of a window stay views); the backward takes the output's gradient
+    contiguous and returns dense gradients of f1 and f2."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement: int, stride2: int):
+        ctx.save_for_backward(f1, f2)
+        ctx.corr = (max_displacement, stride2)
+        if f1.device.type == "cuda":
+            return cost_volume(f1, f2, max_displacement, stride2)
+        return correlation_plain(f1, f2, max_displacement, 1, 1, stride2)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        adjoint = cost_volume_backward if g.device.type == "cuda" else cost_volume_backward_plain
+        gf1, gf2 = adjoint(g.contiguous(), f1, f2, *ctx.corr)
+        return gf1, gf2, None, None
+
+
 def correlation(
     f1: torch.Tensor,
     f2: torch.Tensor,
@@ -77,8 +106,9 @@ def correlation(
     stride2: int = 2,
     is_multiply: bool = True,
 ) -> torch.Tensor:
-    """`correlation_plain`'s function; the CUDA kernel computes it for
-    kernel_size=1, stride1=1, multiply on CUDA tensors (float32)."""
+    """`correlation_plain`'s function; for kernel_size=1, stride1=1,
+    multiply on CUDA tensors (float32) the kernels of `CostVolume` compute it
+    and its gradient."""
     if kernel_size == 1 and stride1 == 1 and is_multiply and f1.device.type == "cuda":
-        return cost_volume(f1, f2, max_displacement, stride2)
+        return CostVolume.apply(f1, f2, max_displacement, stride2)
     return correlation_plain(f1, f2, max_displacement, kernel_size, stride1, stride2, is_multiply)

@@ -1,11 +1,17 @@
-"""ctypes wrapper of the cost-volume CUDA kernel (`csrc/correlation.cu`).
+"""ctypes wrappers of the cost-volume CUDA kernels (`csrc/correlation.cu`).
 
-The kernel ports the TPU kernel `videoyolo_tpu/ops/pallas_correlation.py:
+`cost_volume` ports the TPU kernel `videoyolo_tpu/ops/pallas_correlation.py:
 correlation_pallas`: the correlation of kernel_size=1, stride1=1, multiply.
 Its plain PyTorch version is `ops/correlation.py:correlation_plain`, to which
 it agrees within float32 summation order (the same products, summed over C in
 another order).  `plan` chooses each launch's tile, register tile and
 displacement group from the shape; the C entry point checks it.
+
+`cost_volume_backward` is its adjoint, the gradients of f1 and f2 given the
+output's, in one launch.  The TPU kernel has none: the JAX package
+differentiates the XLA form (`videoyolo_tpu/ops/correlation.py:64-80`).  Its
+plain version, `cost_volume_backward_plain`, writes the adjoint out in torch
+ops, one shifted product per displacement.
 
 The shared library is built by `ops/cuda_build.py` on first use and bound
 with ctypes.  Importing this module needs neither nvcc nor a GPU.
@@ -17,6 +23,7 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.nn import functional as F
 
 from . import cuda_build
 
@@ -41,6 +48,7 @@ CANDIDATES = ((2, 3, 1, 4 * SMS), (1, 3, 2, MIN_CTAS), (2, 1, 1, 4 * SMS), (1, 1
               (1, 1, 1, MIN_CTAS))
 MAX_BATCH = 65535  # the grid's z extent
 MAX_GROUPS = 65535  # the grid's y extent
+BACKWARD_THREADS = 256  # the adjoint's threads a CTA, one an output element
 
 
 class Plan(NamedTuple):
@@ -62,6 +70,11 @@ class Plan(NamedTuple):
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _steps(max_displacement: int, stride2: int) -> int:
+    """Displacements along each axis of the grid."""
+    return 2 * (max_displacement // stride2) + 1
 
 
 def _balanced(steps: int, most: int) -> int:
@@ -114,7 +127,7 @@ def plan(b: int, h: int, w: int, c: int, max_displacement: int, stride2: int, al
     hide the staging's latency.  So the main path takes R=2, gy=3, one warp
     at 52x52 and 26x26 (4,704 and 1,536 CTAs) and R=1, gy=3, two warps at
     13x13 (384 CTAs)."""
-    steps = 2 * (max_displacement // stride2) + 1
+    steps = _steps(max_displacement, stride2)
     widest = next(g for g in GROUP_X if g >= _balanced(steps, GROUP_X[-1]))
     for gx in reversed([g for g in GROUP_X if g <= widest]):
         fits = [
@@ -146,22 +159,28 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
+    bwd = lib.cost_volume_backward_launch
+    bwd.argtypes = [
+        *[ctypes.c_void_p] * 5,  # g, f1, f2, gf1, gf2
+        ctypes.c_longlong, ctypes.c_longlong,  # batch strides of f1, f2
+        *[ctypes.c_int] * 6,  # B, H, W, C, max_displacement, stride2
+        ctypes.c_longlong,  # CTAs along x
+        ctypes.c_void_p,  # stream
+    ]
+    bwd.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, t: torch.Tensor):
+def _check(name: str, t: torch.Tensor, fn: str = "cost_volume", plain: str = "ops/correlation.py:correlation_plain"):
     if t.device.type != "cuda":
-        raise ValueError(
-            f"cost_volume runs on CUDA tensors only (got {name} on {t.device}); "
-            "ops/correlation.py:correlation_plain is its CPU version"
-        )
+        raise ValueError(f"{fn} runs on CUDA tensors only (got {name} on {t.device}); {plain} is its CPU version")
     if t.dtype != torch.float32 or t.dim() != 4:
-        raise ValueError(f"cost_volume takes (B, H, W, C) float32, got {name} {tuple(t.shape)} {t.dtype}")
+        raise ValueError(f"{fn} takes (B, H, W, C) float32, got {name} {tuple(t.shape)} {t.dtype}")
     _, h, w, c = t.shape
     # dense over (H, W, C); any batch stride (a frame slice of a window)
     for size, stride, want in zip((h, w, c), t.stride()[1:], (w * c, c, 1)):
         if size > 1 and stride != want:
-            raise ValueError(f"cost_volume takes {name} dense over (H, W, C), got strides {t.stride()}")
+            raise ValueError(f"{fn} takes {name} dense over (H, W, C), got strides {t.stride()}")
 
 
 def aligned(*ts: torch.Tensor) -> bool:
@@ -196,8 +215,7 @@ def cost_volume(
     if pl.grid[1] > MAX_GROUPS:
         raise ValueError(f"cost_volume: {pl.grid[1]} displacement groups for d={max_displacement}, "
                          f"stride2={stride2}, more than a grid holds")
-    steps = 2 * (max_displacement // stride2) + 1
-    out = torch.empty((b, h, w, steps * steps), dtype=torch.float32, device=f1.device)
+    out = torch.empty((b, h, w, _steps(max_displacement, stride2) ** 2), dtype=torch.float32, device=f1.device)
     fn = _library().cost_volume_launch
     with torch.cuda.device(f1.device):
         err = fn(
@@ -213,3 +231,74 @@ def cost_volume(
 
 
 cost_volume.launches = 0
+
+
+def cost_volume_backward_plain(
+    g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor, max_displacement: int, stride2: int = 1
+):
+    """The adjoint of `cost_volume` in torch ops (not autograd): given g
+    (B, H, W, D), the gradients (gf1, gf2) of f1, f2 (B, H, W, C),
+
+      gf1[b, y, x, c] = sum_d g[b, y, x, d] * f2[b, y+oy, x+ox, c] / C
+      gf2[b, y, x, c] = sum_d g[b, y-oy, x-ox, d] * f1[b, y-oy, x-ox, c] / C
+
+    with (oy, ox) displacement d's offset and every term outside the image
+    zero.  One shifted product per displacement, summed in the order of d,
+    then divided by C, as the kernel sums."""
+    _, h, w, c = f1.shape
+    s, pad = max_displacement // stride2, max_displacement
+    f2p = F.pad(f2, (0, 0, pad, pad, pad, pad))
+    gf1 = torch.zeros_like(f1, memory_format=torch.contiguous_format)
+    gf2p = torch.zeros_like(f2p)
+    steps = _steps(max_displacement, stride2)
+    for iy in range(steps):
+        for ix in range(steps):
+            oy, ox = (iy - s) * stride2, (ix - s) * stride2
+            gd = g[..., iy * steps + ix, None]
+            gf1 += gd * f2p[:, pad + oy : pad + oy + h, pad + ox : pad + ox + w]
+            gf2p[:, pad + oy : pad + oy + h, pad + ox : pad + ox + w] += gd * f1
+    return gf1 / c, gf2p[:, pad : pad + h, pad : pad + w].contiguous() / c
+
+
+def cost_volume_backward(
+    g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor, max_displacement: int, stride2: int = 1
+):
+    """The adjoint of `cost_volume` on the card: (gf1, gf2), each (B, H, W,
+    C) float32, contiguous, as `cost_volume_backward_plain` computes them.
+
+    g: (B, H, W, D) float32, contiguous (autograd may hand a strided one:
+    the caller makes it contiguous); f1, f2: `cost_volume`'s inputs, read
+    with their batch strides.  One launch writes both gradients, one thread
+    an element; launches on the current stream and does not synchronise;
+    `cost_volume_backward.launches` counts launches."""
+    plain = "ops/correlation_kernel.py:cost_volume_backward_plain"
+    _check("f1", f1, "cost_volume_backward", plain)
+    _check("f2", f2, "cost_volume_backward", plain)
+    if f1.shape != f2.shape or f1.device != f2.device:
+        raise ValueError(f"cost_volume_backward takes f1, f2 of one shape and device, got "
+                         f"{tuple(f1.shape)} on {f1.device}, {tuple(f2.shape)} on {f2.device}")
+    b, h, w, c = f1.shape
+    if max_displacement < 0 or stride2 < 1:
+        raise ValueError(f"cost_volume_backward takes d >= 0 and stride2 >= 1, got {max_displacement}, {stride2}")
+    d = _steps(max_displacement, stride2) ** 2
+    if g.device != f1.device or g.dtype != torch.float32 or tuple(g.shape) != (b, h, w, d) or not g.is_contiguous():
+        raise ValueError(f"cost_volume_backward takes g ({b}, {h}, {w}, {d}) float32, contiguous, on "
+                         f"{f1.device}; got {tuple(g.shape)} {g.dtype} on {g.device}, strides {g.stride()}")
+    if min(b, h, w, c) < 1:
+        raise ValueError(f"cost_volume_backward takes B, H, W, C >= 1, got {tuple(f1.shape)}")
+    gf1 = torch.empty((b, h, w, c), dtype=torch.float32, device=f1.device)
+    gf2 = torch.empty_like(gf1)
+    blocks = _ceil_div(b * h * w * c, BACKWARD_THREADS)
+    fn = _library().cost_volume_backward_launch
+    with torch.cuda.device(f1.device):
+        err = fn(
+            g.data_ptr(), f1.data_ptr(), f2.data_ptr(), gf1.data_ptr(), gf2.data_ptr(), f1.stride(0), f2.stride(0),
+            b, h, w, c, max_displacement, stride2, blocks, torch.cuda.current_stream(f1.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"cost_volume_backward launch failed with CUDA error {err} ({blocks} x 2 CTAs)")
+    cost_volume_backward.launches += 1
+    return gf1, gf2
+
+
+cost_volume_backward.launches = 0

@@ -1,12 +1,15 @@
 """Training-correctness evidence: overfit a tiny synthetic set, the twin of
-`tools/overfit_check.py --configs yolov3`.
+`tools/overfit_check.py --configs yolov3` and `--configs k3`.
 
-    python -m videoyolo_torch.overfit --out record.json [--device cpu] \
+    python -m videoyolo_torch.overfit --out record.json [--config yolov3|k3] [--device cpu] \
         [--dtype bf16|f32] [--steps 400] [--batch_size 8] [--data_shape 160] \
         [--seed 0] [--save_prefix PREFIX]
 
-YOLOv3(num_classes=3, bf16) from the port's seeded init trains on 8 images
-(one solid color patch on noise, one box each, `synth_set`) through the
+`yolov3`: YOLOv3(num_classes=3, bf16) from the port's seeded init trains
+on 8 images (one solid color patch on noise, one box each, `synth_set`).
+`k3`: YOLOv3T(num_classes=3, k=3, the late max join, bf16) trains on the
+same kind of set drawn from seed + 1 (the JAX tool's seed 1), each image
+repeated into a static 3-frame window, one loss a window.  Either runs the
 whole train step: the forward, the targets on the device, the loss, the
 backward pass, SGD and the BN statistics, with lr_schedule("cosine", 5e-4,
 one epoch of `steps` steps, warmup 0.1 epoch).  Then the eval step (K1's
@@ -35,12 +38,21 @@ import torch
 from .device import resolve_device
 from .models.layers import init_weights
 from .models.yolo3 import YOLOv3
+from .models.yolo3_temporal import YOLOv3T
 from .train.checkpoint import save_params, variables_of
 from .train.lr import lr_schedule
 from .train.step import create_train_state, make_eval_step, make_train_step
 
 NUM_CLASSES = 3
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# each config's model and the offset of its data seed (tools/overfit_check.py:
+# cfg_yolov3 draws synth_set from seed 0, cfg_k3 from seed 1)
+CONFIGS = {
+    "yolov3": (lambda dtype: YOLOv3(num_classes=NUM_CLASSES, dtype=dtype), 0),
+    "k3": (lambda dtype: YOLOv3T(num_classes=NUM_CLASSES, k=3, k_join_type="max", k_join_pos="late", dtype=dtype),
+           1),
+}
+WINDOW = 3  # the k3 config's frames a window
 # distinguishable solid patch colors (up to 4 classes)
 _COLORS = [[0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9], [0.9, 0.9, 0.1]]
 
@@ -76,6 +88,7 @@ def iou(a, b) -> float:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", required=True, help="path of the JSON record")
+    p.add_argument("--config", choices=sorted(CONFIGS), default="yolov3")
     p.add_argument("--device", default=None, help="default: cuda (raises without a GPU)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--steps", type=int, default=400)
@@ -90,8 +103,11 @@ def run(args):
     """Train and evaluate as the module docstring says; returns (the record,
     the trained model)."""
     dev = resolve_device(args.device)
-    images, gtb, gti = synth_set(NUM_CLASSES, args.seed, args.batch_size, args.data_shape)
-    model = YOLOv3(num_classes=NUM_CLASSES, dtype=DTYPES[args.dtype])
+    build, data_seed = CONFIGS[args.config]
+    images, gtb, gti = synth_set(NUM_CLASSES, args.seed + data_seed, args.batch_size, args.data_shape)
+    if args.config == "k3":
+        images = np.repeat(images[:, None], WINDOW, axis=1)  # a static clip a sample
+    model = build(DTYPES[args.dtype])
     init_weights(model, torch.Generator().manual_seed(args.seed))
     model.to(dev, memory_format=torch.channels_last)
     lr_fn = lr_schedule("cosine", 5e-4, steps_per_epoch=args.steps, epochs=1, warmup_epochs=0.1)
@@ -105,14 +121,14 @@ def run(args):
         metrics = step(state, batch)
         if i % 50 == 0 or i == args.steps - 1:
             losses.append(float(metrics["total"]))
-            print(f"[yolov3] step {i}: loss {losses[-1]:.2f}", flush=True)
+            print(f"[{args.config}] step {i}: loss {losses[-1]:.2f}", flush=True)
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     ids, scores, boxes = (t.cpu().numpy() for t in make_eval_step(model)(batch["image"]))
     ious = [iou(boxes[i, 0], gtb[i, 0]) for i in range(args.batch_size)]
     cls_ok = [int(ids[i, 0, 0]) == i % NUM_CLASSES for i in range(args.batch_size)]
     rec = {
-        "config": "yolov3",
+        "config": args.config,
         "loss_first": losses[0],
         "loss_last": losses[-1],
         "mean_top1_iou": float(np.mean(ious)),

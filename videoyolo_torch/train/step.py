@@ -120,8 +120,11 @@ def make_train_step(
     them waits for the step).
 
     batch: dict with
-      image      (B, H, W, 3)  normalised, or uint8 pixels with `color`
-      color      (B, 3, 4)     optional per-image color maps (ops/color.py)
+      image      (B, H, W, 3)  normalised, or uint8 pixels with `color`;
+                 or (B, k, H, W, 3) windows for YOLOv3T, one label and one
+                 colour map a window (train/step.py:171-226)
+      color      (B, 3, 4)     optional per-image (per-window) color maps
+                               (ops/color.py)
       gt_boxes   (B, M, 4)     corner pixels, -1 padded
       gt_ids     (B, M, 1)     or (B, M, C) multi-hot
       gt_mix     (B, M, 1)     read with `mixup`
@@ -131,8 +134,8 @@ def make_train_step(
     through them, and updates once with the mean of their gradients.
 
     The JAX step's other inputs come with the slices that need them: a
-    head-only model's `features` and the per-timestep heads of t_out models
-    (ROADMAP.md)."""
+    head-only model's `features` (ROADMAP.md Queue 1 item 13) and the
+    per-timestep heads and labels of t_out models (item 8), which raise."""
 
     def loss_fn(batch):
         x = batch["image"]
@@ -140,6 +143,11 @@ def make_train_step(
             x = apply_color(x, batch["color"])
         hw = input_hw or tuple(x.shape[-3:-1])
         out = model(x)
+        if out["bbox"].dim() != 3:
+            raise NotImplementedError(
+                "per-timestep heads (B, T, N, ...) and their per-timestep loss (t_out) come with "
+                "YOLOv3Temporal, see ROADMAP.md Queue 1 item 8"
+            )
         gt_boxes, gt_ids = batch["gt_boxes"], batch["gt_ids"]
         gt_mix = batch.get("gt_mix") if mixup else None
         tg = prefetch_targets(gt_boxes, gt_ids, gt_mix, input_hw=hw, num_classes=num_classes)

@@ -1,5 +1,5 @@
 """Train entry point (the twin of train_yolov3.py) on VOC, COCO,
-ImageNet-DET and ImageNet-VID frames from disk.
+ImageNet-DET and ImageNet-VID frames or windows from disk.
 
     python -m videoyolo_torch.train_yolov3 --dataset voc|coco|det|vid --dataset_root datasets \
         --batch_size 64 --epochs 200 [--dtype bf16|f32] [--no_random_shape] \
@@ -7,6 +7,8 @@ ImageNet-DET and ImageNet-VID frames from disk.
         [--every 25] [--syncbn] \
         [--nopretrained_cnn | --pretrained_base_path darknet53.params] \
         [--resume P | --start_epoch -1] [--device cpu] ...
+    python -m videoyolo_torch.train_yolov3 --dataset vid --window 3,1 --k_join_pos late \
+        --corr_pos early --corr_d 4 --nopretrained_cnn --batch_size 16 ...   # YOLOv3T on windows
 
 YOLOv3 / Darknet-53 on the dataset's train split (VOC 2007 + 2012
 trainval; COCO's instances_train2017; DET train, images without boxes kept
@@ -36,11 +38,24 @@ ImageNet Darknet-53 `.params` and raises when none is found;
 accepted in one process, where BN's statistics already span the whole
 batch, as the JAX CLI keeps it.
 
+`--window k[,step]` with k > 1 (VID only, as the JAX CLI asserts) trains
+YOLOv3T on windows of k frames, every step-th, around each train frame,
+labelled by the key frame: the temporal flags `--k_join_type`,
+`--k_join_pos`, `--block_conv_type` ('2'), `--corr_pos` and `--corr_d` (0:
+the model's default) are the JAX CLI's.  Each window's plan is drawn once
+from the key frame and applied to its k frames in the per-sample route
+(one colour map a window); validation takes the windows through the JAX
+CLI's Python route (each frame decoded, resized with interp 9 and
+normalised in the loader's workers) and VOC mAP.  A train step runs the
+cost volumes (K2) forward and their adjoint kernel backward on the card.
+Like the JAX CLI, `--pretrained_cnn` does not load into YOLOv3T (it has no
+`backbone` scope): pass `--nopretrained_cnn` or `--resume`.
+
 The log line `Speed: %.3f samples/sec` is the JAX CLI's.  The run is on the
 card unless `--device cpu` is given.  Paths this slice does not port raise
 NotImplementedError naming their ROADMAP.md item: the combined and
-YouTube-BB datasets, `--window`, `--features_dir`, `--trained_on` and more
-than one process.
+YouTube-BB datasets, `--mult_out`, 3D and 2+1D blocks, `--features_dir`,
+`--trained_on` and more than one process.
 """
 from __future__ import annotations
 
@@ -60,7 +75,14 @@ from .data.loader import DetectionLoader
 from .data.mscoco import COCODetection
 from .data.pascalvoc import VOCDetection
 from .data.prefetch import device_prefetch
-from .data.transforms import MixupDetection, YOLO3DefaultInferenceTransform, YOLO3DefaultTrainTransform
+from .data.transforms import (
+    MixupDetection,
+    YOLO3DefaultInferenceTransform,
+    YOLO3DefaultTrainTransform,
+    YOLO3VideoInferenceTransform,
+    YOLO3VideoTrainTransform,
+    check_mixable,
+)
 from .device import resolve_device
 from .metrics.mscoco import COCODetectionMetric
 from .metrics.pascalvoc import VOCMApMetric
@@ -135,8 +157,14 @@ def parse_args(argv=None):
     p.add_argument("--every", type=float, default=25, help="vid: every this many frames")
     p.add_argument("--syncbn", action="store_true",
                    help="accepted in one process: BN's statistics span the whole batch")
+    p.add_argument("--window", type=_csv, default=["1", "1"], help="temporal window size and stride (vid)")
+    p.add_argument("--k_join_type", default=None, help="way to fuse k: max, mean, cat")
+    p.add_argument("--k_join_pos", default=None, help="position of the k fuse: early or late")
+    p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2 (3 and 21: item 6)")
+    p.add_argument("--corr_pos", default=None, help="position of the correlation features: early or late")
+    p.add_argument("--corr_d", type=int, default=0, help="the d of the correlation; 0: the model's default")
     # paths this slice does not port
-    p.add_argument("--window", default="1,1")
+    p.add_argument("--mult_out", action="store_true")
     p.add_argument("--features_dir", default=None)
     p.add_argument("--trained_on", default="")
     return p.parse_args(argv)
@@ -152,14 +180,23 @@ def check_ported(args):
             raise NotImplementedError(f"the {name} dataset: see ROADMAP.md Queue 1 item {item}")
     if len(args.dataset) > 1 or len(args.dataset_val) > 1:
         raise NotImplementedError("combined datasets (the class tree): see ROADMAP.md Queue 1 item 2c")
-    if int(args.window.split(",")[0]) > 1:
-        raise NotImplementedError("--window (temporal training): see ROADMAP.md Queue 1 item 16")
+    if window(args)[0] > 1 and args.dataset[0] not in ("vid", "yt"):
+        raise ValueError("window > 1 requires a video dataset (train_yolov3.py:775-776)")
+    if args.mult_out:
+        raise NotImplementedError("--mult_out (per-frame heads, t_out): see ROADMAP.md Queue 1 item 8")
+    if args.block_conv_type != "2":
+        raise NotImplementedError("3D and 2+1D blocks (--block_conv_type): see ROADMAP.md Queue 1 item 6")
     if args.features_dir:
         raise NotImplementedError("--features_dir (the head-only model): see ROADMAP.md Queue 1 item 13")
     if args.trained_on:
         raise NotImplementedError("--trained_on (class surgery): see ROADMAP.md Queue 1 item 12")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("more than one process (DDP with SyncBatchNorm): see ROADMAP.md Queue 1 item 10")
+
+
+def window(args):
+    """--window as (k, step)."""
+    return tuple(([int(w) for w in args.window] + [1])[:2])
 
 
 def get_dataset(args, name: str, val: bool = False):
@@ -180,7 +217,7 @@ def get_dataset(args, name: str, val: bool = False):
                                  allow_empty=args.allow_empty or val, inference=val)
     return ImageNetVidDetection(root=os.path.join(root, "ImageNetVID", "ILSVRC"),
                                 splits=[(2017, "val" if val else "train")], allow_empty=args.allow_empty or val,
-                                every=int(args.every), inference=val)
+                                every=int(args.every), window=window(args), inference=val)
 
 
 def get_val_metric(args, val_dataset, save_prefix: str):
@@ -195,19 +232,25 @@ def get_val_metric(args, val_dataset, save_prefix: str):
 
 def get_dataloaders(args, train_dataset, val_dataset, rs: np.random.RandomState, rnd: random.Random):
     """The train loader (random shape buckets unless --no_random_shape) and
-    the validation loader (the core's inference batch, labelled)."""
+    the validation loader (the core's inference batch, labelled; windows
+    through the video inference transform)."""
     num_workers = args.num_workers if args.num_workers > 0 else (os.cpu_count() or 4)
     sizes = [args.data_shape] if args.no_random_shape else [320 + 32 * i for i in range(10)]
+    k, color = window(args)[0], not args.host_color
+    if k > 1:
+        factory = lambda w, h: YOLO3VideoTrainTransform(k, w, h, rs, rnd, device_color=color)  # noqa: E731
+    else:
+        factory = lambda w, h: YOLO3DefaultTrainTransform(w, h, rs, rnd, device_color=color)  # noqa: E731
     train_loader = DetectionLoader(
         train_dataset, batch_size=args.batch_size, shuffle=True, last_batch="discard",
         max_boxes=args.max_boxes, num_workers=num_workers, seed=args.seed,
-        transform_factory=lambda w, h: YOLO3DefaultTrainTransform(w, h, rs, rnd, device_color=not args.host_color),
-        shape_sizes=sizes, shape_interval=10,
+        transform_factory=factory, shape_sizes=sizes, shape_interval=10,
     )
     s = args.data_shape
+    route = (dict(inference_transform=YOLO3VideoInferenceTransform(s, s)) if k > 1
+             else dict(native_decode=(s, s), label_transform=YOLO3DefaultInferenceTransform(s, s)))
     val_loader = DetectionLoader(
-        val_dataset, batch_size=args.batch_size, max_boxes=args.max_boxes, num_workers=num_workers,
-        native_decode=(s, s), label_transform=YOLO3DefaultInferenceTransform(s, s),
+        val_dataset, batch_size=args.batch_size, max_boxes=args.max_boxes, num_workers=num_workers, **route,
     )
     return train_loader, val_loader
 
@@ -253,6 +296,11 @@ def _load_pretrained_base(args, model):
             f"{args.dataset_root}/weights, or pass --nopretrained_cnn to train the base from scratch."
         )
     variables = variables_of(model)
+    if "backbone" not in variables["params"]:
+        raise RuntimeError(
+            "--pretrained_cnn is not wired for models without a 'backbone' scope (YOLOv3T builds its stages "
+            "inline); pass --nopretrained_cnn or warm-start via --resume."
+        )
     if args.s2d_stem:
         # load into a standard Darknet53 tree, refold its stem, install it
         base = load_gluon_darknet53(variables_of(Darknet53()), path, prefix="")
@@ -337,7 +385,7 @@ def train(args, model, train_dataset, train_loader, val_loader, val_dataset, sav
                     btic = time.time()
                 # a step's time on the host's clock ends at its loss read
                 # when it logs, else when it is enqueued
-                steps.append((int(batch["image"].shape[1]), time.time() - t0, wait))
+                steps.append((int(batch["image"].shape[-2]), time.time() - t0, wait))
                 if args.max_epoch_time > 0 and (time.time() - tic) / 60 > args.max_epoch_time:
                     logging.info("Epoch %d cut off at max_epoch_time", epoch)
                     batches.close()
@@ -372,8 +420,10 @@ def main(argv=None):
     check_ported(args)
     device = resolve_device(args.device)
     rs, rnd = np.random.RandomState(args.seed), random.Random(args.seed)
+    k = window(args)[0]
     train_dataset = get_dataset(args, args.dataset[0])
     if args.mixup:
+        check_mixable(k)
         train_dataset = MixupDetection(train_dataset, rs)
     val_dataset = get_dataset(args, (args.dataset_val or args.dataset)[0], val=True)
 
@@ -385,8 +435,11 @@ def main(argv=None):
             raise RuntimeError(f"experiment dir {exp_dir} has checkpoints; pass --resume or a new --save_prefix")
     os.makedirs(exp_dir, exist_ok=True)
 
+    temporal = {} if k <= 1 else dict(
+        k=k, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type,
+        corr_pos=args.corr_pos, corr_d=args.corr_d or None)
     model = yolo3_darknet53(list(train_dataset.classes), dtype=DTYPES[args.dtype], remat=args.remat,
-                            s2d_stem=args.s2d_stem)
+                            s2d_stem=args.s2d_stem, **temporal)
     init_weights(model, torch.Generator().manual_seed(args.seed))
     restored, start_epoch = resume_params(args.resume, args.start_epoch, exp_dir, variables_of(model))
     if restored is not None:
