@@ -124,10 +124,12 @@ Phases; any failure exits non-zero:
      on each dataset (80, 200 and 30 classes, 1,024 JPEGs each).
  12. slice 7, VID windows and YOLOv3T training: K2's adjoint (the backward
      kernel of videoyolo_torch/csrc/correlation.cu, built in phase 2 with
-     no ptxas spill) against ops/correlation_kernel.py's plain adjoint at
-     the train step's three levels at B=16 and B=1 and on edge cases, every
-     pair two frames of a window taken with its batch stride (allclose
-     rtol=atol=1e-5); the Corr output of the slice model (YOLOv3T, 30
+     no ptxas spill in any of its instances) against
+     ops/correlation_kernel.py's plain adjoint at the train step's three
+     levels at B=16 and B=1 and on edge cases (ragged tiles, C=20, d=0, a
+     ragged displacement group, misaligned frames), every pair two frames
+     of a window taken with its batch stride (allclose rtol=atol=1e-5), each
+     with its plan (correlation_kernel.plan_backward); the Corr output of the slice model (YOLOv3T, 30
      classes, k=3, late join, early correlation d=4) carrying CostVolume's
      backward and the stage-1 stem getting a non-zero gradient from the
      cost volumes alone; one float32 window train step (128 px, B=2
@@ -135,7 +137,8 @@ Phases; any failure exits non-zero:
      416-px bf16 train step timed as in phase 9 (windows/s, frames/s, peak
      memory, a profiled step's idle share), K2 launched 6 times forward and
      6 adjoint a step, each level's forward and adjoint timed on the step's
-     routes against the adjoint's bound and plain version; `overfit
+     routes against the adjoint's bound and plain version, with the
+     adjoint's plan; `overfit
      --config k3` to the JAX rule; a VID tree of 6 train and 4 val snippets
      (640x360), the window loaders' rates, the train twin with --window 3,1
      one epoch (B=16, validated on windows), the detect twin (B=32 windows)
@@ -501,7 +504,8 @@ def build_kernels():
 
 def check_corr_build(ptxas):
     """The cost-volume library: no ptxas spill in any kernel instance the
-    plan gives a case of CORR_CASES, and 16-byte shared loads (LDS.128) and
+    plan gives a case of CORR_CASES, nor in any instance of the adjoint, and
+    16-byte shared loads (LDS.128) and
     16-byte staging copies (LDGSTS ... .128) in the SASS of the main path's
     instances (the three levels, the first cases).  Returns the main path's
     instances."""
@@ -515,13 +519,19 @@ def check_corr_build(ptxas):
         regs = re.search(r"Used (\d+) registers", body)
         if inst and spill and regs:
             report[tuple(map(int, inst.groups()))] = (int(regs.group(1)), int(spill.group(1)) + int(spill.group(2)))
-    adjoint = re.search(r"cost_volume_backward_kernel\S*'(.*?)(?=Compiling entry function|\Z)", ptxas, re.S)
-    check(adjoint is not None, "cost volume ptxas: no report for cost_volume_backward_kernel")
-    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", adjoint.group(1))
-    regs = re.search(r"Used (\d+) registers", adjoint.group(1))
-    check(spill is not None and int(spill.group(1)) + int(spill.group(2)) == 0,
-          f"cost volume ptxas: cost_volume_backward_kernel spills ({adjoint.group(1).strip()[:200]})")
-    print(f"cost volume adjoint kernel: {regs.group(1) if regs else '?'} registers, no spills")
+    # the adjoint: every instance (R, GX) the kernel has, spill-free
+    adjoint = {}
+    for name, body in re.findall(r"Compiling entry function '(\S*cost_volume_backward_kernelILi(?:\d+)ELi(?:\d+)E\S*)'"
+                                 r"(.*?)(?=Compiling entry function|\Z)", ptxas, re.S):
+        inst = tuple(map(int, re.search(r"cost_volume_backward_kernelILi(\d+)ELi(\d+)E", name).groups()))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        regs = re.search(r"Used (\d+) registers", body)
+        check(spill is not None and regs is not None and int(spill.group(1)) + int(spill.group(2)) == 0,
+              f"cost volume ptxas: the adjoint's instance (R, GX) = {inst} spills ({body.strip()[:200]})")
+        adjoint[inst] = int(regs.group(1))
+    want = {(r, gx) for r in correlation_kernel.BACKWARD_R for gx in correlation_kernel.GROUP_X}
+    check(set(adjoint) == want, f"cost volume ptxas: adjoint instances {sorted(adjoint)}, expected {sorted(want)}")
+    print(f"cost volume adjoint: {len(adjoint)} instances (R, GX), no spills; registers {adjoint}")
     for inst in sorted(used):
         check(inst in report, f"cost volume ptxas: no report for the instance (R, GX, GY) = {inst}")
         regs, spilled = report[inst]
@@ -2275,8 +2285,13 @@ CORR_BWD_LAUNCHES = 6  # per train step: the adjoint of each of the six cost vol
 VID_TRAIN_SNIPPETS, VID_EVERY7 = 6, 2
 WINDOW_LOOP = 512  # windows of the warm detect loop: the val windows over and over
 # (name, B, H, W, C, d, stride2): the train step's three levels at B=16 and
-# B=1, then an odd size at d=2, a stride2 of 2 and C=3; every pair is two
-# frames of a (B, 3, H, W, C) window, taken with its batch stride
+# B=1 (at 13x13x1024 one image needs C cut into 64 slabs to fill the card),
+# then an odd size at d=2, a stride2 of 2 and C=3, and the edges of the
+# adjoint's tiling: ragged last tiles in both axes, C = 20 (a last chunk
+# and a last slab of 4 channels), d = 0, a ragged last group of
+# displacement columns (steps 11 in groups of 7) and frames misaligned by
+# one float (4-byte copies: name "misaligned..."); every pair is two frames
+# of a (B, 3, H, W, C) window, taken with its batch stride
 CORR_BWD_CASES = [
     ("level1_52x52x256", 16, 52, 52, 256, 4, 1),
     ("level2_26x26x512", 16, 26, 26, 512, 4, 1),
@@ -2287,7 +2302,30 @@ CORR_BWD_CASES = [
     ("d2_13x11", 3, 13, 11, 64, 2, 1),
     ("d4_stride2", 4, 26, 26, 64, 4, 2),
     ("C3", 2, 11, 9, 3, 2, 1),
+    ("ragged_19x21", 2, 19, 21, 48, 4, 1),
+    ("C20", 1, 26, 26, 20, 4, 1),
+    ("d0", 2, 13, 13, 32, 0, 1),
+    ("d5_ragged_group", 2, 26, 26, 64, 5, 1),
+    ("misaligned_26x26x64", 2, 26, 26, 64, 4, 1),
 ]
+
+
+def window_frames(gen, name, b, h, w, c, dev):
+    """Frames 0 and 1 of a (B, 3, H, W, C) float32 window; for a case named
+    "misaligned..." the window starts one float into its storage, so its
+    pointers are not 16-byte aligned."""
+    if name.startswith("misaligned"):
+        window = torch.randn(b * WINDOW * h * w * c + 1, generator=gen, device=dev)[1:].view(b, WINDOW, h, w, c)
+    else:
+        window = torch.randn(b, WINDOW, h, w, c, generator=gen, device=dev)
+    return window[:, 0], window[:, 1]
+
+
+def backward_plan(b, h, w, c, d, stride2, aligned=True):
+    """The adjoint's plan as a dict for the JSON lines."""
+    pl = correlation_kernel.plan_backward(b, h, w, c, d, stride2, aligned)
+    return dict(r=pl.r, gx=pl.gx, gy=pl.gy, tile=list(pl.tile), slab=pl.slab, threads=pl.threads, copy=pl.copy,
+                smem=pl.smem, grid=list(pl.grid), ctas=pl.ctas)
 
 
 def corr_backward_times(b, h, w, c, d, stride2):
@@ -2312,8 +2350,9 @@ def check_corr_backward(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     max_err = 0.0
     for name, b, h, w, c, d, s2 in CORR_BWD_CASES:
-        window = torch.randn(b, WINDOW, h, w, c, generator=gen, device=dev)
-        f1, f2 = window[:, 0], window[:, 1]
+        f1, f2 = window_frames(gen, name, b, h, w, c, dev)
+        aligned = correlation_kernel.aligned(f1, f2)
+        check(not (aligned and name.startswith("misaligned")), f"adjoint {name}: the frames are aligned")
         g = torch.randn(b, h, w, num_corr_channels(d, s2), generator=gen, device=dev)
         got = cost_volume_backward(g, f1, f2, d, s2)
         want = cost_volume_backward_plain(g, f1, f2, d, s2)
@@ -2324,7 +2363,8 @@ def check_corr_backward(dev):
               f"cost volume adjoint {name}: max abs error {err}")
         max_err = max(max_err, err)
         print(f"cost volume adjoint {name}: B={b} {h}x{w}x{c} d={d} stride2={s2}, frames of a window "
-              f"(batch stride {f1.stride(0)}): max abs error {err:.3g}, allclose")
+              f"(batch stride {f1.stride(0)}), plan {backward_plan(b, h, w, c, d, s2, aligned)}: max abs error "
+              f"{err:.3g}, allclose")
     return max_err
 
 
@@ -2422,11 +2462,12 @@ def time_window_step(dev, card):
         bwd_plain = median_ms(lambda: cost_volume_backward_plain(g, f1, f2, d, 1), 3, warmup=1)
         tb, to = corr_backward_times(b, h, w, c, d, 1)
         fb, fo = corr_times(b, h, w, c, d, 1)
+        plan = backward_plan(b, h, w, c, d, 1, correlation_kernel.aligned(f1, f2))
         levels.append(dict(shape=[b, h, w, c], forward_ms=fwd, adjoint_ms=bwd, adjoint_plain_ms=bwd_plain,
-                           adjoint_bytes_ms=tb, adjoint_ops_ms=to, forward_bound_ms=max(fb, fo)))
+                           adjoint_bytes_ms=tb, adjoint_ops_ms=to, forward_bound_ms=max(fb, fo), adjoint_plan=plan))
         print(f"slice 7 K2 on the step's routes B={b} {h}x{w}x{c} d={d} on {card}: forward {fwd:.4f} ms, adjoint "
               f"{bwd:.4f} ms (plain {bwd_plain:.3f} ms, bound {max(tb, to):.4f} ms: bytes {tb:.4f}, operations "
-              f"{to:.4f})")
+              f"{to:.4f}) with the plan {plan}")
     figures["levels"] = levels
     figures["k2_forward_ms"] = 2 * sum(lv["forward_ms"] for lv in levels)
     figures["k2_adjoint_ms"] = 2 * sum(lv["adjoint_ms"] for lv in levels)
@@ -2740,8 +2781,9 @@ def main() -> int:
             "match": True,
             "cases": len(CORR_BWD_CASES),
             "per": f"one B={TRAIN_WINDOWS}-window train step: {CORR_BWD_LAUNCHES} launches",
-            "levels": [{k: lv[k] for k in ("shape", "adjoint_ms", "adjoint_plain_ms", "adjoint_bytes_ms",
-                                           "adjoint_ops_ms")} for lv in step7["levels"]],
+            "levels": [{**{k: lv[k] for k in ("shape", "adjoint_ms", "adjoint_plain_ms", "adjoint_bytes_ms",
+                                              "adjoint_ops_ms")}, "plan": lv["adjoint_plan"]}
+                       for lv in step7["levels"]],
             "launches_slice7": k2_slice7[1],
         },
         {

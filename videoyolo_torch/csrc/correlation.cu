@@ -104,9 +104,11 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) 
 // Stages rows x cols pixels from (y0, x0) of one image, channels c0 ..
 // c0+kChunk-1, into rows of row_floats(cols) floats.  16-byte copies skip
 // the units past C (the arithmetic does not read them); 4-byte copies
-// zero-fill past C, so the last 4 channels read are zeros beyond C.
+// zero-fill past C, so the last 4 channels read are zeros beyond C.  P is
+// the forward's or the adjoint's parameters (H, W, C, vec).
+template <class P>
 __device__ __forceinline__ void stage(float* dst, const float* src, int y0, int x0, int rows,
-                                      int cols, int c0, const Params& p) {
+                                      int cols, int c0, const P& p) {
   const int n = blockDim.x;
   if (p.vec) {
     constexpr int per_pixel = kChunk / 4;
@@ -309,24 +311,81 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
 }
 
 // The adjoint of the cost volume: given g = dL/dout (B, H, W, D), the
-// gradients of f1 and f2 (B, H, W, C), both gathers, with (oy, ox) the
-// displacement of channel d and every term outside the image zero:
+// gradients of f1 and f2 (B, H, W, C), both gathers, with o_d = (oy, ox)
+// the offset of displacement d and every term outside the image zero:
 //   gf1[b, y, x, c] = sum_d g[b, y, x, d] * f2[b, y+oy, x+ox, c] / C
 //   gf2[b, y, x, c] = sum_d g[b, y-oy, x-ox, d] * f1[b, y-oy, x-ox, c] / C
 // The TPU kernel has no backward (the JAX package differentiates the XLA
 // form, videoyolo_tpu/ops/correlation.py:64-80); this kernel is the port's
 // own, held against ops/correlation_kernel.py:cost_volume_backward_plain.
-// One thread per output element, c fastest, so a warp reads 32 neighbouring
-// channels of one f pixel and one g value (a broadcast); blockIdx.y picks
-// gf1 (0) or gf2 (1), so one launch writes both.  Each sum runs over the
-// displacements in channel order of the cost volume (d = 0 .. D-1), then
-// divides by C.  No shared memory, no atomics.
-// Bound on an H100 SXM at 700 W (train step, B=16 windows, d=4, D=81): at
-// 52x52x256 the launch must read g (14 MB) and f1, f2 (89 MB) and write gf1,
-// gf2 (89 MB), 0.057 ms at 3.35 TB/s, and do 2 x 0.82 G multiply-adds (two
-// operations each) on the in-image products, 0.049 ms at 67 TFLOP/s.  This simple design reads
-// each f value once per displacement (through L1 and L2), so it runs far
-// above that bound; staging the f window as the forward does is later work.
+//
+// Bound on an H100 SXM at 700 W (train step, B=16 windows, d=4, D=81): the
+// launch must read g, f1 and f2 and write gf1 and gf2 (192 MB at
+// 52x52x256): 0.0571 / 0.0275 / 0.0135 ms at 3.35 TB/s at 52x52x256 /
+// 26x26x512 / 13x13x1024, against 0.049 / 0.024 / 0.011 ms for the 2 x 81
+// multiply-adds an element at 67 TFLOP/s, so bytes bound it.  Each f value
+// meets 81 g values: fetched once per displacement, as a first design of
+// one thread an element did (2.10 ms at 52x52x256), that is 3.6 GB of f
+// reads a gradient.
+//
+// Design: the forward's, turned round.  The sum runs over displacements,
+// not channels, so the channels are independent and C splits into slabs at
+// no cost.  One CTA per (image, tile of 8 rows x TW columns, gradient, slab
+// of channels), grid (tiles, 2 x slabs, B): blockIdx.y's low bit picks gf1
+// or gf2, so one launch writes both, and the plan (correlation_kernel.
+// plan_backward) cuts C into slabs until the launch fills the card.
+//  * g staged once per CTA, not once per channel: the tile's 8 x 8 pixels
+//    x the displacements, in rows of 8 * dg + 1 floats (dg: the
+//    displacements rounded to 4 past a multiple of 8, so that the 16 pixels
+//    a warp reads lie in distinct banks at the main path's 81).  For gf2 it is staged shifted,
+//    g'[p, d] = g[p - o_d, d], zero where p - o_d lies outside the image: a
+//    gather of 4-byte copies, as many as of the tile's own g (20.7 KB at
+//    8x8 and d=4).  The unshifted window of g (tile + halo) would copy
+//    coalesced but take 83 KB, four times the shared memory of a CTA.
+//  * The partner window staged per 16-channel chunk by the forward's
+//    stage(): f2 over the tile +- s*stride2 for gf1, f1 over the same window
+//    read at the opposite offset for gf2; pixel-major, 16-byte cp.async (or
+//    4-byte), rows padded to an odd number of 16-byte units.  Each window
+//    pixel comes from device memory (L2) once a chunk per CTA, not once per
+//    displacement.
+//  * A register tile: lane l takes tile row l % 8, 8 channels (two float4s)
+//    and R neighbouring pixels; per displacement row it loads the R + GX - 1
+//    window pixels its R pixels reach (stride2 == 1) once and multiplies
+//    each by the g of every pixel it serves: at R=2 and GX=9, 20 16-byte
+//    and 18 4-byte shared loads (the latter broadcast over the 2 channel
+//    lanes of a pixel) for 144 multiply-adds.
+//  * Summation order kept: each output element is summed over d = 0 .. D-1
+//    in order with fmaf, then divided by C, as the one-thread-an-element
+//    kernel and the plain version do; staged zeros take the place of the
+//    skipped out-of-image terms, so on finite inputs the result equals that
+//    kernel's bit for bit but for the sign of a zero.  gf2 walks its window
+//    columns (and rows) backwards, so that each pixel still meets its
+//    displacements in order.
+//  * Wide displacement grids come in groups of GY rows x GX columns (GY > 1
+//    only where GX is a whole row), walked in order inside the CTA, the
+//    window and g staged per group; with one group (d <= 4 at stride2 1) g
+//    is staged once for all of the slab's chunks.
+// R and GX are template arguments, so the accumulators live in registers.
+// R is 2 (two warps a CTA) where stride2 == 1, else 1 (four warps); R=4 in
+// one warp was an instance and lost at every level: at 38 KB of shared
+// memory an SM holds 5 CTAs, so its warps come from the threads of a CTA.
+// Measured (H100 80GB HBM3, 700 W limit, B=16, d=4): 0.3617 / 0.2347 /
+// 0.1243 ms a launch at 52x52x256 / 26x26x512 / 13x13x1024 with the queue
+// full (probe_cost_volume.py), 6.3 / 8.5 / 9.2x the bound, against 2.0835 /
+// 0.9828 / 0.4376 for one thread an element in the same call; 1.456 ms a
+// window train step (chip_smoke.py), against 7.05.  What bounds it now: the
+// shared-memory pipe, at 0.68 wavefronts a warp's multiply-add (20 16-byte
+// and 18 broadcast loads per 144), about 0.2 ms at 52x52x256 on its own,
+// and the staging's latency: each CTA waits for its chunk's copies, then
+// computes, with 10 warps an SM to cover it.
+constexpr int kQuads = 2;            // float4s of channels a thread: 8 of a chunk's 16
+constexpr int kMaxBwdThreads = 128;  // 8 rows x 8 column groups (R=1) x 2 channel halves
+constexpr int kMaxSlabs = 32767;     // 2 x slabs is the grid's y extent
+
+// floats a staged pixel of g takes for n displacements: at least n, and 4
+// past a multiple of 8
+__host__ __device__ constexpr int g_floats(int n) { return (n + 3) / 8 * 8 + 4; }
+
 struct BackwardParams {
   const float* g;
   const float* f1;
@@ -334,51 +393,204 @@ struct BackwardParams {
   float* gf1;
   float* gf2;
   long long bs1, bs2;  // batch strides of f1, f2, elements
-  long long n;         // B * H * W * C
   int H, W, C, steps, s2;
+  int tw, tiles_x, slab, gy, groups_x, groups, win_w, win_h, dg, grow;
+  int vec;  // 16-byte copies, else 4-byte ones
 };
 
-__global__ void __launch_bounds__(256) cost_volume_backward_kernel(const BackwardParams p) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-  const int c = static_cast<int>(i % p.C);
-  const long long pix = i / p.C;
-  const int x = static_cast<int>(pix % p.W);
-  const int y = static_cast<int>((pix / p.W) % p.H);
-  const long long b = pix / (static_cast<long long>(p.W) * p.H);
-  const int s = p.steps / 2, D = p.steps * p.steps;
+__device__ __forceinline__ void axpy4(float4& acc, float g, const float4& f) {
+  acc.x = fmaf(g, f.x, acc.x);
+  acc.y = fmaf(g, f.y, acc.y);
+  acc.z = fmaf(g, f.z, acc.z);
+  acc.w = fmaf(g, f.w, acc.w);
+}
+
+// Stages g of the group's displacements (rows iy0.., columns ix0..) at each
+// pixel p of the tile: g[p, d] for gf1, g[p - o_d, d] for gf2 (FLIP); zero
+// where that pixel lies outside the image or d outside the grid.
+template <int GX, bool FLIP>
+__device__ __forceinline__ void stage_g(float* sg, const float* g, int y0, int x0, int iy0, int ix0,
+                                        const BackwardParams& p) {
+  const int n = p.gy * GX, s = p.steps / 2, D = p.steps * p.steps;
+  const int total = kRows * p.tw * n;
+  for (int u = threadIdx.x; u < total; u += blockDim.x) {
+    const int pix = u / n, j = u - pix * n;
+    const int jy = j / GX, jx = j - jy * GX;
+    const int ty = pix / p.tw, tx = pix - ty * p.tw;
+    const int iy = iy0 + jy, ix = ix0 + jx;
+    const int y = y0 + ty - (FLIP ? (iy - s) * p.s2 : 0);
+    const int x = x0 + tx - (FLIP ? (ix - s) * p.s2 : 0);
+    const bool in = iy < p.steps && ix < p.steps && y >= 0 && y < p.H && x >= 0 && x < p.W;
+    copy4(sg + ty * p.grow + tx * p.dg + j,
+          in ? g + (static_cast<long long>(y) * p.W + x) * D + iy * p.steps + ix : g, in);
+  }
+}
+
+// acc[r][q] += g[pixel r, d] * window[pixel r's partner at d] over the
+// group's displacements in order: rows jy < ny, columns jx < GX (g is zero
+// past the grid).  w: the thread's first pixel and channels in the window
+// row of displacement row 0 (gf1) or 0 shifted to the group's last (gf2);
+// gs: its first pixel's staged g.
+template <int R, int GX, bool FLIP>
+__device__ __forceinline__ void accumulate(float4 (&acc)[R][kQuads], const float* w, const float* gs, int ny,
+                                           int w_row, const BackwardParams& p) {
+#pragma unroll 1
+  for (int jy = 0; jy < ny; ++jy) {
+    const float* row = w + (FLIP ? p.gy - 1 - jy : jy) * p.s2 * w_row;
+    const float* gr = gs + jy * GX;
+    if constexpr (R == 1) {
+#pragma unroll
+      for (int jx = 0; jx < GX; ++jx) {
+        const float gv = gr[jx];
+        const float* f = row + (FLIP ? GX - 1 - jx : jx) * p.s2 * kChunk;
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) axpy4(acc[0][q], gv, load4(f + q * 4));
+      }
+    } else {
+      // stride2 == 1: pixel r at displacement column jx reads window column
+      // r + jx (gf1) or r + GX-1-jx (gf2), so each window pixel loaded serves
+      // up to R pixels; gf2 walks the columns backwards, so that each pixel
+      // meets its displacements in order
+#pragma unroll
+      for (int i = 0; i < R + GX - 1; ++i) {
+        const int k = FLIP ? R + GX - 2 - i : i;
+        float4 v[kQuads];
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) v[q] = load4(row + k * kChunk + q * 4);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int jw = k - r;
+          if (jw >= 0 && jw < GX) {
+            const float gv = gr[r * p.dg + (FLIP ? GX - 1 - jw : jw)];
+#pragma unroll
+            for (int q = 0; q < kQuads; ++q) axpy4(acc[r][q], gv, v[q]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int R, int GX, bool FLIP>
+__device__ __forceinline__ void backward_tile(float* smem, const BackwardParams& p) {
+  const int w_row = row_floats(p.win_w);
+  float* sw = smem;                    // [win_h][win_w][kChunk] + pad: the partner's window
+  float* sg = smem + p.win_h * w_row;  // [kRows][tw * dg + 1]: g at the tile's pixels
+  const int ty = threadIdx.x % 8;             // tile row
+  const int half = (threadIdx.x / 8) % 2;     // channels half*8 .. half*8+7 of a chunk
+  const int cx = threadIdx.x / 16 * R;        // first tile column
+  const int y0 = (blockIdx.x / p.tiles_x) * kRows;
+  const int x0 = (blockIdx.x % p.tiles_x) * p.tw;
+  const int cs0 = (blockIdx.y / 2) * p.slab, cs1 = min(p.C, cs0 + p.slab);
+  const int s = p.steps / 2;
   const long long plane = static_cast<long long>(p.H) * p.W;
-  float acc = 0.f;
-  if (blockIdx.y == 0) {
-    // gf1: this pixel's g against f2 at (y + oy, x + ox)
-    const float* gp = p.g + pix * D;
-    const float* f = p.f2 + b * p.bs2 + c;
-    for (int iy = 0; iy < p.steps; ++iy) {
-      const int yy = y + (iy - s) * p.s2;
-      if (yy < 0 || yy >= p.H) continue;
-      for (int ix = 0; ix < p.steps; ++ix) {
-        const int xx = x + (ix - s) * p.s2;
-        if (xx < 0 || xx >= p.W) continue;
-        acc = fmaf(gp[iy * p.steps + ix], f[(static_cast<long long>(yy) * p.W + xx) * p.C], acc);
+  const float* part = FLIP ? p.f1 + blockIdx.z * p.bs1 : p.f2 + blockIdx.z * p.bs2;
+  const float* g = p.g + blockIdx.z * plane * p.steps * p.steps;
+  float* out = (FLIP ? p.gf2 : p.gf1) + blockIdx.z * plane * p.C;
+  const float* wt = sw + ty * w_row + cx * kChunk + half * 4 * kQuads;
+  const float* gt = sg + ty * p.grow + cx * p.dg;
+
+  if (p.groups == 1) stage_g<GX, FLIP>(sg, g, y0, x0, 0, 0, p);  // waited for with the first chunk
+  for (int c0 = cs0; c0 < cs1; c0 += kChunk) {
+    float4 acc[R][kQuads];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) acc[r][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll 1
+    for (int grp = 0; grp < p.groups; ++grp) {
+      const int iy0 = grp / p.groups_x * p.gy, ix0 = grp % p.groups_x * GX;
+      // the window's origin: the group's least offset for gf1, minus its
+      // greatest for gf2
+      const int wy0 = FLIP ? y0 - (iy0 + p.gy - 1 - s) * p.s2 : y0 + (iy0 - s) * p.s2;
+      const int wx0 = FLIP ? x0 - (ix0 + GX - 1 - s) * p.s2 : x0 + (ix0 - s) * p.s2;
+      __syncthreads();  // the previous window (and g) consumed
+      stage(sw, part, wy0, wx0, p.win_h, p.win_w, c0, p);
+      if (p.groups > 1) stage_g<GX, FLIP>(sg, g, y0, x0, iy0, ix0, p);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      accumulate<R, GX, FLIP>(acc, wt, gt, min(p.gy, p.steps - iy0), w_row, p);
+    }
+    // divided by C on the way out, 16 bytes at a time where C % 4 == 0
+    const int y = y0 + ty;
+    const float norm = static_cast<float>(p.C);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int x = x0 + cx + r;
+      if (y >= p.H || x >= p.W) continue;
+      float* o = out + (static_cast<long long>(y) * p.W + x) * p.C;
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const int c = c0 + half * 4 * kQuads + q * 4;
+        const float4 a = make_float4(acc[r][q].x / norm, acc[r][q].y / norm, acc[r][q].z / norm,
+                                     acc[r][q].w / norm);
+        if (p.C % 4 == 0 && c < cs1) {
+          *reinterpret_cast<float4*>(o + c) = a;
+        } else {
+          if (c < cs1) o[c] = a.x;
+          if (c + 1 < cs1) o[c + 1] = a.y;
+          if (c + 2 < cs1) o[c + 2] = a.z;
+          if (c + 3 < cs1) o[c + 3] = a.w;
+        }
       }
     }
-    p.gf1[i] = acc / static_cast<float>(p.C);
+  }
+}
+
+// at least one CTA an SM, as the forward's instances
+template <int R, int GX>
+__global__ void __launch_bounds__(kMaxBwdThreads, 1) cost_volume_backward_kernel(const BackwardParams p) {
+  extern __shared__ __align__(16) float smem[];
+  if (blockIdx.y % 2 == 0) {
+    backward_tile<R, GX, false>(smem, p);
   } else {
-    // gf2: g and f1 at (y - oy, x - ox), the pixels whose displacement d
-    // reaches this one
-    const float* gp = p.g + b * plane * D;
-    const float* f = p.f1 + b * p.bs1 + c;
-    for (int iy = 0; iy < p.steps; ++iy) {
-      const int yy = y - (iy - s) * p.s2;
-      if (yy < 0 || yy >= p.H) continue;
-      for (int ix = 0; ix < p.steps; ++ix) {
-        const int xx = x - (ix - s) * p.s2;
-        if (xx < 0 || xx >= p.W) continue;
-        const long long q = static_cast<long long>(yy) * p.W + xx;
-        acc = fmaf(gp[q * D + iy * p.steps + ix], f[q * p.C], acc);
-      }
-    }
-    p.gf2[i] = acc / static_cast<float>(p.C);
+    backward_tile<R, GX, true>(smem, p);
+  }
+}
+
+// The adjoint launch's geometry for a plan; the same arithmetic as
+// correlation_kernel.plan_backward.
+struct BackwardGeometry {
+  int tw, win_w, win_h, tiles_x, tiles, groups_x, groups, dg, grow, slabs;
+  long long smem;
+};
+
+BackwardGeometry backward_geometry(int H, int W, int C, int steps, int s2, int r, int cg, int gx, int gy,
+                                   int slab) {
+  BackwardGeometry g;
+  g.tw = r * cg;
+  g.win_w = g.tw + (gx - 1) * s2;
+  g.win_h = kRows + (gy - 1) * s2;
+  g.tiles_x = (W + g.tw - 1) / g.tw;
+  g.tiles = (H + kRows - 1) / kRows * g.tiles_x;
+  g.groups_x = (steps + gx - 1) / gx;
+  g.groups = (steps + gy - 1) / gy * g.groups_x;
+  g.dg = g_floats(gx * gy);
+  g.grow = g.tw * g.dg + 1;
+  g.slabs = (C + slab - 1) / slab;
+  g.smem = (static_cast<long long>(g.win_h) * row_floats(g.win_w) + static_cast<long long>(kRows) * g.grow) * 4;
+  return g;
+}
+
+template <int R, int GX>
+cudaError_t launch_backward(const BackwardParams& p, int threads, int smem, dim3 grid, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(cost_volume_backward_kernel<R, GX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cost_volume_backward_kernel<R, GX><<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_backward_gx(int gx, const BackwardParams& p, int threads, int smem, dim3 grid, cudaStream_t st) {
+  switch (gx) {
+    case 1: return launch_backward<R, 1>(p, threads, smem, grid, st);
+    case 3: return launch_backward<R, 3>(p, threads, smem, grid, st);
+    case 5: return launch_backward<R, 5>(p, threads, smem, grid, st);
+    case 7: return launch_backward<R, 7>(p, threads, smem, grid, st);
+    case 9: return launch_backward<R, 9>(p, threads, smem, grid, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -386,25 +598,50 @@ __global__ void __launch_bounds__(256) cost_volume_backward_kernel(const Backwar
 
 // g (B, H, W, D) f32, contiguous; f1, f2 (B, H, W, C) f32, each dense over
 // (H, W, C) with batch strides bs1, bs2 (elements); gf1, gf2 (B, H, W, C)
-// f32, contiguous, written whole.  `blocks` is the wrapper's ceil(B*H*W*C /
-// 256), checked here.  Returns the CUDA error of the launch (0 on success).
+// f32, contiguous, written whole.  The plan
+// (ops/correlation_kernel.py:plan_backward): r pixels a thread, gx x gy
+// displacements a group, slab channels a CTA, `threads` threads (8 rows x
+// threads / 16 column groups x 2 channel halves), `copy` bytes a staging
+// copy (16 or 4), `smem` bytes of shared memory and a grid of (tiles, 2 x
+// slabs, B) CTAs; a plan that does not match the shapes, or that the
+// kernel was not built for, is refused.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int cost_volume_backward_launch(const void* g, const void* f1, const void* f2, void* gf1,
                                            void* gf2, long long bs1, long long bs2, int B, int H, int W,
-                                           int C, int d, int s2, long long blocks, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) return cudaErrorInvalidValue;
+                                           int C, int d, int s2, int r, int gx, int gy, int slab, int threads,
+                                           int copy, int smem, int tiles, int slabs, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) return cudaErrorInvalidValue;
+  const int steps = 2 * (d / s2) + 1;
+  if (!(r == 1 || (r == 2 && s2 == 1)) || threads % 32 != 0 || threads < 32 ||
+      threads > kMaxBwdThreads || gx > steps || gy < 1 || gy > steps || (gy != 1 && gx != steps) ||
+      slab < kChunk || slab % kChunk != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const auto aligned = [&](const void* ptr, long long bs) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (B == 1 || bs % 4 == 0);
+  };
+  if ((copy != 4 && copy != 16) || (copy == 16 && (C % 4 != 0 || !aligned(f1, bs1) || !aligned(f2, bs2)))) {
+    return cudaErrorInvalidValue;
+  }
+  const BackwardGeometry geo = backward_geometry(H, W, C, steps, s2, r, threads / 16, gx, gy, slab);
+  if (geo.smem != smem || smem > kMaxSmem || geo.tiles != tiles || geo.slabs != slabs || slabs > kMaxSlabs) {
+    return cudaErrorInvalidValue;
+  }
   BackwardParams p;
-  p.n = static_cast<long long>(B) * H * W * C;
-  if (blocks != (p.n + 255) / 256 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   p.g = static_cast<const float*>(g);
   p.f1 = static_cast<const float*>(f1);
   p.f2 = static_cast<const float*>(f2);
   p.gf1 = static_cast<float*>(gf1);
   p.gf2 = static_cast<float*>(gf2);
   p.bs1 = bs1, p.bs2 = bs2;
-  p.H = H, p.W = W, p.C = C, p.steps = 2 * (d / s2) + 1, p.s2 = s2;
-  cost_volume_backward_kernel<<<dim3(static_cast<unsigned>(blocks), 2), 256, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  p.H = H, p.W = W, p.C = C, p.steps = steps, p.s2 = s2;
+  p.tw = geo.tw, p.tiles_x = geo.tiles_x, p.slab = slab, p.gy = gy, p.groups_x = geo.groups_x;
+  p.groups = geo.groups, p.win_w = geo.win_w, p.win_h = geo.win_h, p.dg = geo.dg, p.grow = geo.grow;
+  p.vec = copy == 16;
+  const dim3 grid(tiles, 2 * slabs, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  return r == 1 ? launch_backward_gx<1>(gx, p, threads, smem, grid, st)
+                : launch_backward_gx<2>(gx, p, threads, smem, grid, st);
 }
 
 // f1, f2 (B, H, W, C) f32 on the current device, each dense over (H, W, C)

@@ -8,7 +8,7 @@ another order).  `plan` chooses each launch's tile, register tile and
 displacement group from the shape; the C entry point checks it.
 
 `cost_volume_backward` is its adjoint, the gradients of f1 and f2 given the
-output's, in one launch.  The TPU kernel has none: the JAX package
+output's, in one launch cut as `plan_backward` says.  The TPU kernel has none: the JAX package
 differentiates the XLA form (`videoyolo_tpu/ops/correlation.py:64-80`).  Its
 plain version, `cost_volume_backward_plain`, writes the adjoint out in torch
 ops, one shifted product per displacement.
@@ -48,7 +48,13 @@ CANDIDATES = ((2, 3, 1, 4 * SMS), (1, 3, 2, MIN_CTAS), (2, 1, 1, 4 * SMS), (1, 1
               (1, 1, 1, MIN_CTAS))
 MAX_BATCH = 65535  # the grid's z extent
 MAX_GROUPS = 65535  # the grid's y extent
-BACKWARD_THREADS = 256  # the adjoint's threads a CTA, one an output element
+# the adjoint's tiling: a thread takes 8 channels (two float4s) of R
+# neighbouring pixels; (R, column groups a CTA) in order of preference, each
+# an 8x8-pixel tile of 16 x column groups threads: R=2 in two warps, or R=1
+# in four where stride2 > 1
+BACKWARD_CANDIDATES = ((2, 4), (1, 8))
+BACKWARD_R = (1, 2)  # the kernel's instances of R
+BACKWARD_MIN_CTAS = 3 * SMS  # C is cut into slabs until a launch has this many CTAs
 
 
 class Plan(NamedTuple):
@@ -140,6 +146,86 @@ def plan(b: int, h: int, w: int, c: int, max_displacement: int, stride2: int, al
     raise AssertionError("unreachable: one warp of one displacement always fits")
 
 
+class BackwardPlan(NamedTuple):
+    r: int  # output pixels a thread takes, side by side in a row, 8 channels each
+    gx: int  # displacement columns per group
+    gy: int  # displacement rows per group
+    tile: Tuple[int, int]  # output (rows, columns) per CTA
+    slab: int  # channels per CTA, a multiple of CHUNK (the last slab may be short)
+    threads: int
+    copy: int  # bytes per staging copy: 16, or 4 where C or the inputs are not 16-byte aligned
+    smem: int  # dynamic shared memory bytes: the partner's window and the tile's g
+    grid: Tuple[int, int, int]  # (pixel tiles, 2 gradients x slabs, images)
+    live: float  # share of the tiles' pixel slots that lie inside the image
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _g_floats(n: int) -> int:
+    """Floats a staged pixel of g takes for n displacements: at least n, and
+    4 past a multiple of 8 (pixels 4 apart fall 16 banks apart)."""
+    return (n + 3) // 8 * 8 + 4
+
+
+def _make_backward(b, h, w, c, stride2, r, column_groups, gx, gy, slab, aligned) -> BackwardPlan:
+    tw = r * column_groups
+    win_w, win_h = tw + (gx - 1) * stride2, ROWS + (gy - 1) * stride2
+    smem = (win_h * _row_floats(win_w) + ROWS * (tw * _g_floats(gx * gy) + 1)) * 4
+    tiles_y, tiles_x = _ceil_div(h, ROWS), _ceil_div(w, tw)
+    return BackwardPlan(
+        r, gx, gy, (ROWS, tw), slab, 16 * column_groups, 16 if aligned and c % 4 == 0 else 4, smem,
+        (tiles_y * tiles_x, 2 * _ceil_div(c, slab), b), h * w / (tiles_y * ROWS * tiles_x * tw),
+    )
+
+
+def plan_backward(b: int, h: int, w: int, c: int, max_displacement: int, stride2: int,
+                  aligned: bool = True) -> BackwardPlan:
+    """How the adjoint kernel cuts one launch on (B, H, W, C) inputs;
+    `aligned` when both inputs' pointers and batch strides are 16-byte
+    aligned.  Raises ValueError on what the kernel cannot take.
+
+    A CTA takes one image, one gradient, 8 rows x 8 columns of output pixels
+    and a slab of channels; a thread R neighbouring pixels of a row (R = 2
+    only where stride2 == 1) and 8 channels of each.  R is the first of
+    BACKWARD_CANDIDATES the stride allows.  The displacements are walked in
+    groups of gy rows x gx columns: gx as the forward's, gy the most rows
+    whose window and g fit SMEM_BYTES where gx covers a whole row, else 1.
+    The slab is C cut into the fewest even slabs (multiples of CHUNK) that
+    give the launch BACKWARD_MIN_CTAS CTAs, or CHUNK where none do.
+
+    The candidates and the CTA count follow the times of every (R, slab) at
+    the train step's levels (B=16, d=4) on an H100 80GB HBM3 at 700 W
+    (probe_cost_volume.py --sweep): R=2 in two warps was the fastest at
+    every level (0.355-0.364 / 0.236 / 0.124 ms at 52x52x256 / 26x26x512 /
+    13x13x1024 at its best slabs), R=1 in four warps next (0.407 / 0.278 /
+    0.145), R=4 in one warp last (0.490 / 0.309 / 0.167): at 38 KB of shared
+    memory an SM holds 5 CTAs, so warps come from threads a CTA.  About 512
+    CTAs was enough: 13x13x1024 took 0.124 ms at 512 (slab 256), 0.141 at
+    1,024 and 0.342 at 128 (no cut); 26x26x512 0.236 at 512, 0.256 at 1,024;
+    at 52x52x256 1,568 CTAs (no cut) and 3,136 were within 3%."""
+    if min(b, h, w, c) < 1 or b > MAX_BATCH or max_displacement < 0 or stride2 < 1:
+        raise ValueError(f"cost_volume_backward takes 1 <= B <= {MAX_BATCH}, H, W, C >= 1, d >= 0 and "
+                         f"stride2 >= 1, got B, H, W, C = {b}, {h}, {w}, {c}, d={max_displacement}, "
+                         f"stride2={stride2}")
+    steps = _steps(max_displacement, stride2)
+    r, groups = next(cand for cand in BACKWARD_CANDIDATES if cand[0] == 1 or stride2 == 1)
+    widest = next(g for g in GROUP_X if g >= _balanced(steps, GROUP_X[-1]))
+    pl = next(pl for gx in reversed([g for g in GROUP_X if g <= widest])
+              for gy in (range(steps, 0, -1) if gx == steps else (1,))
+              for pl in [_make_backward(b, h, w, c, stride2, r, groups, gx, gy, CHUNK, aligned)]
+              if pl.smem <= SMEM_BYTES)
+    n = 1
+    while True:
+        slab = _ceil_div(_ceil_div(c, n), CHUNK) * CHUNK
+        pl = pl._replace(slab=slab, grid=(pl.grid[0], 2 * _ceil_div(c, slab), b))
+        if pl.ctas >= BACKWARD_MIN_CTAS or slab == CHUNK:
+            break
+        n += 1
+    return pl
+
+
 def build():
     """Compile `csrc/correlation.cu` unless it was built already: (library
     path, ptxas report)."""
@@ -164,7 +250,7 @@ def _library() -> ctypes.CDLL:
         *[ctypes.c_void_p] * 5,  # g, f1, f2, gf1, gf2
         ctypes.c_longlong, ctypes.c_longlong,  # batch strides of f1, f2
         *[ctypes.c_int] * 6,  # B, H, W, C, max_displacement, stride2
-        ctypes.c_longlong,  # CTAs along x
+        *[ctypes.c_int] * 9,  # the plan: r, gx, gy, slab, threads, copy, smem, tiles, slabs
         ctypes.c_void_p,  # stream
     ]
     bwd.restype = ctypes.c_int
@@ -268,9 +354,9 @@ def cost_volume_backward(
 
     g: (B, H, W, D) float32, contiguous (autograd may hand a strided one:
     the caller makes it contiguous); f1, f2: `cost_volume`'s inputs, read
-    with their batch strides.  One launch writes both gradients, one thread
-    an element; launches on the current stream and does not synchronise;
-    `cost_volume_backward.launches` counts launches."""
+    with their batch strides.  One launch writes both gradients, cut as
+    `plan_backward` says; launches on the current stream and does not
+    synchronise; `cost_volume_backward.launches` counts launches."""
     plain = "ops/correlation_kernel.py:cost_volume_backward_plain"
     _check("f1", f1, "cost_volume_backward", plain)
     _check("f2", f2, "cost_volume_backward", plain)
@@ -278,25 +364,23 @@ def cost_volume_backward(
         raise ValueError(f"cost_volume_backward takes f1, f2 of one shape and device, got "
                          f"{tuple(f1.shape)} on {f1.device}, {tuple(f2.shape)} on {f2.device}")
     b, h, w, c = f1.shape
-    if max_displacement < 0 or stride2 < 1:
-        raise ValueError(f"cost_volume_backward takes d >= 0 and stride2 >= 1, got {max_displacement}, {stride2}")
+    pl = plan_backward(b, h, w, c, max_displacement, stride2, aligned(f1, f2))
     d = _steps(max_displacement, stride2) ** 2
     if g.device != f1.device or g.dtype != torch.float32 or tuple(g.shape) != (b, h, w, d) or not g.is_contiguous():
         raise ValueError(f"cost_volume_backward takes g ({b}, {h}, {w}, {d}) float32, contiguous, on "
                          f"{f1.device}; got {tuple(g.shape)} {g.dtype} on {g.device}, strides {g.stride()}")
-    if min(b, h, w, c) < 1:
-        raise ValueError(f"cost_volume_backward takes B, H, W, C >= 1, got {tuple(f1.shape)}")
     gf1 = torch.empty((b, h, w, c), dtype=torch.float32, device=f1.device)
     gf2 = torch.empty_like(gf1)
-    blocks = _ceil_div(b * h * w * c, BACKWARD_THREADS)
     fn = _library().cost_volume_backward_launch
     with torch.cuda.device(f1.device):
         err = fn(
             g.data_ptr(), f1.data_ptr(), f2.data_ptr(), gf1.data_ptr(), gf2.data_ptr(), f1.stride(0), f2.stride(0),
-            b, h, w, c, max_displacement, stride2, blocks, torch.cuda.current_stream(f1.device).cuda_stream,
+            b, h, w, c, max_displacement, stride2,
+            pl.r, pl.gx, pl.gy, pl.slab, pl.threads, pl.copy, pl.smem, pl.grid[0], pl.grid[1] // 2,
+            torch.cuda.current_stream(f1.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"cost_volume_backward launch failed with CUDA error {err} ({blocks} x 2 CTAs)")
+        raise RuntimeError(f"cost_volume_backward launch failed with CUDA error {err} ({pl})")
     cost_volume_backward.launches += 1
     return gf1, gf2
 
