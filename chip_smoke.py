@@ -129,17 +129,20 @@ Phases; any failure exits non-zero:
      levels at B=16 and B=1 and on edge cases (ragged tiles, C=20, d=0, a
      ragged displacement group, misaligned frames), every pair two frames
      of a window taken with its batch stride (allclose rtol=atol=1e-5), each
-     with its plan (correlation_kernel.plan_backward); the Corr output of the slice model (YOLOv3T, 30
+     with its plan (correlation_kernel.plan_backward), and the pair launch
+     of each case's window against the plain pair and, bit for bit, against
+     two one-volume launches; the Corr output of the slice model (YOLOv3T, 30
      classes, k=3, late join, early correlation d=4) carrying CostVolume's
-     backward and the stage-1 stem getting a non-zero gradient from the
-     cost volumes alone; one float32 window train step (128 px, B=2
-     windows) on the card against the CPU within TRAIN_TOL; the B=16-window
-     416-px bf16 train step timed as in phase 9 (windows/s, frames/s, peak
-     memory, a profiled step's idle share), K2 launched 6 times forward and
-     6 adjoint a step, each level's forward and adjoint timed on the step's
-     routes against the adjoint's bound and plain version, with the
-     adjoint's plan; `overfit
-     --config k3` to the JAX rule; a VID tree of 6 train and 4 val snippets
+     backward (CostVolumePair: one adjoint launch for both volumes) and the
+     stage-1 stem getting a non-zero gradient from the cost volumes alone;
+     one float32 window train step (128 px, B=2 windows) on the card
+     against the CPU within TRAIN_TOL; the B=16-window 416-px bf16 train
+     step timed as in phase 9 (windows/s, frames/s, peak memory, a profiled
+     step's idle share), K2 launched 6 times forward and its adjoint 3
+     times a step (one launch a level for the pair of volumes), each
+     level's forward and pair adjoint timed on the step's routes against
+     the pair's bound and plain version, with its plan; `overfit --config
+     k3` to the JAX rule; a VID tree of 6 train and 4 val snippets
      (640x360), the window loaders' rates, the train twin with --window 3,1
      one epoch (B=16, validated on windows), the detect twin (B=32 windows)
      from its checkpoint with the raw outputs and the first batch's
@@ -193,7 +196,10 @@ from videoyolo_torch.models.yolo3 import YOLOv3, postprocess, select_topk_candid
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
 from videoyolo_torch.ops.color import apply_color
-from videoyolo_torch.ops.correlation_kernel import cost_volume, cost_volume_backward, cost_volume_backward_plain
+from videoyolo_torch.ops.correlation_kernel import (
+    cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_pair_backward,
+    cost_volume_pair_backward_plain,
+)
 from videoyolo_torch.ops.int8_conv import int8_conv_plain, quant_downsample_plain
 from videoyolo_torch.ops.int8_conv_kernel import int8_conv, quant_downsample
 from videoyolo_torch.ops.quantize import replace_quant
@@ -2281,7 +2287,7 @@ SLICE7 = dict(num_classes=30, k=WINDOW, k_join_pos="late", corr_pos="early", cor
 SLICE7_CLASSES = SLICE7["num_classes"]
 TRAIN_WINDOWS = 16  # 48 frames: the frames of the B=48 2D step
 WINDOW_DETECT_BATCH = 32  # slice 2's B=32 windows
-CORR_BWD_LAUNCHES = 6  # per train step: the adjoint of each of the six cost volumes
+CORR_BWD_LAUNCHES = 3  # per train step: one adjoint launch for each level's two cost volumes
 VID_TRAIN_SNIPPETS, VID_EVERY7 = 6, 2
 WINDOW_LOOP = 512  # windows of the warm detect loop: the val windows over and over
 # (name, B, H, W, C, d, stride2): the train step's three levels at B=16 and
@@ -2310,47 +2316,51 @@ CORR_BWD_CASES = [
 ]
 
 
-def window_frames(gen, name, b, h, w, c, dev):
-    """Frames 0 and 1 of a (B, 3, H, W, C) float32 window; for a case named
-    "misaligned..." the window starts one float into its storage, so its
-    pointers are not 16-byte aligned."""
+def case_window(gen, name, b, h, w, c, dev):
+    """A (B, 3, H, W, C) float32 window; for a case named "misaligned..." it
+    starts one float into its storage, so its frames' pointers are not
+    16-byte aligned."""
     if name.startswith("misaligned"):
-        window = torch.randn(b * WINDOW * h * w * c + 1, generator=gen, device=dev)[1:].view(b, WINDOW, h, w, c)
-    else:
-        window = torch.randn(b, WINDOW, h, w, c, generator=gen, device=dev)
-    return window[:, 0], window[:, 1]
+        return torch.randn(b * WINDOW * h * w * c + 1, generator=gen, device=dev)[1:].view(b, WINDOW, h, w, c)
+    return torch.randn(b, WINDOW, h, w, c, generator=gen, device=dev)
 
 
-def backward_plan(b, h, w, c, d, stride2, aligned=True):
+def backward_plan(b, h, w, c, d, stride2, aligned=True, pair=False):
     """The adjoint's plan as a dict for the JSON lines."""
-    pl = correlation_kernel.plan_backward(b, h, w, c, d, stride2, aligned)
+    pl = correlation_kernel.plan_backward(b, h, w, c, d, stride2, aligned, pair)
     return dict(r=pl.r, gx=pl.gx, gy=pl.gy, tile=list(pl.tile), slab=pl.slab, threads=pl.threads, copy=pl.copy,
                 smem=pl.smem, grid=list(pl.grid), ctas=pl.ctas)
 
 
-def corr_backward_times(b, h, w, c, d, stride2):
+def corr_backward_times(b, h, w, c, d, stride2, pair=False):
     """(bytes time, operations time) in ms of one adjoint launch on an
     H100: g (B, H, W, D), f1 and f2 read once and gf1, gf2 written once,
     against a multiply and an add for each of gf1's and gf2's terms whose
-    partner lies inside the image, and a divide per output."""
+    partner lies inside the image, and a divide per gradient of a volume.
+    The pair: two g and three frames read, three gradients written, the
+    work of two volumes and the middle frame's add."""
     steps = d // stride2
     offsets = [i * stride2 for i in range(-steps, steps + 1)]
     n_disp = len(offsets) ** 2
-    nbytes = (b * h * w * n_disp + 4 * b * h * w * c) * 4
+    volumes, frames = (2, 3) if pair else (1, 2)
+    nbytes = (volumes * b * h * w * n_disp + 2 * frames * b * h * w * c) * 4
     inside = sum(max(0, h - abs(dy)) for dy in offsets) * sum(max(0, w - abs(dx)) for dx in offsets)
-    ops = 4 * b * c * inside + 2 * b * h * w * c
+    ops = volumes * (4 * b * c * inside + 2 * b * h * w * c) + (b * h * w * c if pair else 0)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
 
 
 def check_corr_backward(dev):
     """Phase 12: the adjoint kernel against its plain version in float32
     on every case of CORR_BWD_CASES (allclose rtol=atol=1e-5, K2's
-    tolerance: the same products summed in another order).  Returns the
-    max abs error."""
+    tolerance: the same products summed in another order), for one volume
+    and for the pair of a window (frames 0 and 2 against frame 1), whose
+    gradients must also equal two one-volume launches' bit for bit (frame
+    1's their sum).  Returns the max abs error."""
     gen = torch.Generator(device=dev).manual_seed(7)
     max_err = 0.0
     for name, b, h, w, c, d, s2 in CORR_BWD_CASES:
-        f1, f2 = window_frames(gen, name, b, h, w, c, dev)
+        window = case_window(gen, name, b, h, w, c, dev)
+        f1, f2 = window[:, 0], window[:, 1]
         aligned = correlation_kernel.aligned(f1, f2)
         check(not (aligned and name.startswith("misaligned")), f"adjoint {name}: the frames are aligned")
         g = torch.randn(b, h, w, num_corr_channels(d, s2), generator=gen, device=dev)
@@ -2361,10 +2371,22 @@ def check_corr_backward(dev):
         check(all(a.shape == r.shape == (b, h, w, c) for a, r in zip(got, want)), f"adjoint {name}: shapes")
         check(all(bool(torch.allclose(a, r, **CORR_TOL)) for a, r in zip(got, want)),
               f"cost volume adjoint {name}: max abs error {err}")
-        max_err = max(max_err, err)
+        gb = torch.randn(b, h, w, num_corr_channels(d, s2), generator=gen, device=dev)
+        pair = cost_volume_pair_backward(g, gb, window, d, s2)
+        want = cost_volume_pair_backward_plain(g, gb, window, d, s2)
+        other = cost_volume_backward(gb, window[:, 2], f2, d, s2)
+        torch.cuda.synchronize()
+        pair_err = float((pair - want).abs().max())
+        check(pair.shape == window.shape and bool(torch.allclose(pair, want, **CORR_TOL)),
+              f"cost volume adjoint pair {name}: max abs error {pair_err}")
+        check(torch.equal(pair[:, 0], got[0]) and torch.equal(pair[:, 2], other[0])
+              and torch.equal(pair[:, 1], got[1] + other[1]),
+              f"cost volume adjoint pair {name}: not the two one-volume launches' gradients")
+        max_err = max(max_err, err, pair_err)
         print(f"cost volume adjoint {name}: B={b} {h}x{w}x{c} d={d} stride2={s2}, frames of a window "
               f"(batch stride {f1.stride(0)}), plan {backward_plan(b, h, w, c, d, s2, aligned)}: max abs error "
-              f"{err:.3g}, allclose")
+              f"{err:.3g}, allclose; the pair (plan grid {backward_plan(b, h, w, c, d, s2, aligned, True)['grid']}) "
+              f"{pair_err:.3g}, equal to two launches")
     return max_err
 
 
@@ -2407,13 +2429,13 @@ def check_gradient_through_cost_volume(dev):
     base = route.shape[1] * route.shape[-1]  # the time-folded channels; the rest are the two cost volumes
     corr[..., base:].float().square().sum().backward()
     torch.cuda.synchronize()
-    check(cost_volume_backward.launches - before == 2, "slice 7: the adjoint kernel did not run twice")
+    check(cost_volume_backward.launches - before == 1, "slice 7: the adjoint kernel did not run once for both volumes")
     grad = model.stage1.conv0.Conv_0.weight.grad
     top = float(grad.abs().max()) if grad is not None else 0.0
     check(grad is not None and top > 0 and bool(torch.isfinite(grad).all()),
           f"slice 7: the stage-1 stem gets no gradient through the cost volume ({top})")
     print(f"slice 7 gradient through the cost volume (stage-1 route, B=2 windows at 128 px, bf16): the Corr output's "
-          f"graph holds {sorted(n for n in names if 'CostVolume' in n)}, 2 adjoint launches, the stem's largest "
+          f"graph holds {sorted(n for n in names if 'CostVolume' in n)}, 1 adjoint launch, the stem's largest "
           f"gradient {top:.3g}")
     return top
 
@@ -2456,21 +2478,23 @@ def time_window_step(dev, card):
         b, _, h, w, c = r.shape
         f = r.float()  # the window as the Corr layer hands it over
         f1, f2 = f[:, 0], f[:, 1]
-        g = torch.randn(b, h, w, num_corr_channels(d, 1), device=dev)
+        g, gb = (torch.randn(b, h, w, num_corr_channels(d, 1), device=dev) for _ in range(2))
         fwd = median_ms(lambda: cost_volume(f1, f2, d, 1), 20)
-        bwd = median_ms(lambda: cost_volume_backward(g, f1, f2, d, 1), 20)
-        bwd_plain = median_ms(lambda: cost_volume_backward_plain(g, f1, f2, d, 1), 3, warmup=1)
-        tb, to = corr_backward_times(b, h, w, c, d, 1)
+        bwd = median_ms(lambda: cost_volume_pair_backward(g, gb, f, d, 1), 20)
+        bwd_plain = median_ms(lambda: cost_volume_pair_backward_plain(g, gb, f, d, 1), 3, warmup=1)
+        single = median_ms(lambda: cost_volume_backward(g, f1, f2, d, 1), 20)
+        tb, to = corr_backward_times(b, h, w, c, d, 1, pair=True)
         fb, fo = corr_times(b, h, w, c, d, 1)
-        plan = backward_plan(b, h, w, c, d, 1, correlation_kernel.aligned(f1, f2))
+        plan = backward_plan(b, h, w, c, d, 1, correlation_kernel.aligned(*f.unbind(1)), pair=True)
         levels.append(dict(shape=[b, h, w, c], forward_ms=fwd, adjoint_ms=bwd, adjoint_plain_ms=bwd_plain,
-                           adjoint_bytes_ms=tb, adjoint_ops_ms=to, forward_bound_ms=max(fb, fo), adjoint_plan=plan))
-        print(f"slice 7 K2 on the step's routes B={b} {h}x{w}x{c} d={d} on {card}: forward {fwd:.4f} ms, adjoint "
-              f"{bwd:.4f} ms (plain {bwd_plain:.3f} ms, bound {max(tb, to):.4f} ms: bytes {tb:.4f}, operations "
-              f"{to:.4f}) with the plan {plan}")
+                           adjoint_bytes_ms=tb, adjoint_ops_ms=to, forward_bound_ms=max(fb, fo), adjoint_plan=plan,
+                           one_volume_adjoint_ms=single))
+        print(f"slice 7 K2 on the step's routes B={b} {h}x{w}x{c} d={d} on {card}: forward {fwd:.4f} ms, adjoint of "
+              f"the pair {bwd:.4f} ms (plain {bwd_plain:.3f} ms, bound {max(tb, to):.4f} ms: bytes {tb:.4f}, "
+              f"operations {to:.4f}; one volume's {single:.4f} ms) with the plan {plan}")
     figures["levels"] = levels
     figures["k2_forward_ms"] = 2 * sum(lv["forward_ms"] for lv in levels)
-    figures["k2_adjoint_ms"] = 2 * sum(lv["adjoint_ms"] for lv in levels)
+    figures["k2_adjoint_ms"] = sum(lv["adjoint_ms"] for lv in levels)
     print(f"slice 7 K2 a train step: forward {figures['k2_forward_ms']:.4f} ms + adjoint {figures['k2_adjoint_ms']:.4f} "
           f"ms over {CORR_LAUNCHES} + {CORR_BWD_LAUNCHES} launches, of the {ms:.3f} ms step")
     del model, state, batch
@@ -2722,8 +2746,8 @@ def main() -> int:
     step7 = slice7_figures["train_step"]
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
-        plain_ms=2 * sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
-        bound_ms=2 * sum(max(lv["adjoint_bytes_ms"], lv["adjoint_ops_ms"]) for lv in step7["levels"]),
+        plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
+        bound_ms=sum(max(lv["adjoint_bytes_ms"], lv["adjoint_ops_ms"]) for lv in step7["levels"]),
         bound_by=("bytes" if sum(lv["adjoint_bytes_ms"] for lv in step7["levels"])
                   >= sum(lv["adjoint_ops_ms"] for lv in step7["levels"]) else "operations"),
     )
@@ -2780,9 +2804,10 @@ def main() -> int:
             "library_ms": None,
             "match": True,
             "cases": len(CORR_BWD_CASES),
-            "per": f"one B={TRAIN_WINDOWS}-window train step: {CORR_BWD_LAUNCHES} launches",
+            "per": f"one B={TRAIN_WINDOWS}-window train step: {CORR_BWD_LAUNCHES} launches, one a level for the "
+                   "pair of volumes",
             "levels": [{**{k: lv[k] for k in ("shape", "adjoint_ms", "adjoint_plain_ms", "adjoint_bytes_ms",
-                                              "adjoint_ops_ms")}, "plan": lv["adjoint_plan"]}
+                                              "adjoint_ops_ms", "one_volume_adjoint_ms")}, "plan": lv["adjoint_plan"]}
                        for lv in step7["levels"]],
             "launches_slice7": k2_slice7[1],
         },

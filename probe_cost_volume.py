@@ -21,7 +21,12 @@ inputs, signed zeros aside.  The inputs come from a seeded generator on the
 card, the same in every run.  Where the package has `plan_backward`, each
 level prints its plan, and --sweep times every (R, column groups) of
 BACKWARD_CANDIDATES at slab widths of 16 channels to all of C, each plan
-held against the plain version first.
+held against the plain version first.  Where it has
+`cost_volume_pair_backward`, each level also times the pair launch (the
+Corr layer's two volumes of a window, frames 0 and 2 against frame 1)
+against what it replaces, two one-volume launches and the add of the middle
+frame's gradients, after holding it against the plain pair and, bit for
+bit, against those; --sweep times the pair at each slab width too.
 
 --forward times the forward (`cost_volume`) at slice 2's levels (B=32)
 under each plan (the register tile R, the displacement group rows gy, the
@@ -85,14 +90,14 @@ def digest(*ts: torch.Tensor) -> str:
     return h.hexdigest()[:16]
 
 
-def forced(ck, pl):
-    """`cost_volume_backward` under a forced plan, the module restored after
-    each call."""
-    def run(g, f1, f2):
+def forced(ck, pl, fn, *args):
+    """A call of `fn(*args, D, 1)` under a forced adjoint plan, the module
+    restored after each call."""
+    def run():
         saved = ck.plan_backward
         ck.plan_backward = lambda *a, **k: pl
         try:
-            return ck.cost_volume_backward(g, f1, f2, D, 1)
+            return fn(*args, D, 1)
         finally:
             ck.plan_backward = saved
     return run
@@ -103,10 +108,11 @@ def adjoint(args, prof, smi) -> None:
     sys.path.insert(0, str(Path(args.root).resolve()))
     from videoyolo_torch.ops import correlation_kernel as ck
 
-    planned = hasattr(ck, "plan_backward")
-    if args.sweep and not planned:
-        raise SystemExit(f"probe: {args.root} has no plan_backward to sweep")
+    planned, paired = hasattr(ck, "plan_backward"), hasattr(ck, "cost_volume_pair_backward")
+    if args.sweep and not paired:
+        raise SystemExit(f"probe: {args.root} has no plan_backward and pair adjoint to sweep")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gen_b = torch.Generator(device="cuda").manual_seed(1)  # the pair's second gradient
     for h, c in LEVELS:
         window = torch.randn(TRAIN_WINDOWS, 3, h, h, c, generator=gen, device="cuda")
         f1, f2 = window[:, 0], window[:, 1]
@@ -115,18 +121,43 @@ def adjoint(args, prof, smi) -> None:
         variants = {"kernel": lambda: ck.cost_volume_backward(g, f1, f2, D, 1)}
         plans = {}
         if args.sweep:
+            slabs = sorted({16, 32, 64, 128, 256, -(-c // 16) * 16} & set(range(16, c + 16, 16)))
             for r, groups in ck.BACKWARD_CANDIDATES:
-                for slab in sorted({16, 32, 64, 128, 256, -(-c // 16) * 16} & set(range(16, c + 16, 16))):
+                for slab in slabs:
                     pl = ck._make_backward(TRAIN_WINDOWS, h, h, c, 1, r, groups, STEPS, STEPS, slab, True)
-                    name = f"R{r}_threads{pl.threads}_slab{slab}"
-                    plans[name] = pl
-                    variants[name] = (lambda run: lambda: run(g, f1, f2))(forced(ck, pl))
+                    plans[f"R{r}_threads{pl.threads}_slab{slab}"] = pl
+                    variants[f"R{r}_threads{pl.threads}_slab{slab}"] = forced(ck, pl, ck.cost_volume_backward, g, f1, f2)
         for name, run in variants.items():
             got = run()
             torch.cuda.synchronize()
             if not all(torch.allclose(a, b, **TOL) for a, b in zip(got, want)):
                 err = max(float((a - b).abs().max()) for a, b in zip(got, want))
                 raise SystemExit(f"probe: {h}x{h}x{c} {name}: max abs error {err} against the plain adjoint")
+        pairs = {}
+        if paired:
+            gb = torch.randn(TRAIN_WINDOWS, h, h, STEPS * STEPS, generator=gen_b, device="cuda")
+            ga = g
+
+            def two():  # what the pair replaces: two launches and the middle frame's add
+                a, b = ck.cost_volume_backward(ga, f1, f2, D, 1), ck.cost_volume_backward(gb, window[:, 2], f2, D, 1)
+                return a[0], a[1] + b[1], b[0]
+
+            pairs["pair"] = lambda: ck.cost_volume_pair_backward(ga, gb, window, D, 1)
+            pairs["two_volumes"] = two
+            if args.sweep:
+                for slab in slabs:
+                    pl = ck._make_backward(TRAIN_WINDOWS, h, h, c, 1, 2, 4, STEPS, STEPS, slab, True, 4)
+                    plans[f"pair_slab{slab}"] = pl
+                    pairs[f"pair_slab{slab}"] = forced(ck, pl, ck.cost_volume_pair_backward, ga, gb, window)
+            want_pair = ck.cost_volume_pair_backward_plain(ga, gb, window, D, 1)
+            ref = torch.stack(two(), dim=1)
+            for name, run in pairs.items():
+                got = run()
+                got = torch.stack(got, dim=1) if isinstance(got, tuple) else got
+                torch.cuda.synchronize()
+                if not (torch.allclose(got, want_pair, **TOL) and torch.equal(got, ref)):
+                    raise SystemExit(f"probe: {h}x{h}x{c} {name}: not the plain pair adjoint within {TOL}, or not "
+                                     "two one-volume launches' gradients bit for bit")
         row = dict(level=f"{h}x{h}x{c}", batch=TRAIN_WINDOWS, root=args.root, card=smi,
                    digest=digest(*variants["kernel"]()))
         if planned:
@@ -135,9 +166,15 @@ def adjoint(args, prof, smi) -> None:
                                smem=pl.smem, ctas=pl.ctas)
         row["ms"] = statistics.median(prof.cuda_time_ms(variants["kernel"], iters=30))
         row["queued_ms"] = prof.queued_ms(variants["kernel"])
+        if paired:
+            pl = ck.plan_backward(TRAIN_WINDOWS, h, h, c, D, 1, pair=True)
+            row["pair_plan"] = dict(slab=pl.slab, ctas=pl.ctas)
+            row["pair_queued_ms"] = prof.queued_ms(pairs["pair"])
+            row["two_volumes_queued_ms"] = prof.queued_ms(pairs["two_volumes"])
         if args.sweep:
-            ms = {name: prof.queued_ms(variants[name]) for name in plans}
-            ms.update({name: prof.queued_ms(variants[name]) for name in reversed(list(plans))})
+            runs = {**variants, **pairs}
+            ms = {name: prof.queued_ms(runs[name]) for name in plans}
+            ms.update({name: prof.queued_ms(runs[name]) for name in reversed(list(plans))})
             row["sweep_queued_ms"] = dict(sorted(ms.items(), key=lambda kv: kv[1]))
             row["sweep_ctas"] = {name: pl.ctas for name, pl in plans.items()}
         print(json.dumps(row), flush=True)

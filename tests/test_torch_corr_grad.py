@@ -21,7 +21,9 @@ from videoyolo_tpu.models import layers as jlayers
 from videoyolo_tpu.ops.correlation import correlation as jax_correlation
 from videoyolo_tpu.ops.pallas_correlation import correlation_pallas
 from videoyolo_torch.models import layers
-from videoyolo_torch.ops.correlation import CostVolume, correlation, correlation_plain, num_corr_channels
+from videoyolo_torch.ops.correlation import (
+    CostVolume, CostVolumePair, correlation, correlation_plain, num_corr_channels,
+)
 from videoyolo_torch.ops.correlation_kernel import cost_volume_backward, cost_volume_backward_plain
 from videoyolo_torch.utils.flax_bridge import flax_to_state_dict
 
@@ -88,6 +90,34 @@ def test_cost_volume_function_cpu_route():
                                    correlation_plain(x[:, 0], x[:, 1], 2, 1, 1, 1), rtol=0, atol=0)
     # on the CPU `correlation` keeps to the plain version, which autograd differentiates
     assert correlation(x[:, 0], x[:, 1], 2, 1, 1, 1).grad_fn.name() != "CostVolumeBackward"
+
+
+def test_cost_volume_pair_cpu_route():
+    """CostVolumePair on a CPU window: its two volumes are correlation_plain
+    of frames 0 and 2 against frame 1, and its backward (the plain pair
+    adjoint) gives the window's gradient of autograd through two
+    correlation_plains, frame 1's the sum of both volumes'; a volume
+    without a gradient counts as zero; gradcheck in float64."""
+    win, g = _inputs(8, 2, 7, 9, 6, 2, 1)
+    gb = np.random.RandomState(9).randn(*g.shape).astype(np.float32)
+    x = torch.from_numpy(win).requires_grad_()
+    ca, cb = CostVolumePair.apply(x, 2, 1)
+    torch.testing.assert_close(ca, correlation_plain(x[:, 0], x[:, 1], 2, 1, 1, 1), rtol=0, atol=0)
+    torch.testing.assert_close(cb, correlation_plain(x[:, 2], x[:, 1], 2, 1, 1, 1), rtol=0, atol=0)
+    torch.autograd.backward((ca, cb), (torch.from_numpy(g), torch.from_numpy(gb)))
+    ref = x.detach().clone().requires_grad_()
+    torch.autograd.backward((correlation_plain(ref[:, 0], ref[:, 1], 2, 1, 1, 1),
+                             correlation_plain(ref[:, 2], ref[:, 1], 2, 1, 1, 1)),
+                            (torch.from_numpy(g), torch.from_numpy(gb)))
+    torch.testing.assert_close(x.grad, ref.grad, **GRAD_TOL)
+    x.grad = None
+    CostVolumePair.apply(x, 2, 1)[0].backward(torch.from_numpy(g))
+    ref.grad = None
+    correlation_plain(ref[:, 0], ref[:, 1], 2, 1, 1, 1).backward(torch.from_numpy(g))
+    torch.testing.assert_close(x.grad, ref.grad, **GRAD_TOL)
+    small = torch.randn(1, 3, 4, 5, 2, dtype=torch.float64, generator=torch.Generator().manual_seed(4),
+                        requires_grad=True)
+    assert torch.autograd.gradcheck(lambda v: CostVolumePair.apply(v, 1, 1), (small,))
 
 
 def test_adjoint_kernel_entry_raises_on_cpu_tensor():

@@ -26,8 +26,9 @@ def _ceil_div(a, b):
     return -(-a // b)
 
 
-def _assert_backward_plan(b, h, w, c, d, stride2, aligned=True):
-    pl = plan_backward(b, h, w, c, d, stride2, aligned)
+def _assert_backward_plan(b, h, w, c, d, stride2, aligned=True, pair=False):
+    pl = plan_backward(b, h, w, c, d, stride2, aligned, pair)
+    roles = 4 if pair else 2  # the pair: gf_a, gf_b and two halves of gf_m's slab
     steps = 2 * (d // stride2) + 1
     # an instance the kernel has: R, the displacement columns, the threads
     assert pl.r in k.BACKWARD_R and (pl.r == 1 or stride2 == 1)
@@ -43,8 +44,8 @@ def _assert_backward_plan(b, h, w, c, d, stride2, aligned=True):
     assert pl.smem == (win_h * (win_w * k.CHUNK + 4) + rows * (cols * dg + 1)) * 4 <= k.SMEM_BYTES
     # tiles cover the image, slabs the channels, each once
     tiles_y, tiles_x = _ceil_div(h, rows), _ceil_div(w, cols)
-    slabs = pl.grid[1] // 2
-    assert pl.grid == (tiles_y * tiles_x, 2 * slabs, b)
+    slabs = pl.grid[1] // roles
+    assert pl.grid == (tiles_y * tiles_x, roles * slabs, b)
     covered = torch.zeros(h, w, c, dtype=torch.int64)
     for t in range(pl.grid[0]):
         y0, x0 = t // tiles_x * rows, t % tiles_x * cols
@@ -155,6 +156,30 @@ def test_backward_plan_of_card_cases(name, b, h, w, c, d, stride2):
     the kernel takes (the misaligned case with 4-byte copies)."""
     pl = _assert_backward_plan(b, h, w, c, d, stride2, aligned=not name.startswith("misaligned"))
     assert plan_backward(b, h, w, c, d, stride2, not name.startswith("misaligned")) == pl
+
+
+@pytest.mark.parametrize("b,h,c,want", BACKWARD_LEVELS,
+                         ids=[f"B{b}_{h}x{h}x{c}" for b, h, c, _ in BACKWARD_LEVELS])
+def test_pair_plan_of_main_path(b, h, c, want):
+    """The pair launch (the Corr layer's two volumes of a window, three
+    gradients) at each level: the one-volume plan's tiling, four roles in
+    the grid (gf_a, gf_b and gf_m in two halves of the slab), and C cut for
+    their CTAs."""
+    pl = _assert_backward_plan(b, h, h, c, 4, 1, pair=True)
+    one = plan_backward(b, h, h, c, 4, 1)
+    assert (pl.r, pl.gx, pl.gy, pl.tile, pl.threads, pl.copy, pl.smem) == (
+        one.r, one.gx, one.gy, one.tile, one.threads, one.copy, one.smem)
+    assert pl.ctas >= 2 * k.SMS and (pl.ctas >= k.BACKWARD_MIN_CTAS or pl.slab == k.CHUNK)
+
+
+def test_pair_entry_refuses_cpu_tensors_and_other_windows():
+    window = torch.zeros(2, 3, 5, 6, 4)
+    g = torch.zeros(2, 5, 6, 25)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        k.cost_volume_pair_backward(g, g, window, 2)
+    with pytest.raises(ValueError, match=r"\(B, 3, H, W, C\) window"):
+        k.cost_volume_pair_backward(g, g, torch.zeros(2, 2, 5, 6, 4), 2)
+    assert k.cost_volume_backward.launches == 0
 
 
 def test_backward_card_cases_reach_the_tiling_edges():

@@ -336,9 +336,10 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
 // plan_backward) cuts C into slabs until the launch fills the card.
 //  * g staged once per CTA, not once per channel: the tile's 8 x 8 pixels
 //    x the displacements, in rows of 8 * dg + 1 floats (dg: the
-//    displacements rounded to 4 past a multiple of 8, so that the 16 pixels
-//    a warp reads lie in distinct banks at the main path's 81).  For gf2 it is staged shifted,
-//    g'[p, d] = g[p - o_d, d], zero where p - o_d lies outside the image: a
+//    displacements rounded to 4 past a multiple of 8, so that the 16
+//    pixels a warp reads lie in distinct banks at the main path's 81).  For
+//    gf2 it is staged shifted, g'[p, d] = g[p - o_d, d], zero where p - o_d
+//    lies outside the image: a
 //    gather of 4-byte copies, as many as of the tile's own g (20.7 KB at
 //    8x8 and d=4).  The unshifted window of g (tile + halo) would copy
 //    coalesced but take 83 KB, four times the shared memory of a CTA.
@@ -365,6 +366,20 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
 //    only where GX is a whole row), walked in order inside the CTA, the
 //    window and g staged per group; with one group (d <= 4 at stride2 1) g
 //    is staged once for all of the slab's chunks.
+//  * The pair (`pair`): the Corr layer compares frames a and b with the
+//    middle frame m, so one launch takes both volumes' gradients ga, gb and
+//    writes the three frames' gradients of the window: gf_a and gf_b as
+//    gf1 above (partner m), and gf_m = gf2 of (ga, a) + gf2 of (gb, b), which
+//    one CTA computes in two passes, the second added to the first as it is
+//    written (the same sum as the two gf2s added after, bit for bit).  Grid
+//    (tiles, 4 x slabs, B): a gf_m CTA takes half a slab, so that its two
+//    passes are as much work as another CTA's one (with whole slabs, 3
+//    roles, the gf_m CTAs ran last and the launch lost 36-41% to two
+//    one-volume launches at 26x26x512 and 13x13x1024).  It takes 0.7050 /
+//    0.5124 / 0.2512 ms at the three levels against 0.7435 / 0.4744 /
+//    0.2576 for two one-volume launches and their add (probe, same call):
+//    the launch is a wash; what it saves is autograd's scatter of four frame
+//    gradients into zeroed windows.
 // R and GX are template arguments, so the accumulators live in registers.
 // R is 2 (two warps a CTA) where stride2 == 1, else 1 (four warps); R=4 in
 // one warp was an instance and lost at every level: at 38 KB of shared
@@ -380,19 +395,27 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
 // computes, with 10 warps an SM to cover it.
 constexpr int kQuads = 2;            // float4s of channels a thread: 8 of a chunk's 16
 constexpr int kMaxBwdThreads = 128;  // 8 rows x 8 column groups (R=1) x 2 channel halves
-constexpr int kMaxSlabs = 32767;     // 2 x slabs is the grid's y extent
+constexpr int kMaxGridY = 65535;     // roles x slabs
 
 // floats a staged pixel of g takes for n displacements: at least n, and 4
 // past a multiple of 8
 __host__ __device__ constexpr int g_floats(int n) { return (n + 3) / 8 * 8 + 4; }
 
+// One volume: g, f1, f2 -> gf1, gf2.  The pair: g (ga), g2 (gb), f1 (frame
+// a), f2 (the middle frame), f3 (frame b) -> gf1 (gf_a), gf2 (gf_m), gf3
+// (gf_b), frames of one (B, 3, H, W, C) window gradient.
 struct BackwardParams {
   const float* g;
+  const float* g2;
   const float* f1;
   const float* f2;
+  const float* f3;
   float* gf1;
   float* gf2;
-  long long bs1, bs2;  // batch strides of f1, f2, elements
+  float* gf3;
+  long long bs1, bs2, bs3;  // batch strides of f1, f2, f3, elements
+  long long obs;            // batch stride of the gradients
+  int pair;
   int H, W, C, steps, s2;
   int tw, tiles_x, slab, gy, groups_x, groups, win_w, win_h, dg, grow;
   int vec;  // 16-byte copies, else 4-byte ones
@@ -471,8 +494,12 @@ __device__ __forceinline__ void accumulate(float4 (&acc)[R][kQuads], const float
   }
 }
 
+// One CTA's pass over its tile and channels cs0 .. cs1-1 for one volume:
+// out = sum_d g x part / C (gf1 from f2, or gf2 from f1 with FLIP), or
+// out += that where `add`; g, part and out point at the CTA's image.
 template <int R, int GX, bool FLIP>
-__device__ __forceinline__ void backward_tile(float* smem, const BackwardParams& p) {
+__device__ __forceinline__ void backward_pass(float* smem, const BackwardParams& p, int cs0, int cs1,
+                                              const float* g, const float* part, float* out, bool add) {
   const int w_row = row_floats(p.win_w);
   float* sw = smem;                    // [win_h][win_w][kChunk] + pad: the partner's window
   float* sg = smem + p.win_h * w_row;  // [kRows][tw * dg + 1]: g at the tile's pixels
@@ -481,15 +508,11 @@ __device__ __forceinline__ void backward_tile(float* smem, const BackwardParams&
   const int cx = threadIdx.x / 16 * R;        // first tile column
   const int y0 = (blockIdx.x / p.tiles_x) * kRows;
   const int x0 = (blockIdx.x % p.tiles_x) * p.tw;
-  const int cs0 = (blockIdx.y / 2) * p.slab, cs1 = min(p.C, cs0 + p.slab);
   const int s = p.steps / 2;
-  const long long plane = static_cast<long long>(p.H) * p.W;
-  const float* part = FLIP ? p.f1 + blockIdx.z * p.bs1 : p.f2 + blockIdx.z * p.bs2;
-  const float* g = p.g + blockIdx.z * plane * p.steps * p.steps;
-  float* out = (FLIP ? p.gf2 : p.gf1) + blockIdx.z * plane * p.C;
   const float* wt = sw + ty * w_row + cx * kChunk + half * 4 * kQuads;
   const float* gt = sg + ty * p.grow + cx * p.dg;
 
+  __syncthreads();  // a pass before this one is done with the shared memory
   if (p.groups == 1) stage_g<GX, FLIP>(sg, g, y0, x0, 0, 0, p);  // waited for with the first chunk
   for (int c0 = cs0; c0 < cs1; c0 += kChunk) {
     float4 acc[R][kQuads];
@@ -512,7 +535,8 @@ __device__ __forceinline__ void backward_tile(float* smem, const BackwardParams&
       __syncthreads();
       accumulate<R, GX, FLIP>(acc, wt, gt, min(p.gy, p.steps - iy0), w_row, p);
     }
-    // divided by C on the way out, 16 bytes at a time where C % 4 == 0
+    // divided by C on the way out (and added to what the first pass wrote),
+    // 16 bytes at a time where C % 4 == 0
     const int y = y0 + ty;
     const float norm = static_cast<float>(p.C);
 #pragma unroll
@@ -523,29 +547,54 @@ __device__ __forceinline__ void backward_tile(float* smem, const BackwardParams&
 #pragma unroll
       for (int q = 0; q < kQuads; ++q) {
         const int c = c0 + half * 4 * kQuads + q * 4;
-        const float4 a = make_float4(acc[r][q].x / norm, acc[r][q].y / norm, acc[r][q].z / norm,
-                                     acc[r][q].w / norm);
+        float4 a = make_float4(acc[r][q].x / norm, acc[r][q].y / norm, acc[r][q].z / norm, acc[r][q].w / norm);
         if (p.C % 4 == 0 && c < cs1) {
-          *reinterpret_cast<float4*>(o + c) = a;
+          float4* o4 = reinterpret_cast<float4*>(o + c);
+          if (add) {
+            const float4 prev = *o4;
+            a = make_float4(prev.x + a.x, prev.y + a.y, prev.z + a.z, prev.w + a.w);
+          }
+          *o4 = a;
         } else {
-          if (c < cs1) o[c] = a.x;
-          if (c + 1 < cs1) o[c + 1] = a.y;
-          if (c + 2 < cs1) o[c + 2] = a.z;
-          if (c + 3 < cs1) o[c + 3] = a.w;
+          const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (c + i < cs1) o[c + i] = add ? o[c + i] + v[i] : v[i];
+          }
         }
       }
     }
   }
 }
 
-// at least one CTA an SM, as the forward's instances
+// at least one CTA an SM, as the forward's instances.  blockIdx.y: the
+// slab and the role, the gradient the CTA writes: gf1 or gf2 of one volume
+// (2 roles); gf_a, gf_b, or gf_m over the first or the second half of the
+// slab (4 roles: a gf_m CTA makes two passes over half the channels, as much
+// work as the others)
 template <int R, int GX>
 __global__ void __launch_bounds__(kMaxBwdThreads, 1) cost_volume_backward_kernel(const BackwardParams p) {
   extern __shared__ __align__(16) float smem[];
-  if (blockIdx.y % 2 == 0) {
-    backward_tile<R, GX, false>(smem, p);
+  const int roles = p.pair ? 4 : 2, role = blockIdx.y % roles;
+  const bool flip = role == 1 + p.pair || role == 3;  // gf2, gf_m
+  int cs0 = blockIdx.y / roles * p.slab, cs1 = min(p.C, cs0 + p.slab);
+  if (p.pair && flip) {
+    const int half = (p.slab / 2 + kChunk - 1) / kChunk * kChunk;
+    cs0 += (role - 2) * half;
+    cs1 = min(cs1, cs0 + half);
+    if (cs0 >= cs1) return;  // a slab of one chunk has no second half
+  }
+  const long long b = blockIdx.z, gs = static_cast<long long>(p.H) * p.W * p.steps * p.steps;
+  if (!flip) {
+    // gf1, gf_a, gf_b: the pixel's own g against the frame it was compared with
+    backward_pass<R, GX, false>(smem, p, cs0, cs1, (role ? p.g2 : p.g) + b * gs, p.f2 + b * p.bs2,
+                                (role ? p.gf3 : p.gf1) + b * p.obs, false);
   } else {
-    backward_tile<R, GX, true>(smem, p);
+    // gf2 of each volume, the second added to the first
+    for (int k = 0; k < (p.pair ? 2 : 1); ++k) {
+      backward_pass<R, GX, true>(smem, p, cs0, cs1, (k ? p.g2 : p.g) + b * gs,
+                                 k ? p.f3 + b * p.bs3 : p.f1 + b * p.bs1, p.gf2 + b * p.obs, k > 0);
+    }
   }
 }
 
@@ -596,21 +645,27 @@ cudaError_t launch_backward_gx(int gx, const BackwardParams& p, int threads, int
 
 }  // namespace
 
-// g (B, H, W, D) f32, contiguous; f1, f2 (B, H, W, C) f32, each dense over
-// (H, W, C) with batch strides bs1, bs2 (elements); gf1, gf2 (B, H, W, C)
-// f32, contiguous, written whole.  The plan
+// One volume (pair == 0): g (B, H, W, D) f32, contiguous; f1, f2 (B, H, W,
+// C) f32, each dense over (H, W, C) with batch strides bs1, bs2 (elements);
+// gf1, gf2 (B, H, W, C) f32, contiguous, written whole; g2, f3, gf3 unused.
+// The pair (pair == 1): g, g2 the gradients of the volumes (f1, f2) and
+// (f3, f2); gf1, gf2, gf3 frames 0, 1, 2 of a contiguous (B, 3, H, W, C)
+// window gradient, written whole.  The plan
 // (ops/correlation_kernel.py:plan_backward): r pixels a thread, gx x gy
 // displacements a group, slab channels a CTA, `threads` threads (8 rows x
 // threads / 16 column groups x 2 channel halves), `copy` bytes a staging
-// copy (16 or 4), `smem` bytes of shared memory and a grid of (tiles, 2 x
-// slabs, B) CTAs; a plan that does not match the shapes, or that the
+// copy (16 or 4), `smem` bytes of shared memory and a grid of (tiles, 2 or
+// 4 x slabs, B) CTAs; a plan that does not match the shapes, or that the
 // kernel was not built for, is refused.  Returns the CUDA error of the
 // launch (0 on success).
-extern "C" int cost_volume_backward_launch(const void* g, const void* f1, const void* f2, void* gf1,
-                                           void* gf2, long long bs1, long long bs2, int B, int H, int W,
-                                           int C, int d, int s2, int r, int gx, int gy, int slab, int threads,
+extern "C" int cost_volume_backward_launch(const void* g, const void* g2, const void* f1, const void* f2,
+                                           const void* f3, void* gf1, void* gf2, void* gf3, long long bs1,
+                                           long long bs2, long long bs3, int B, int H, int W, int C, int d,
+                                           int s2, int pair, int r, int gx, int gy, int slab, int threads,
                                            int copy, int smem, int tiles, int slabs, void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1) return cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || C < 1 || d < 0 || s2 < 1 || (pair != 0 && pair != 1)) {
+    return cudaErrorInvalidValue;
+  }
   const int steps = 2 * (d / s2) + 1;
   if (!(r == 1 || (r == 2 && s2 == 1)) || threads % 32 != 0 || threads < 32 ||
       threads > kMaxBwdThreads || gx > steps || gy < 1 || gy > steps || (gy != 1 && gx != steps) ||
@@ -620,25 +675,32 @@ extern "C" int cost_volume_backward_launch(const void* g, const void* f1, const 
   const auto aligned = [&](const void* ptr, long long bs) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (B == 1 || bs % 4 == 0);
   };
-  if ((copy != 4 && copy != 16) || (copy == 16 && (C % 4 != 0 || !aligned(f1, bs1) || !aligned(f2, bs2)))) {
+  if ((copy != 4 && copy != 16) ||
+      (copy == 16 && (C % 4 != 0 || !aligned(f1, bs1) || !aligned(f2, bs2) || (pair && !aligned(f3, bs3))))) {
     return cudaErrorInvalidValue;
   }
   const BackwardGeometry geo = backward_geometry(H, W, C, steps, s2, r, threads / 16, gx, gy, slab);
-  if (geo.smem != smem || smem > kMaxSmem || geo.tiles != tiles || geo.slabs != slabs || slabs > kMaxSlabs) {
+  if (geo.smem != smem || smem > kMaxSmem || geo.tiles != tiles || geo.slabs != slabs ||
+      (2 + 2 * pair) * slabs > kMaxGridY) {
     return cudaErrorInvalidValue;
   }
   BackwardParams p;
   p.g = static_cast<const float*>(g);
+  p.g2 = static_cast<const float*>(pair ? g2 : g);
   p.f1 = static_cast<const float*>(f1);
   p.f2 = static_cast<const float*>(f2);
+  p.f3 = static_cast<const float*>(pair ? f3 : f1);
   p.gf1 = static_cast<float*>(gf1);
   p.gf2 = static_cast<float*>(gf2);
-  p.bs1 = bs1, p.bs2 = bs2;
+  p.gf3 = static_cast<float*>(pair ? gf3 : gf1);
+  p.bs1 = bs1, p.bs2 = bs2, p.bs3 = pair ? bs3 : bs1;
+  p.obs = static_cast<long long>(1 + 2 * pair) * H * W * C;
+  p.pair = pair;
   p.H = H, p.W = W, p.C = C, p.steps = steps, p.s2 = s2;
   p.tw = geo.tw, p.tiles_x = geo.tiles_x, p.slab = slab, p.gy = gy, p.groups_x = geo.groups_x;
   p.groups = geo.groups, p.win_w = geo.win_w, p.win_h = geo.win_h, p.dg = geo.dg, p.grow = geo.grow;
   p.vec = copy == 16;
-  const dim3 grid(tiles, 2 * slabs, B);
+  const dim3 grid(tiles, (2 + 2 * pair) * slabs, B);
   auto st = static_cast<cudaStream_t>(stream);
   return r == 1 ? launch_backward_gx<1>(gx, p, threads, smem, grid, st)
                 : launch_backward_gx<2>(gx, p, threads, smem, grid, st);

@@ -33,7 +33,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.correlation import correlation
+from ..ops.correlation import CostVolumePair, correlation
 from ..ops.int8_conv import dequant_leaky, int8_conv, quant_downsample, requantize
 
 BN_EPS = 1e-5
@@ -454,10 +454,13 @@ class Corr(nn.Module):
     keep='none' -> (B, n, H, W, D): the stacked cost volumes.
     `comp_mid` also compares the middle frame with itself.  Each frame goes
     to `correlation` as a slice of the window (its batch stride is the
-    window's), so the CUDA kernel reads it in place.  In train mode the
-    gradient reaches each frame through its own channels and through the
-    comparisons it takes part in (the middle frame through all of them),
-    and returns to the window's dtype through the cast's backward."""
+    window's), so the CUDA kernel reads it in place; on CUDA, t=3 without
+    `comp_mid` (kernel_size 1, stride 1) goes to `CostVolumePair`, whose
+    backward is one adjoint launch that writes the window's gradient.  In
+    train mode the gradient reaches each frame through its own channels and
+    through the comparisons it takes part in (the middle frame through all
+    of them), and returns to the window's dtype through the cast's
+    backward."""
 
     def __init__(
         self, d: int, t: int, kernel_size: int = 1, stride: int = 1, keep: str = "all",
@@ -479,14 +482,18 @@ class Corr(nn.Module):
             raise ValueError(f"Corr over t={self.t} frames got a window of {t}")
         mid = t // 2
         x32 = x.to(CORR_DTYPE)
-        corrs = [
-            correlation(
-                x32[:, i], x32[:, mid], self.d, kernel_size=self.kernel_size,
-                stride1=self.stride, stride2=self.stride,
-            )
-            for i in range(t)
-            if self.comp_mid or i != mid
-        ]
+        if x32.device.type == "cuda" and t == 3 and not self.comp_mid and self.kernel_size == 1 and self.stride == 1:
+            # K2 twice, and one adjoint launch for both volumes
+            corrs = list(CostVolumePair.apply(x32, self.d, self.stride))
+        else:
+            corrs = [
+                correlation(
+                    x32[:, i], x32[:, mid], self.d, kernel_size=self.kernel_size,
+                    stride1=self.stride, stride2=self.stride,
+                )
+                for i in range(t)
+                if self.comp_mid or i != mid
+            ]
         if self.keep == "none":
             return torch.stack(corrs, dim=1)
         if self.keep == "all":

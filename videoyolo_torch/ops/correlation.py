@@ -12,8 +12,10 @@ package does: kernel_size=1, stride1=1, multiply on CUDA tensors goes to
 `CostVolume`, whose forward is the CUDA kernel
 (`correlation_kernel.cost_volume`) and whose backward is the adjoint kernel
 (`correlation_kernel.cost_volume_backward`), whether a gradient is taken or
-not; a CPU tensor, and every other configuration on either device, to the
-plain version, which autograd differentiates.  A kernel that fails to build
+not (`CostVolumePair` takes the Corr layer's two volumes of a window of 3
+frames, with one adjoint launch for both); a CPU tensor, and every other
+configuration on either device, to the plain version, which autograd
+differentiates.  A kernel that fails to build
 or launch raises: nothing on the card falls back to the plain version.
 """
 from __future__ import annotations
@@ -21,9 +23,12 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
-from .correlation_kernel import cost_volume, cost_volume_backward, cost_volume_backward_plain
+from .correlation_kernel import (
+    cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_pair_backward,
+    cost_volume_pair_backward_plain,
+)
 
-__all__ = ["CostVolume", "correlation", "correlation_plain", "num_corr_channels"]
+__all__ = ["CostVolume", "CostVolumePair", "correlation", "correlation_plain", "num_corr_channels"]
 
 
 def num_corr_channels(max_displacement: int, stride2: int = 1) -> int:
@@ -95,6 +100,38 @@ class CostVolume(torch.autograd.Function):
         adjoint = cost_volume_backward if g.device.type == "cuda" else cost_volume_backward_plain
         gf1, gf2 = adjoint(g.contiguous(), f1, f2, *ctx.corr)
         return gf1, gf2, None, None
+
+
+class CostVolumePair(torch.autograd.Function):
+    """The two cost volumes of kernel_size=1, stride1=1, multiply that the
+    Corr layer takes of a (B, 3, H, W, C) window, frames 0 and 2 against
+    frame 1, with their adjoint in one launch:
+    `CostVolumePair.apply(window, max_displacement, stride2)` -> (the volume
+    of frame 0, the volume of frame 2).  On CUDA tensors the forward is two
+    K2 launches and the backward one launch of the adjoint kernel
+    (`cost_volume_pair_backward`), which writes the window's gradient whole:
+    frame 1's is the sum of both volumes' gradients, added in the kernel, so
+    autograd neither adds them nor scatters three frame gradients into
+    zeroed windows.  On CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, window, max_displacement: int, stride2: int):
+        ctx.save_for_backward(window)
+        ctx.corr = (max_displacement, stride2)
+        fa, fm, fb = window.unbind(1)
+        if window.device.type == "cuda":
+            return cost_volume(fa, fm, max_displacement, stride2), cost_volume(fb, fm, max_displacement, stride2)
+        return (correlation_plain(fa, fm, max_displacement, 1, 1, stride2),
+                correlation_plain(fb, fm, max_displacement, 1, 1, stride2))
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        (window,) = ctx.saved_tensors
+        b, _, h, w, _ = window.shape
+        shape = (b, h, w, num_corr_channels(*ctx.corr))
+        ga, gb = (torch.zeros(shape, device=window.device) if g is None else g.contiguous() for g in (ga, gb))
+        adjoint = cost_volume_pair_backward if window.device.type == "cuda" else cost_volume_pair_backward_plain
+        return adjoint(ga, gb, window, *ctx.corr), None, None
 
 
 def correlation(

@@ -8,7 +8,10 @@ another order).  `plan` chooses each launch's tile, register tile and
 displacement group from the shape; the C entry point checks it.
 
 `cost_volume_backward` is its adjoint, the gradients of f1 and f2 given the
-output's, in one launch cut as `plan_backward` says.  The TPU kernel has none: the JAX package
+output's, in one launch cut as `plan_backward` says;
+`cost_volume_pair_backward` the adjoint of the two volumes the Corr layer
+takes of a window of 3 frames (frames 0 and 2 against frame 1), in one
+launch.  The TPU kernel has none: the JAX package
 differentiates the XLA form (`videoyolo_tpu/ops/correlation.py:64-80`).  Its
 plain version, `cost_volume_backward_plain`, writes the adjoint out in torch
 ops, one shifted product per displacement.
@@ -155,7 +158,7 @@ class BackwardPlan(NamedTuple):
     threads: int
     copy: int  # bytes per staging copy: 16, or 4 where C or the inputs are not 16-byte aligned
     smem: int  # dynamic shared memory bytes: the partner's window and the tile's g
-    grid: Tuple[int, int, int]  # (pixel tiles, 2 gradients x slabs, images)
+    grid: Tuple[int, int, int]  # (pixel tiles, 2 roles (the pair: 4) x slabs, images)
     live: float  # share of the tiles' pixel slots that lie inside the image
 
     @property
@@ -169,22 +172,25 @@ def _g_floats(n: int) -> int:
     return (n + 3) // 8 * 8 + 4
 
 
-def _make_backward(b, h, w, c, stride2, r, column_groups, gx, gy, slab, aligned) -> BackwardPlan:
+def _make_backward(b, h, w, c, stride2, r, column_groups, gx, gy, slab, aligned, roles=2) -> BackwardPlan:
     tw = r * column_groups
     win_w, win_h = tw + (gx - 1) * stride2, ROWS + (gy - 1) * stride2
     smem = (win_h * _row_floats(win_w) + ROWS * (tw * _g_floats(gx * gy) + 1)) * 4
     tiles_y, tiles_x = _ceil_div(h, ROWS), _ceil_div(w, tw)
     return BackwardPlan(
         r, gx, gy, (ROWS, tw), slab, 16 * column_groups, 16 if aligned and c % 4 == 0 else 4, smem,
-        (tiles_y * tiles_x, 2 * _ceil_div(c, slab), b), h * w / (tiles_y * ROWS * tiles_x * tw),
+        (tiles_y * tiles_x, roles * _ceil_div(c, slab), b), h * w / (tiles_y * ROWS * tiles_x * tw),
     )
 
 
 def plan_backward(b: int, h: int, w: int, c: int, max_displacement: int, stride2: int,
-                  aligned: bool = True) -> BackwardPlan:
+                  aligned: bool = True, pair: bool = False) -> BackwardPlan:
     """How the adjoint kernel cuts one launch on (B, H, W, C) inputs;
-    `aligned` when both inputs' pointers and batch strides are 16-byte
-    aligned.  Raises ValueError on what the kernel cannot take.
+    `aligned` when the inputs' pointers and batch strides are 16-byte
+    aligned; `pair` for the launch of two volumes that share their second
+    frame (three gradients: four roles a slab, the shared frame's in two
+    halves of it).  Raises ValueError on what the kernel cannot
+    take.
 
     A CTA takes one image, one gradient, 8 rows x 8 columns of output pixels
     and a slab of channels; a thread R neighbouring pixels of a row (R = 2
@@ -210,16 +216,17 @@ def plan_backward(b: int, h: int, w: int, c: int, max_displacement: int, stride2
                          f"stride2 >= 1, got B, H, W, C = {b}, {h}, {w}, {c}, d={max_displacement}, "
                          f"stride2={stride2}")
     steps = _steps(max_displacement, stride2)
+    roles = 4 if pair else 2  # the pair: gf_a, gf_b and two halves of gf_m's slab
     r, groups = next(cand for cand in BACKWARD_CANDIDATES if cand[0] == 1 or stride2 == 1)
     widest = next(g for g in GROUP_X if g >= _balanced(steps, GROUP_X[-1]))
     pl = next(pl for gx in reversed([g for g in GROUP_X if g <= widest])
               for gy in (range(steps, 0, -1) if gx == steps else (1,))
-              for pl in [_make_backward(b, h, w, c, stride2, r, groups, gx, gy, CHUNK, aligned)]
+              for pl in [_make_backward(b, h, w, c, stride2, r, groups, gx, gy, CHUNK, aligned, roles)]
               if pl.smem <= SMEM_BYTES)
     n = 1
     while True:
         slab = _ceil_div(_ceil_div(c, n), CHUNK) * CHUNK
-        pl = pl._replace(slab=slab, grid=(pl.grid[0], 2 * _ceil_div(c, slab), b))
+        pl = pl._replace(slab=slab, grid=(pl.grid[0], roles * _ceil_div(c, slab), b))
         if pl.ctas >= BACKWARD_MIN_CTAS or slab == CHUNK:
             break
         n += 1
@@ -247,9 +254,9 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     bwd = lib.cost_volume_backward_launch
     bwd.argtypes = [
-        *[ctypes.c_void_p] * 5,  # g, f1, f2, gf1, gf2
-        ctypes.c_longlong, ctypes.c_longlong,  # batch strides of f1, f2
-        *[ctypes.c_int] * 6,  # B, H, W, C, max_displacement, stride2
+        *[ctypes.c_void_p] * 8,  # g, g2, f1, f2, f3, gf1, gf2, gf3
+        *[ctypes.c_longlong] * 3,  # batch strides of f1, f2, f3
+        *[ctypes.c_int] * 7,  # B, H, W, C, max_displacement, stride2, pair
         *[ctypes.c_int] * 9,  # the plan: r, gx, gy, slab, threads, copy, smem, tiles, slabs
         ctypes.c_void_p,  # stream
     ]
@@ -346,6 +353,40 @@ def cost_volume_backward_plain(
     return gf1 / c, gf2p[:, pad : pad + h, pad : pad + w].contiguous() / c
 
 
+def _launch_backward(g, g2, f1, f2, f3, gf1, gf2, gf3, max_displacement, stride2, pair):
+    b, h, w, c = f1.shape
+    pl = plan_backward(b, h, w, c, max_displacement, stride2, aligned(f1, f2, f3), pair)
+    fn = _library().cost_volume_backward_launch
+    with torch.cuda.device(f1.device):
+        err = fn(
+            g.data_ptr(), g2.data_ptr(), f1.data_ptr(), f2.data_ptr(), f3.data_ptr(), gf1.data_ptr(), gf2.data_ptr(),
+            gf3.data_ptr(), f1.stride(0), f2.stride(0), f3.stride(0), b, h, w, c, max_displacement, stride2, int(pair),
+            pl.r, pl.gx, pl.gy, pl.slab, pl.threads, pl.copy, pl.smem, pl.grid[0], pl.grid[1] // (4 if pair else 2),
+            torch.cuda.current_stream(f1.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"cost_volume_backward launch failed with CUDA error {err} ({pl})")
+    cost_volume_backward.launches += 1
+
+
+def _check_backward(gs, fs, max_displacement, stride2):
+    plain = "ops/correlation_kernel.py:cost_volume_backward_plain"
+    for i, f in enumerate(fs):
+        _check(f"f{i + 1}", f, "cost_volume_backward", plain)
+    if any(f.shape != fs[0].shape or f.device != fs[0].device for f in fs):
+        raise ValueError(f"cost_volume_backward takes frames of one shape and device, got "
+                         f"{[(tuple(f.shape), str(f.device)) for f in fs]}")
+    if max_displacement < 0 or stride2 < 1:
+        raise ValueError(f"cost_volume_backward takes d >= 0 and stride2 >= 1, got {max_displacement}, {stride2}")
+    b, h, w, _ = fs[0].shape
+    d = _steps(max_displacement, stride2) ** 2
+    for g in gs:
+        if (g.device != fs[0].device or g.dtype != torch.float32 or tuple(g.shape) != (b, h, w, d)
+                or not g.is_contiguous()):
+            raise ValueError(f"cost_volume_backward takes g ({b}, {h}, {w}, {d}) float32, contiguous, on "
+                             f"{fs[0].device}; got {tuple(g.shape)} {g.dtype} on {g.device}, strides {g.stride()}")
+
+
 def cost_volume_backward(
     g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor, max_displacement: int, stride2: int = 1
 ):
@@ -357,32 +398,44 @@ def cost_volume_backward(
     with their batch strides.  One launch writes both gradients, cut as
     `plan_backward` says; launches on the current stream and does not
     synchronise; `cost_volume_backward.launches` counts launches."""
-    plain = "ops/correlation_kernel.py:cost_volume_backward_plain"
-    _check("f1", f1, "cost_volume_backward", plain)
-    _check("f2", f2, "cost_volume_backward", plain)
-    if f1.shape != f2.shape or f1.device != f2.device:
-        raise ValueError(f"cost_volume_backward takes f1, f2 of one shape and device, got "
-                         f"{tuple(f1.shape)} on {f1.device}, {tuple(f2.shape)} on {f2.device}")
-    b, h, w, c = f1.shape
-    pl = plan_backward(b, h, w, c, max_displacement, stride2, aligned(f1, f2))
-    d = _steps(max_displacement, stride2) ** 2
-    if g.device != f1.device or g.dtype != torch.float32 or tuple(g.shape) != (b, h, w, d) or not g.is_contiguous():
-        raise ValueError(f"cost_volume_backward takes g ({b}, {h}, {w}, {d}) float32, contiguous, on "
-                         f"{f1.device}; got {tuple(g.shape)} {g.dtype} on {g.device}, strides {g.stride()}")
-    gf1 = torch.empty((b, h, w, c), dtype=torch.float32, device=f1.device)
+    _check_backward((g,), (f1, f2), max_displacement, stride2)
+    gf1 = torch.empty(f1.shape, dtype=torch.float32, device=f1.device)
     gf2 = torch.empty_like(gf1)
-    fn = _library().cost_volume_backward_launch
-    with torch.cuda.device(f1.device):
-        err = fn(
-            g.data_ptr(), f1.data_ptr(), f2.data_ptr(), gf1.data_ptr(), gf2.data_ptr(), f1.stride(0), f2.stride(0),
-            b, h, w, c, max_displacement, stride2,
-            pl.r, pl.gx, pl.gy, pl.slab, pl.threads, pl.copy, pl.smem, pl.grid[0], pl.grid[1] // 2,
-            torch.cuda.current_stream(f1.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"cost_volume_backward launch failed with CUDA error {err} ({pl})")
-    cost_volume_backward.launches += 1
+    _launch_backward(g, g, f1, f2, f1, gf1, gf2, gf1, max_displacement, stride2, False)
     return gf1, gf2
 
 
 cost_volume_backward.launches = 0
+
+
+def cost_volume_pair_backward_plain(
+    ga: torch.Tensor, gb: torch.Tensor, window: torch.Tensor, max_displacement: int, stride2: int = 1
+) -> torch.Tensor:
+    """The adjoint of the two volumes (frame 0, frame 1) and (frame 2,
+    frame 1) of a (B, 3, H, W, C) window, given their gradients ga, gb: the
+    window's gradient (B, 3, H, W, C), frame 1's the sum of both volumes'
+    gf2, in torch ops (`cost_volume_backward_plain` twice)."""
+    gf_a, gm_a = cost_volume_backward_plain(ga, window[:, 0], window[:, 1], max_displacement, stride2)
+    gf_b, gm_b = cost_volume_backward_plain(gb, window[:, 2], window[:, 1], max_displacement, stride2)
+    return torch.stack([gf_a, gm_a + gm_b, gf_b], dim=1)
+
+
+def cost_volume_pair_backward(
+    ga: torch.Tensor, gb: torch.Tensor, window: torch.Tensor, max_displacement: int, stride2: int = 1
+) -> torch.Tensor:
+    """`cost_volume_pair_backward_plain` on the card, in one launch of the
+    adjoint kernel: the window's gradient (B, 3, H, W, C) float32,
+    contiguous, written whole (frame 1's as gf2 of the first volume plus gf2
+    of the second, added in the kernel).
+
+    ga, gb: (B, H, W, D) float32, contiguous; window: (B, 3, H, W, C)
+    float32, each frame dense over (H, W, C).  Launches on the current
+    stream and does not synchronise; counted in
+    `cost_volume_backward.launches`."""
+    if window.dim() != 5 or window.shape[1] != 3:
+        raise ValueError(f"cost_volume_pair_backward takes a (B, 3, H, W, C) window, got {tuple(window.shape)}")
+    fa, fm, fb = window.unbind(1)
+    _check_backward((ga, gb), (fa, fm, fb), max_displacement, stride2)
+    out = torch.empty(window.shape, dtype=torch.float32, device=window.device)
+    _launch_backward(ga, gb, fa, fm, fb, out[:, 0], out[:, 1], out[:, 2], max_displacement, stride2, True)
+    return out
