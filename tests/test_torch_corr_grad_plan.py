@@ -10,13 +10,21 @@ the shared memory asked for.  `_walk` follows the kernel's walk over a
 plan (tile, gradient, slab, 16-channel chunk, displacement group, staged
 window and staged g, gf2's reversed columns) in torch ops: it must equal the
 plain adjoint bit for bit (the same products, added in the same order of
-d), signed zeros aside."""
+d), signed zeros aside.  The CUDA source itself is also built here, by g++
+against a CPU stand-in for the CUDA names it uses
+(`tests/cuda_cpu/cuda_on_cpu.h`), and run at small shapes through its C
+entry points."""
+import re
+import subprocess
+from pathlib import Path
+
 import chip_smoke
 import pytest
 import torch
 from torch.nn import functional as F
 
 from videoyolo_torch.ops import correlation_kernel as k
+from videoyolo_torch.ops.correlation import correlation_plain
 from videoyolo_torch.ops.correlation_kernel import cost_volume_backward_plain, plan_backward
 
 torch.set_num_threads(2)
@@ -250,3 +258,109 @@ def test_kernel_walk_under_every_tiling(r, groups, gx, gy, slab):
     pl = k._make_backward(2, 13, 11, 40, 1, r, groups, gx, gy, slab, True)
     for got, want in zip(_walk(pl, g, f1, f2, 4, 1), cost_volume_backward_plain(g, f1, f2, 4, 1)):
         assert torch.equal(got, want)
+
+
+# --- the CUDA source itself, built for the CPU -------------------------------
+# csrc/correlation.cu compiled by g++ against tests/cuda_cpu/cuda_on_cpu.h
+# (one OS thread per CUDA thread, cp.async as memcpy, NaN-filled shared
+# memory) and called through its C entry points with the plans above: the
+# adjoint within 1e-5 of the plain version, the pair launch equal to two
+# one-volume launches bit for bit, and the forward within 1e-5 of
+# correlation_plain.
+
+def _cpu_source(text: str) -> str:
+    def sub(pattern, repl, text, count=1):
+        out, n = re.subn(pattern, repl, text, flags=re.S)
+        assert n >= count, f"correlation.cu no longer has {pattern!r}"
+        return out
+
+    text = sub(re.escape("#include <cuda_runtime.h>"), f'#include "{CUDA_ON_CPU}"', text)
+    text = sub(re.escape("extern __shared__ __align__(16) float smem[];"), "float* smem = cuda_on_cpu_smem;", text, 2)
+    for width in (16, 4):
+        text = sub(rf"(void copy{width}\(float\* dst, const float\* src, bool valid\) \{{).*?\n\}}",
+                   rf"\1\n  if (valid) std::memcpy(dst, src, {width}); else std::memset(dst, 0, {width});\n}}", text)
+    text = sub(r"(int group_index\(\) \{).*?\n\}", r"\1\n  return blockIdx.y;\n}", text)
+    text = sub(re.escape('asm volatile("cp.async.wait_all;\\n" ::: "memory");'), ";", text, 2)
+    text = sub(r"(cost_volume\w*kernel<[\w, ]+>)<<<([^>]*)>>>\((\w+)\);", r"cuda_on_cpu_launch(\2, [&] { \1(\3); });",
+               text, 2)
+    assert "asm" not in text
+    return text
+
+
+CUDA_ON_CPU = Path(__file__).resolve().parent / "cuda_cpu" / "cuda_on_cpu.h"
+
+
+@pytest.fixture(scope="module")
+def cpu_library(tmp_path_factory):
+    """The cost-volume library built from csrc/correlation.cu for the CPU,
+    bound as `correlation_kernel._library` binds the card's."""
+    tmp = tmp_path_factory.mktemp("correlation_cpu")
+    src = tmp / "correlation_cpu.cpp"
+    src.write_text(_cpu_source(k.SOURCE.read_text()))
+    lib = tmp / "libcorrelation_cpu.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-o", str(lib), str(src)],
+                   check=True, capture_output=True, text=True)
+    build = k.build
+    k.build = lambda: (lib, "")
+    try:
+        return k._library.__wrapped__()
+    finally:
+        k.build = build
+
+
+def _cpu_backward(lib, pl, gs, fs, outs, d, s2, pair):
+    b, h, w, c = fs[0].shape
+    err = lib.cost_volume_backward_launch(
+        *(t.data_ptr() for t in (*gs, *fs, *outs)), *(f.stride(0) for f in fs), b, h, w, c, d, s2, int(pair),
+        pl.r, pl.gx, pl.gy, pl.slab, pl.threads, pl.copy, pl.smem, pl.grid[0], pl.grid[1] // (4 if pair else 2), None)
+    assert err == 0, pl
+
+
+# (name, B, H, W, C, d, stride2): ragged tiles and a C of a chunk and 4,
+# C = 3 (4-byte copies), a stride2 of 2 (R = 1), d = 0, a ragged group of
+# displacement columns, frames misaligned by one float
+CPU_CASES = [("ragged_d4", 2, 13, 11, 20, 4, 1), ("C3_d2", 2, 11, 9, 3, 2, 1), ("stride2", 1, 19, 18, 16, 4, 2),
+             ("d0", 2, 10, 10, 32, 0, 1), ("d5_ragged_group", 1, 14, 15, 16, 5, 1),
+             ("misaligned", 2, 10, 12, 32, 4, 1)]
+
+
+@pytest.mark.parametrize("name,b,h,w,c,d,s2", CPU_CASES, ids=[case[0] for case in CPU_CASES])
+def test_adjoint_source_on_the_cpu(cpu_library, name, b, h, w, c, d, s2):
+    gen = torch.Generator().manual_seed(len(name))
+    n = b * 3 * h * w * c
+    window = torch.randn(n + 1, generator=gen)[1:].view(b, 3, h, w, c) if name == "misaligned" else \
+        torch.randn(b, 3, h, w, c, generator=gen)
+    ga, gb = (torch.randn(b, h, w, (2 * (d // s2) + 1) ** 2, generator=gen) for _ in range(2))
+    fa, fm, fb = window.unbind(1)
+    aligned = k.aligned(fa, fm, fb)
+    one = [torch.full((b, h, w, c), float("nan")) for _ in range(4)]
+    _cpu_backward(cpu_library, plan_backward(b, h, w, c, d, s2, aligned), (ga, ga), (fa, fm, fa),
+                  (one[0], one[1], one[0]), d, s2, False)
+    _cpu_backward(cpu_library, plan_backward(b, h, w, c, d, s2, aligned), (gb, gb), (fb, fm, fb),
+                  (one[2], one[3], one[2]), d, s2, False)
+    for got, want in zip(one, (*cost_volume_backward_plain(ga, fa, fm, d, s2),
+                               *cost_volume_backward_plain(gb, fb, fm, d, s2))):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    pair = torch.full(window.shape, float("nan"))
+    _cpu_backward(cpu_library, plan_backward(b, h, w, c, d, s2, aligned, pair=True), (ga, gb), (fa, fm, fb),
+                  pair.unbind(1), d, s2, True)
+    assert torch.equal(pair, torch.stack([one[0], one[1] + one[3], one[2]], dim=1))
+    pf = k.plan(b, h, w, c, d, s2, k.aligned(fa, fm))
+    out = torch.full((b, h, w, (2 * (d // s2) + 1) ** 2), float("nan"))
+    assert cpu_library.cost_volume_launch(fa.data_ptr(), fm.data_ptr(), out.data_ptr(), fa.stride(0), fm.stride(0),
+                                          b, h, w, c, d, s2, pf.r, pf.gx, pf.gy, pf.threads, pf.copy, pf.smem,
+                                          pf.grid[0], pf.grid[1], None) == 0
+    torch.testing.assert_close(out, correlation_plain(fa, fm, d, 1, 1, s2), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("slab", [32, 48, 80])
+def test_pair_source_halves_of_a_slab_on_the_cpu(cpu_library, slab):
+    """The pair's middle-frame CTAs take the two halves of a slab (here 16
+    and 16, 32 and 16, 48 and 32 channels of 72)."""
+    gen = torch.Generator().manual_seed(slab)
+    window = torch.randn(2, 3, 13, 11, 72, generator=gen)
+    ga, gb = (torch.randn(2, 13, 11, 81, generator=gen) for _ in range(2))
+    pl = k._make_backward(2, 13, 11, 72, 1, 2, 4, 9, 9, slab, True, roles=4)
+    pair = torch.full(window.shape, float("nan"))
+    _cpu_backward(cpu_library, pl, (ga, gb), window.unbind(1), pair.unbind(1), 4, 1, True)
+    torch.testing.assert_close(pair, k.cost_volume_pair_backward_plain(ga, gb, window, 4, 1), rtol=1e-5, atol=1e-5)

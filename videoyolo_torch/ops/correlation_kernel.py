@@ -168,7 +168,8 @@ class BackwardPlan(NamedTuple):
 
 def _g_floats(n: int) -> int:
     """Floats a staged pixel of g takes for n displacements: at least n, and
-    4 past a multiple of 8 (pixels 4 apart fall 16 banks apart)."""
+    4 past a multiple of 8, so that the 16 pixels a warp reads lie in
+    distinct banks at the main path's 81."""
     return (n + 3) // 8 * 8 + 4
 
 
@@ -189,8 +190,7 @@ def plan_backward(b: int, h: int, w: int, c: int, max_displacement: int, stride2
     `aligned` when the inputs' pointers and batch strides are 16-byte
     aligned; `pair` for the launch of two volumes that share their second
     frame (three gradients: four roles a slab, the shared frame's in two
-    halves of it).  Raises ValueError on what the kernel cannot
-    take.
+    halves of it).  Raises ValueError on what the kernel cannot take.
 
     A CTA takes one image, one gradient, 8 rows x 8 columns of output pixels
     and a slab of channels; a thread R neighbouring pixels of a row (R = 2
@@ -210,7 +210,8 @@ def plan_backward(b: int, h: int, w: int, c: int, max_displacement: int, stride2
     memory an SM holds 5 CTAs, so warps come from threads a CTA.  About 512
     CTAs was enough: 13x13x1024 took 0.124 ms at 512 (slab 256), 0.141 at
     1,024 and 0.342 at 128 (no cut); 26x26x512 0.236 at 512, 0.256 at 1,024;
-    at 52x52x256 1,568 CTAs (no cut) and 3,136 were within 3%."""
+    at 52x52x256 1,568 CTAs (no cut) and 3,136 were within 3%.  The pair
+    at the rule's slabs was within 5% of the best slab swept at each level."""
     if min(b, h, w, c) < 1 or b > MAX_BATCH or max_displacement < 0 or stride2 < 1:
         raise ValueError(f"cost_volume_backward takes 1 <= B <= {MAX_BATCH}, H, W, C >= 1, d >= 0 and "
                          f"stride2 >= 1, got B, H, W, C = {b}, {h}, {w}, {c}, d={max_displacement}, "
