@@ -11,9 +11,9 @@ Phases; any failure exits non-zero:
      kernel (videoyolo_torch/csrc/correlation.cu) and the int8 conv kernels
      (videoyolo_torch/csrc/int8_conv.cu: K3 and the direct int8 cell), one
      nvcc each, started together, for sm_90a; no cost-volume instance that
-     the plan gives a case of CORR_CASES may spill, and the main path's
-     instances must hold 16-byte shared loads and 16-byte cp.async copies
-     in their SASS;
+     the plan gives a case of CORR_CASES may spill, nor any instance of its
+     adjoint, and the main path's instances must hold 16-byte shared loads
+     and 16-byte cp.async copies in their SASS;
   3. kernels vs plain, on the card: the NMS kernels (a mask launch and a
      scan launch a call) against ops/nms.py:nms_greedy_plain at the main
      path's shape and on edge cases, K above the old cap of 1,024 up to 8,192

@@ -5,6 +5,9 @@
 // configuration kernel_size=1, stride1=1, multiply.  Plain PyTorch version:
 // videoyolo_torch/ops/correlation.py:correlation_plain; Python wrapper and
 // work plan: videoyolo_torch/ops/correlation_kernel.py:cost_volume, plan.
+// Its adjoint (cost_volume_backward_kernel, below) has no TPU counterpart;
+// its wrappers and plan: cost_volume_backward, cost_volume_pair_backward,
+// plan_backward in the same module.
 //
 // What it computes, for f1, f2 (B, H, W, C) float32, displacement d and
 // stride2, with s = d / stride2, steps = 2s+1 and D = steps^2:
@@ -331,17 +334,17 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
 // Design: the forward's, turned round.  The sum runs over displacements,
 // not channels, so the channels are independent and C splits into slabs at
 // no cost.  One CTA per (image, tile of 8 rows x TW columns, gradient, slab
-// of channels), grid (tiles, 2 x slabs, B): blockIdx.y's low bit picks gf1
-// or gf2, so one launch writes both, and the plan (correlation_kernel.
-// plan_backward) cuts C into slabs until the launch fills the card.
+// of channels), grid (tiles, 2 x slabs, B) for one volume: blockIdx.y % 2
+// picks gf1 or gf2, so one launch writes both, and the plan
+// (correlation_kernel.plan_backward) cuts C into slabs until the launch
+// fills the card.
 //  * g staged once per CTA, not once per channel: the tile's 8 x 8 pixels
 //    x the displacements, in rows of 8 * dg + 1 floats (dg: the
 //    displacements rounded to 4 past a multiple of 8, so that the 16
 //    pixels a warp reads lie in distinct banks at the main path's 81).  For
 //    gf2 it is staged shifted, g'[p, d] = g[p - o_d, d], zero where p - o_d
-//    lies outside the image: a
-//    gather of 4-byte copies, as many as of the tile's own g (20.7 KB at
-//    8x8 and d=4).  The unshifted window of g (tile + halo) would copy
+//    lies outside the image: a gather of 4-byte copies, as many as of the
+//    tile's own g (20.7 KB at 8x8 and d=4).  The unshifted window of g (tile + halo) would copy
 //    coalesced but take 83 KB, four times the shared memory of a CTA.
 //  * The partner window staged per 16-channel chunk by the forward's
 //    stage(): f2 over the tile +- s*stride2 for gf1, f1 over the same window
@@ -375,20 +378,21 @@ cudaError_t launch_gx(int gx, int gy, const Params& p, int warps, int smem, dim3
 //    (tiles, 4 x slabs, B): a gf_m CTA takes half a slab, so that its two
 //    passes are as much work as another CTA's one (with whole slabs, 3
 //    roles, the gf_m CTAs ran last and the launch lost 36-41% to two
-//    one-volume launches at 26x26x512 and 13x13x1024).  It takes 0.7050 /
-//    0.5124 / 0.2512 ms at the three levels against 0.7435 / 0.4744 /
-//    0.2576 for two one-volume launches and their add (probe, same call):
+//    one-volume launches at 26x26x512 and 13x13x1024).  It takes 0.7057 /
+//    0.5128 / 0.2509 ms at the three levels against 0.7429 / 0.4742 /
+//    0.2587 for two one-volume launches and their add (probe, same call):
 //    the launch is a wash; what it saves is autograd's scatter of four frame
 //    gradients into zeroed windows.
 // R and GX are template arguments, so the accumulators live in registers.
 // R is 2 (two warps a CTA) where stride2 == 1, else 1 (four warps); R=4 in
 // one warp was an instance and lost at every level: at 38 KB of shared
 // memory an SM holds 5 CTAs, so its warps come from the threads of a CTA.
-// Measured (H100 80GB HBM3, 700 W limit, B=16, d=4): 0.3617 / 0.2347 /
-// 0.1243 ms a launch at 52x52x256 / 26x26x512 / 13x13x1024 with the queue
-// full (probe_cost_volume.py), 6.3 / 8.5 / 9.2x the bound, against 2.0835 /
-// 0.9828 / 0.4376 for one thread an element in the same call; 1.456 ms a
-// window train step (chip_smoke.py), against 7.05.  What bounds it now: the
+// Measured (H100 80GB HBM3, 700 W limit, B=16, d=4): one volume 0.3494 /
+// 0.2268 / 0.1232 ms a launch at 52x52x256 / 26x26x512 / 13x13x1024 with
+// the queue full (probe_cost_volume.py), 6.1 / 8.2 / 9.1x the bound,
+// against 2.0993 / 0.9904 / 0.4411 for one thread an element in the same
+// call; 1.468 ms a window train step over 3 pair launches (chip_smoke.py),
+// against 7.05 over 6; the step 67.9 -> 61.0 ms.  What bounds it now: the
 // shared-memory pipe, at 0.68 wavefronts a warp's multiply-add (20 16-byte
 // and 18 broadcast loads per 144), about 0.2 ms at 52x52x256 on its own,
 // and the staging's latency: each CTA waits for its chunk's copies, then
