@@ -148,6 +148,31 @@ Phases; any failure exits non-zero:
      from its checkpoint with the raw outputs and the first batch's
      detections bit-equal to the trained model's, and a warm windowed
      detect loop beside the step alone; K1 and K2 counted on each path.
+ 13. slice 9, YOLOv3Temporal t=5: K2, the kernel_size=3 correlation (K2,
+     then the 3x3 patch sum) and its gradient (K2's adjoint) against their
+     plain versions at the pyramid's shapes (52x52x256, d=4, B=16, 8 and 1
+     windows; each frame of a (B, 5) window against the middle one, and the
+     middle one against itself, f1 and f2 one tensor); Detector(YoloConfig(
+     num_classes=20, temporal=True, t_out=True, corr_pos="early",
+     corr_d=4), bf16) at 416 px (bench.py:462-471) answers B=1, 4 and 16
+     windows of 5 frames, K2 5 times and K1 once a request, outputs (B, 5,
+     100, .) in range; its Corr output on the model's own stage-1 features
+     and its bf16 heads against the plain correlation's, K1 on the 80 folded
+     images against the plain NMS; windows/s and frames/s at B=16, B=1
+     latency, K2 and the patch sum timed, a profiled request; the funnel
+     (t_out=False) at B=16, one K1 call and no K2; one request through the
+     entry point with --temp --mult_out; a float32 t_out train step (128
+     px, one window) card vs CPU within TRAIN_TOL; the B=8-window 416-px
+     bf16 t_out train step (YoloConfig(num_classes=30, temporal=True,
+     t_out=True, corr_d=4), per-timestep gt) timed as in phase 9, K2 and
+     its adjoint 5 launches each a step, each timed at the step's shape,
+     the adjoint of the middle frame against itself (two gradients, not
+     aliased); `overfit --config t5` to the JAX rule; phase 12's VID tree
+     as windows of 5 with per-frame labels: the train twin with --window
+     5,1 --temp --mult_out one epoch (B=8, validated with
+     VOCMApMetricTemporal), the detect twin (B=16) from its checkpoint
+     writing pred_o0..pred_o4 and vid.txt, voc.txt; K1 and K2 counted on
+     each path; a `{"slice9_t5": ...}` line.
 The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -191,10 +216,10 @@ from videoyolo_torch.data.transforms import (
 )
 from videoyolo_torch.models.darknet import Darknet53
 from videoyolo_torch.models.factory import YoloConfig, build_model
-from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights
+from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights, time_distributed
 from videoyolo_torch.models.yolo3 import YOLOv3, postprocess, select_topk_candidates
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
-from videoyolo_torch.ops.correlation import correlation_plain, num_corr_channels
+from videoyolo_torch.ops.correlation import correlation, correlation_plain, num_corr_channels, patch_correlation
 from videoyolo_torch.ops.color import apply_color
 from videoyolo_torch.ops.correlation_kernel import (
     cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_pair_backward,
@@ -2676,6 +2701,427 @@ def data_slice7(dev, card):
     return figures, k1["total"], k2["total"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: slice 9, YOLOv3Temporal t=5 (per-frame heads, the correlation
+# pyramid and the funnel) through detection, training and both twins
+# ---------------------------------------------------------------------------
+
+# the JAX bench's t=5 section (bench.py:462-471): t_out with the correlation
+# pyramid at d=4, kernel_size=3
+T5 = dict(num_classes=NUM_CLASSES, temporal=True, t_out=True, corr_pos="early", corr_d=4)
+T5_FRAMES = 5
+T5_BATCHES = (1, 4, 16)
+# per request or train step: each frame against the middle one, the middle one against itself
+T5_CORR_LAUNCHES = 5
+FUNNEL = dict(num_classes=NUM_CLASSES, temporal=True, t_out=False)
+# the train twin's model: `train_yolov3 --dataset vid --window 5,1 --temp --mult_out --corr_d 4`
+T5_TRAIN = dict(num_classes=30, temporal=True, t_out=True, corr_d=4)
+T5_TRAIN_WINDOWS = 8  # 40 frames
+T5_DETECT_BATCH = 16
+# (name, B, H, W, C, d): the pyramid's cost volume at 416 px in detection
+# (B=16 and B=1 windows) and training (B=8), then an odd size; each volume
+# takes a frame of a (B, 5, H, W, C) window against the middle one, and
+# "mid" the middle frame against itself (one tensor for f1 and f2)
+T5_CORR_CASES = [
+    ("detect_52x52x256", 16, 52, 52, 256, 4),
+    ("detect_B1", 1, 52, 52, 256, 4),
+    ("train_52x52x256", 8, 52, 52, 256, 4),
+    ("d2_13x11x64", 2, 13, 11, 64, 2),
+]
+
+
+def t5_window(gen, b, h, w, c, dev):
+    return torch.randn(b, T5_FRAMES, h, w, c, generator=gen, device=dev)
+
+
+def check_t5_kernels(dev):
+    """Phase 13: K2, the kernel_size=3 correlation composed of K2 and the
+    patch sum (`ops/correlation.correlation` on CUDA tensors), and the
+    gradient through it (K2's adjoint) against their plain versions on
+    every case of T5_CORR_CASES, each frame of a window against the middle
+    frame and the middle frame against itself (allclose rtol=atol=1e-5).
+    Returns the max abs errors (forward, composed, adjoint)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = dict(forward=0.0, composed=0.0, adjoint=0.0)
+    for name, b, h, w, c, d in T5_CORR_CASES:
+        window = t5_window(gen, b, h, w, c, dev)
+        mid = window[:, T5_FRAMES // 2]
+        for i in (0, T5_FRAMES // 2):
+            f1 = mid if i == T5_FRAMES // 2 else window[:, i]  # the middle frame: one tensor for both
+            k1 = cost_volume(f1, mid, d, 1)
+            p1 = correlation_plain(f1, mid, d, 1, 1, 1)
+            before = cost_volume.launches
+            k3 = correlation(f1, mid, d, kernel_size=3, stride1=1, stride2=1)
+            p3 = correlation_plain(f1, mid, d, 3, 1, 1)
+            torch.cuda.synchronize()
+            check(cost_volume.launches - before == 1, f"t5 {name}: the kernel_size=3 route did not launch K2 once")
+            e1, e3 = float((k1 - p1).abs().max()), float((k3 - p3).abs().max())
+            check(bool(torch.allclose(k1, p1, **CORR_TOL)), f"t5 cost volume {name} frame {i}: max abs error {e1}")
+            check(bool(torch.allclose(k3, p3, **CORR_TOL)),
+                  f"t5 kernel_size=3 correlation {name} frame {i}: max abs error {e3}")
+            errs["forward"], errs["composed"] = max(errs["forward"], e1), max(errs["composed"], e3)
+        # the gradient through the composed route, frame 0 and the middle frame against itself
+        g = torch.randn(b, h, w, num_corr_channels(d, 1), generator=gen, device=dev)
+        before = cost_volume_backward.launches
+        grads = []
+        for fn in (lambda a, m: correlation(a, m, d, kernel_size=3, stride1=1, stride2=1),
+                   lambda a, m: correlation_plain(a, m, d, 3, 1, 1)):
+            x = window.detach().requires_grad_()
+            xm = x[:, T5_FRAMES // 2]
+            ((fn(x[:, 0], xm) * g).sum() + (fn(xm, xm) * g).sum()).backward()
+            grads.append(x.grad)
+        torch.cuda.synchronize()
+        check(cost_volume_backward.launches - before == 2, f"t5 {name}: the gradient did not launch K2's adjoint twice")
+        e = float((grads[0] - grads[1]).abs().max())
+        check(bool(torch.allclose(grads[0], grads[1], **CORR_TOL)),
+              f"t5 kernel_size=3 correlation gradient {name}: max abs error {e}")
+        errs["adjoint"] = max(errs["adjoint"], e)
+        print(f"t5 cost volume {name}: B={b} {h}x{w}x{c} d={d}, frames of a (B, 5) window, the middle one "
+              f"against itself too: K2 vs plain {errs['forward']:.3g}, the kernel_size=3 route (K2 + patch sum) "
+              f"vs correlation_plain(kernel_size=3) {errs['composed']:.3g}, its gradient (K2's adjoint) vs "
+              f"autograd of the plain version {e:.3g}, allclose")
+    return errs
+
+
+class PlainCorr(torch.nn.Module):
+    """The Corr layer of the pyramid (keep='none', comp_mid) with the plain
+    correlation in the kernels' place."""
+
+    def __init__(self, corr):
+        super().__init__()
+        self.d, self.k = corr.d, corr.kernel_size
+
+    def forward(self, x):
+        x32 = x.float()
+        mid = x32[:, x.shape[1] // 2]
+        return torch.stack([correlation_plain(x32[:, i], mid, self.d, self.k, 1, 1) for i in range(x.shape[1])], 1)
+
+
+def t5_windows(rs, b, size=SIZE):
+    """(B, 5, S, S, 3) uint8 windows of neighbouring frames of one clip."""
+    clip = rs.randint(0, 256, (b + T5_FRAMES - 1, size, size, 3)).astype(np.uint8)
+    return np.stack([clip[i:i + T5_FRAMES] for i in range(b)])
+
+
+def serve_t5(rs, dev, card):
+    """Phase 13, detection: the t=5 pyramid model (T5) answers B=1, 4 and
+    16 windows; K2 5 times and K1 once a request; the composed route on the
+    model's own stage-1 features and the heads on it against the plain
+    version; times; the funnel (FUNNEL) at B=16; the entry point.  Returns
+    (figures, K1 launches, K2 launches)."""
+    figures, k1, k2 = {}, {}, {}
+    t0 = time.perf_counter()
+    det = Detector(YoloConfig(**T5), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0)
+    print(f"t5 Detector (YOLOv3Temporal, t_out, corr pyramid d={T5['corr_d']}) built on {det.device} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    requests = [t5_windows(rs, b) for b in T5_BATCHES]
+    nms_greedy.launches = cost_volume.launches = 0
+    outs, made = [], []
+    for x in requests:
+        before = cost_volume.launches, nms_greedy.launches
+        outs.append(det(x))
+        made.append((cost_volume.launches - before[0], nms_greedy.launches - before[1]))
+    torch.cuda.synchronize()
+    k1["detect"], k2["detect"] = nms_greedy.launches, cost_volume.launches
+    check(all(m == (T5_CORR_LAUNCHES, 1) for m in made), f"t5: launches (K2, K1) per request {made}")
+    for out, b in zip(outs, T5_BATCHES):
+        check(all(o.shape[:3] == (b, T5_FRAMES, POST_NMS) for o in out), f"t5 B={b}: outputs {[o.shape for o in out]}")
+    check_detections("t5 (frames folded)", [tuple(o.flatten(0, 1) for o in out) for out in outs],
+                     [b * T5_FRAMES for b in T5_BATCHES])
+
+    # the B=16 request step by step: the composed route on the model's own
+    # stage-1 features against the plain version, and the heads on each
+    m = det.model
+    x16 = torch.from_numpy(requests[-1]).to(dev)
+    with torch.inference_mode():
+        xn = to_normalized(x16, dtype=det.dtype)
+        y = time_distributed(m.stage1, xn)
+        kern = m.corr(y)
+        plain = PlainCorr(m.corr)(y)
+        err = float((kern - plain).abs().max())
+        check(kern.shape == (16, T5_FRAMES, SIZE // 8, SIZE // 8, num_corr_channels(T5["corr_d"], 1))
+              and bool(torch.allclose(kern, plain, **CORR_TOL)),
+              f"t5 B=16 Corr (kernel_size=3): kernel route vs plain max abs error {err}")
+        figures["corr_route_max_abs_err"] = err
+        print(f"t5 B=16 Corr(d={T5['corr_d']}, kernel_size=3, keep='none', comp_mid) on the model's stage-1 "
+              f"features {tuple(kern.shape)}: K2 + patch sum vs plain max abs error {err:.3g}, allclose")
+        corr = m.corr
+        heads = [m(xn)]
+        m.corr = PlainCorr(corr)
+        try:
+            heads.append(m(xn))
+        finally:
+            m.corr = corr
+    for i, name in enumerate(("boxes", "scores")):
+        a, b_ = (h[i].clamp(0, SIZE) if name == "boxes" else h[i] for h in heads)
+        e = (a - b_).abs()
+        e_max, e_mean, tol = float(e.max()), float(e.mean()), HEAD_TOL[name]
+        print(f"t5 B=16 {name} {tuple(a.shape)} bf16, kernel vs plain correlation: max abs {e_max:.3g} "
+              f"(tol {tol['max']}), mean abs {e_mean:.3g} (tol {tol['mean']}), {float((e == 0).float().mean()):.4f} equal")
+        check(e_max <= tol["max"] and e_mean <= tol["mean"],
+              f"t5 B=16 {name}: kernel vs plain correlation, max {e_max}, mean {e_mean}")
+        figures[f"head_{name}_max_abs"] = e_max
+
+    # times: the request, the forward, K2 and the patch sum on the model's features
+    x1 = torch.from_numpy(requests[0]).to(dev)
+    with torch.inference_mode():
+        t_fwd = median_ms(lambda: m(xn), 10)
+        t16 = median_ms(lambda: det(x16), 10)
+        t1 = median_ms(lambda: det(x1), 30, warmup=5)
+        f = y.float()
+        f1, fm = f[:, 0], f[:, T5_FRAMES // 2]
+        d = T5["corr_d"]
+        vol = cost_volume(f1, fm, d, 1)
+        k_ms = median_ms(lambda: cost_volume(f1, fm, d, 1), 50)
+        patch_ms = median_ms(lambda: patch_correlation(lambda *a: vol, f1, fm, d, 3), 50)
+        p_ms = median_ms(lambda: correlation_plain(f1, fm, d, 1, 1, 1), 10)
+        p3_ms = median_ms(lambda: correlation_plain(f1, fm, d, 3, 1, 1), 10)
+    b, h, w, c = f1.shape
+    tb, to = corr_times(b, h, w, c, d, 1)
+    pl = correlation_kernel.plan(b, h, w, c, d, 1, correlation_kernel.aligned(f1, fm))
+    figures.update(
+        request_ms=t16, windows_s=16 / t16 * 1e3, frames_s=16 * T5_FRAMES / t16 * 1e3, forward_ms=t_fwd,
+        latency_b1_ms=t1,
+        k2=dict(shape=[b, h, w, c], ms=k_ms, plain_ms=p_ms, bytes_ms=tb, ops_ms=to, patch_sum_ms=patch_ms,
+                plain_k3_ms=p3_ms, launches=T5_CORR_LAUNCHES,
+                plan=dict(r=pl.r, gx=pl.gx, gy=pl.gy, tile=list(pl.tile), threads=pl.threads, copy=pl.copy,
+                          ctas=pl.ctas)))
+    print(f"t5 K2 on the model's stage-1 features B={b} {h}x{w}x{c} d={d} on {card}: {k_ms:.4f} ms a launch "
+          f"(plain {p_ms:.3f} ms, bound {max(tb, to):.4f} ms: bytes {tb:.4f}, operations {to:.4f}), the patch sum "
+          f"and divide {patch_ms:.4f} ms after it, correlation_plain(kernel_size=3) {p3_ms:.3f} ms; plan {pl}")
+    figures["profile"] = profile_steps([("t5 B=16 windows", det, x16, 3, 12)], card).get("t5 B=16 windows")
+    print(f"t5 B=16 windows of {T5_FRAMES} at {SIZE} px bf16 on {card}: {figures['windows_s']:.1f} windows/s, "
+          f"{figures['frames_s']:.1f} frames/s ({t16:.3f} ms/request, forward {t_fwd:.3f}; K2 {T5_CORR_LAUNCHES} x "
+          f"{k_ms:.4f} ms + patch sums); B=1 window {t1:.3f} ms/request")
+
+    # K1 on the folded B*T images against the plain NMS
+    with torch.inference_mode():
+        boxes, scores = m(xn)
+        cands = select_topk_candidates(boxes.flatten(0, 1), scores.flatten(0, 1), topk=NMS_TOPK)
+        got = nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+        want = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+          "t5 K1 on the B*T = 80 folded images: not the plain NMS's rows")
+    figures["k1_80_images_ms"] = median_ms(lambda: nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS,
+                                                              return_keep=False), 50)
+    print(f"t5 K1 on the {cands.shape[0]} folded images (K={cands.shape[1]}): equal to the plain NMS, "
+          f"{figures['k1_80_images_ms']:.4f} ms a call")
+    del det, m
+    torch.cuda.empty_cache()
+
+    # the funnel: one set of detections a window, one K1 call, no K2
+    fdet = Detector(YoloConfig(**FUNNEL), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0)
+    nms_greedy.launches = cost_volume.launches = 0
+    out = fdet(x16)
+    torch.cuda.synchronize()
+    k1["funnel"] = nms_greedy.launches
+    check((nms_greedy.launches, cost_volume.launches) == (1, 0),
+          f"t5 funnel: launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)}")
+    check_detections("t5 funnel", [out], [16])
+    tf = median_ms(lambda: fdet(x16), 10)
+    figures["funnel"] = dict(request_ms=tf, windows_s=16 / tf * 1e3)
+    print(f"t5 funnel (5 -> 3 -> 1, 3-D cells) B=16 windows at {SIZE} px bf16 on {card}: {16 / tf * 1e3:.1f} "
+          f"windows/s ({tf:.3f} ms/request), 1 K1 call, no K2")
+    del fdet
+    torch.cuda.empty_cache()
+
+    # the entry point, as a user runs it: one request of 4 windows
+    nms_greedy.launches = cost_volume.launches = 0
+    preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "4", "--num_requests", "1", "--seed", "1",
+                         "--dtype", "bf16", "--window", f"{T5_FRAMES},1", "--temp", "--mult_out", "--corr_pos",
+                         "early", "--corr_d", str(T5["corr_d"])])
+    made = cost_volume.launches, nms_greedy.launches
+    k1["entry_point"], k2["entry_point"] = made[1], made[0]
+    check(made == (T5_CORR_LAUNCHES, 1), f"t5 entry point: launches (K2, K1) {made}")
+    entries = check_entry_point(preds, 4 * T5_FRAMES)
+    print(f"t5 entry point: {len(entries)} normalised detections over 4 windows x {T5_FRAMES} frames, in range")
+    return figures, k1, k2
+
+
+def t5_train_batch(rs, b, size, device):
+    """`window_batch` for t=5 with per-timestep gt: (B, 5, S, S, 3) uint8
+    windows, one normalize-only colour map a window, gt row 0 [10, 10, 100,
+    100] class 1 in every frame, (B, 5, TRAIN_ROWS, .)."""
+    batch = train_batch(rs, b, size, "cpu")
+    batch["image"] = torch.from_numpy(t5_windows(rs, b, size))
+    for k in ("gt_boxes", "gt_ids"):
+        batch[k] = batch[k][:, None].expand((-1, T5_FRAMES) + batch[k].shape[1:]).contiguous()
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def t5_train_model(dtype=torch.bfloat16):
+    model = build_model(YoloConfig(**T5_TRAIN, dtype=dtype))
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def train_t5(dev, card):
+    """Phase 13, training: the B=8-window 416-px bf16 t_out train step
+    (windows/s, frames/s, peak memory, a profiled step's idle share, K2 and
+    its adjoint 5 launches each a step, each timed at the step's shape
+    against its plain version and bound), a float32 step card vs CPU.
+    Returns (figures, K2 launches (forward, adjoint))."""
+    figures = {}
+    figures["card_vs_cpu"] = check_train_card_vs_cpu(
+        "t5", t5_train_model(dtype=None), lambda device: t5_train_batch(np.random.RandomState(1), 1, 128, device),
+        T5_TRAIN["num_classes"], "128 px, B=1 window of 5 frames, per-timestep gt")
+    torch.cuda.empty_cache()
+    model = t5_train_model().to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+    step = make_train_step(model, num_classes=T5_TRAIN["num_classes"])
+    batch = t5_train_batch(np.random.RandomState(0), T5_TRAIN_WINDOWS, SIZE, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=10, warmup=3))
+    peak = torch.cuda.max_memory_allocated()
+    cost_volume.launches = cost_volume_backward.launches = 0
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    torch.cuda.synchronize()
+    launches = (cost_volume.launches, cost_volume_backward.launches)
+    check(launches == (T5_CORR_LAUNCHES, T5_CORR_LAUNCHES), f"t5 train step: K2 (forward, adjoint) launches {launches}")
+    check(all(np.isfinite(v) for v in losses.values()), f"t5 train step losses not finite: {losses}")
+    prof = profile_steps([(f"t5 train B={T5_TRAIN_WINDOWS} windows", lambda _: step(state, batch), None, 1, 14)], card)
+    idle = next(iter(prof.values()), {}).get("idle_share")
+    n = T5_TRAIN_WINDOWS
+    figures.update(ms=ms, windows_s=n / ms * 1e3, frames_s=n * T5_FRAMES / ms * 1e3, peak_gib=peak / 2**30,
+                   idle_share=idle, launches=dict(zip(("forward", "adjoint"), launches)), losses=losses)
+    print(f"t5 train step B={n} windows of {T5_FRAMES} frames at {SIZE} px bf16, per-timestep heads and gt, on "
+          f"{card}: {figures['windows_s']:.1f} windows/s, {figures['frames_s']:.1f} frames/s ({ms:.3f} ms/step, "
+          f"median of 10 after 3 warm), peak memory {peak / 2**30:.2f} GiB, idle share {idle}, K2 launches a step: "
+          f"{launches[0]} forward + {launches[1]} adjoint; losses {losses}")
+    # K2 and its adjoint at the step's shape, on its own stage-1 features
+    model.eval()
+    with torch.no_grad():
+        y = time_distributed(model.stage1, apply_color(batch["image"], batch["color"]).to(torch.bfloat16)).float()
+    f1, fm = y[:, 0], y[:, T5_FRAMES // 2]
+    b, h, w, c = f1.shape
+    d = T5_TRAIN["corr_d"]
+    g = torch.randn(b, h, w, num_corr_channels(d, 1), device=dev)
+    fwd = median_ms(lambda: cost_volume(f1, fm, d, 1), 20)
+    bwd = median_ms(lambda: cost_volume_backward(g, f1, fm, d, 1), 20)
+    bwd_mid = median_ms(lambda: cost_volume_backward(g, fm, fm, d, 1), 20)
+    bwd_plain = median_ms(lambda: cost_volume_backward_plain(g, f1, fm, d, 1), 3, warmup=1)
+    got, want = cost_volume_backward(g, fm, fm, d, 1), cost_volume_backward_plain(g, fm, fm, d, 1)
+    torch.cuda.synchronize()
+    err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+    check(all(bool(torch.allclose(a, r, **CORR_TOL)) for a, r in zip(got, want))
+          and got[0].data_ptr() != got[1].data_ptr(),
+          f"t5 K2 adjoint, the middle frame against itself: max abs error {err}, or the gradients alias")
+    tb, to = corr_backward_times(b, h, w, c, d, 1)
+    fb, fo = corr_times(b, h, w, c, d, 1)
+    plan = backward_plan(b, h, w, c, d, 1, correlation_kernel.aligned(f1, fm))
+    figures["k2"] = dict(shape=[b, h, w, c], forward_ms=fwd, forward_bytes_ms=fb, forward_ops_ms=fo,
+                         adjoint_ms=bwd, adjoint_mid_ms=bwd_mid, adjoint_plain_ms=bwd_plain, adjoint_bytes_ms=tb,
+                         adjoint_ops_ms=to, adjoint_plan=plan, adjoint_mid_max_abs_err=err)
+    print(f"t5 K2 at the train step's shape B={b} {h}x{w}x{c} d={d} on {card}: forward {fwd:.4f} ms (bound "
+          f"{max(fb, fo):.4f}), adjoint {bwd:.4f} ms ({bwd_mid:.4f} for the middle frame against itself, two "
+          f"distinct gradients within {err:.3g} of the plain adjoint; plain {bwd_plain:.3f} ms, bound "
+          f"{max(tb, to):.4f} ms: bytes {tb:.4f}, operations {to:.4f}) with the plan {plan}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return figures, launches
+
+
+def data_t5(dev, card):
+    """Phase 13.  Returns (the phase's figures, K1's launches, K2's
+    (forward, adjoint) launches on its paths)."""
+    figures, k1, k2 = {}, {}, {}
+    workers = os.cpu_count() or 1
+    figures["kernels"] = check_t5_kernels(dev)
+    torch.cuda.empty_cache()
+    serve, k1_serve, k2_serve = serve_t5(np.random.RandomState(13), dev, card)
+    figures["detect"] = serve
+    k1.update(k1_serve)
+    k2.update({k: (v, 0) for k, v in k2_serve.items()})
+    figures["train_step"], k2["train_step"] = train_t5(dev, card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nms_greedy.launches = cost_volume.launches = cost_volume_backward.launches = 0
+        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_t5.json", "--config", "t5"]))
+        k1["overfit_t5"] = nms_greedy.launches
+        k2["overfit_t5"] = (cost_volume.launches, cost_volume_backward.launches)
+        check(rec["pass"], f"overfit t5 fails the JAX package's rule: {rec}")
+        print(f"t5 overfit (YOLOv3Temporal t=5 t_out, corr pyramid d=2, bf16, 160 px, B=8 static windows, 400 steps, "
+              f"per-timestep gt, the middle frame's detections) on {card}: passes the JAX package's rule; loss "
+              f"{rec['loss_first']:.2f} -> {rec['loss_last']:.4f}, mean top-1 IoU {rec['mean_top1_iou']:.4f}, class "
+              f"accuracy {rec['top1_class_acc']}, {rec['step_ms']:.2f} ms/step on the host's clock")
+        figures["overfit_t5"] = rec
+    torch.cuda.empty_cache()
+
+    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
+        # phase 12's VID tree, read as windows of 5 with per-frame labels
+        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", VID_SNIPPETS, 3000)))
+        vid = f"{tmp}/ImageNetVID/ILSVRC"
+        val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=VID_EVERY7, window=(T5_FRAMES, 1),
+                                   mult_out=True, inference=True)
+        train = ImageNetVidDetection(root=vid, splits=[(2017, "train")], every=VID_EVERY7, window=(T5_FRAMES, 1),
+                                     mult_out=True)
+        flags = ["--dataset", "vid", "--dataset_root", tmp, "--window", f"{T5_FRAMES},1", "--temp", "--mult_out",
+                 "--corr_pos", "early", "--corr_d", str(T5["corr_d"]), "--every", str(VID_EVERY7), "--data_shape",
+                 str(SIZE), "--dtype", "bf16", "--num_workers", str(workers)]
+        exp = f"{tmp}/exp"
+        nms_greedy.launches = cost_volume.launches = cost_volume_backward.launches = 0
+        model, stats = train_yolov3.main(flags + ["--batch_size", str(T5_TRAIN_WINDOWS), "--no_random_shape",
+                                                  "--epochs", "1", "--nopretrained_cnn", "--save_prefix", "0000",
+                                                  "--experiment_root", exp, "--save_interval", "1",
+                                                  "--log_interval", "1"])
+        torch.cuda.synchronize()
+        n_steps, n_val = len(train) // T5_TRAIN_WINDOWS, -(-len(val) // T5_TRAIN_WINDOWS)
+        k1["train_twin_validation"] = nms_greedy.launches
+        k2["train_twin"] = (cost_volume.launches, cost_volume_backward.launches)
+        check(k1["train_twin_validation"] == n_val, f"t5 K1 launches in the train twin: {nms_greedy.launches}")
+        check(k2["train_twin"] == (T5_CORR_LAUNCHES * (n_steps + n_val), T5_CORR_LAUNCHES * n_steps),
+              f"t5 K2 (forward, adjoint) launches in the train twin: {k2['train_twin']} for {n_steps} steps and "
+              f"{n_val} validation batches")
+        val0 = stats["val"][0]
+        ep = stats["epochs"][0]
+        rest = ep["steps"][1:]
+        secs = sum(t for _, t, _ in rest)
+        twin = {"samples_s": ep["samples_s"], "wait_share": ep["wait_s"] / ep["seconds"], "steps": len(ep["steps"]),
+                "steady_windows_s": len(rest) * T5_TRAIN_WINDOWS / secs if secs else None,
+                "steady_wait_share": sum(w for _, _, w in rest) / secs if secs else None,
+                "first_step_ms": ep["steps"][0][1] * 1e3, "val": stats["val"], "logged": list(speed)}
+        figures["train_twin"] = twin
+        print(f"t5 train twin (VID windows of 5, per-frame labels, bf16, B={T5_TRAIN_WINDOWS}, {SIZE} px, one epoch "
+              f"of {ep['samples']} windows) on {card}: {ep['samples_s']:.1f} windows/s over the epoch, "
+              f"{twin['steady_windows_s']} past the first step, waiting on the prefetcher {twin['steady_wait_share']} "
+              f"of that; validation (VOCMApMetricTemporal, {len(val)} windows) {val0['seconds']:.2f} s, the "
+              f"last offset's mAP {val0['map']}; K2 {k2['train_twin']}, K1 {k1['train_twin_validation']}")
+        ckpt = f"{exp}/0000/yolo3_darknet53_vid_0000.params"
+        check(os.path.exists(ckpt), f"the t5 train twin wrote no checkpoint {ckpt}")
+        del model
+
+        # the detect twin from that checkpoint, a cache directory a window offset
+        nms_greedy.launches = cost_volume.launches = 0
+        t0 = time.perf_counter()
+        preds = detect.main(flags + ["--model_path", ckpt, "--batch_size", str(T5_DETECT_BATCH), "--save_dir",
+                                     f"{tmp}/res", "--save_prefix", "vid", "--metrics", "voc,vid"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_batches = -(-len(val) // T5_DETECT_BATCH)
+        k1["detect_twin"], k2["detect_twin"] = nms_greedy.launches, (cost_volume.launches, 0)
+        check((nms_greedy.launches, cost_volume.launches) == (n_batches, T5_CORR_LAUNCHES * n_batches),
+              f"t5 detect twin launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)}")
+        dirs = sorted(p for p in os.listdir(f"{tmp}/res/vid") if p.startswith("pred"))
+        check(dirs == [f"pred_o{t}" for t in range(T5_FRAMES)], f"t5 detect twin cache directories {dirs}")
+        check(isinstance(preds, list) and len(preds) == T5_FRAMES and all(os.path.exists(f"{tmp}/res/vid/{m}.txt")
+                                                                          for m in ("voc", "vid")),
+              "the t5 detect twin wrote no per-offset predictions or metrics")
+        figures["detect_twin"] = {"windows": len(val), "seconds": secs, "windows_s_disk_to_metrics": len(val) / secs,
+                                  "detections_per_offset": [sum(map(len, p.values())) for p in preds],
+                                  "voc": open(f"{tmp}/res/vid/voc.txt").read().splitlines()[-1],
+                                  "vid": open(f"{tmp}/res/vid/vid.txt").read().splitlines()[-1]}
+        print(f"t5 detect twin (VID windows of 5 from the checkpoint, bf16, B={T5_DETECT_BATCH}, {SIZE} px, "
+              f"pred_o0..pred_o4) on {card}: {len(val)} windows to the metrics in {secs:.2f} s (model load "
+              f"included); {figures['detect_twin']}")
+        torch.cuda.empty_cache()
+    k1["total"] = sum(v for v in k1.values())
+    k2["total"] = [sum(v[0] for v in k2.values()), sum(v[1] for v in k2.values())]
+    figures["k1"], figures["k2"] = k1, k2
+    print(f"t5 launches: K1 {k1}, K2 (forward, adjoint) {k2}")
+    return figures, k1["total"], k2["total"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -2744,6 +3190,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice7_figures, k1_slice7, k2_slice7 = data_slice7(dev, card)
     step7 = slice7_figures["train_step"]
+
+    # 13. slice 9: YOLOv3Temporal t=5, detection, training and both twins
+    torch.cuda.empty_cache()
+    t5_figures, k1_slice9, k2_slice9 = data_t5(dev, card)
+
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
         plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
@@ -2771,6 +3222,8 @@ def main() -> int:
             "launches_slice5": k1_slice5,
             "launches_slice6": k1_slice6,
             "launches_slice7": k1_slice7,
+            "launches_slice9": k1_slice9,
+            "slice9_80_images_ms": t5_figures["detect"]["k1_80_images_ms"],
         },
         {
             "name": "cost_volume",
@@ -2791,6 +3244,11 @@ def main() -> int:
             "launches_slice7": k2_slice7[0],
             "train_step_ms": step7["k2_forward_ms"],
             "train_step_launches": step7["launches"]["forward"],
+            "launches_slice9": k2_slice9[0],
+            "slice9": {"per": f"one t=5 request: {T5_CORR_LAUNCHES} launches, then the kernel_size=3 patch sum",
+                       "detect": t5_figures["detect"]["k2"], "train": {k: t5_figures["train_step"]["k2"][k] for k in (
+                           "shape", "forward_ms", "forward_bytes_ms", "forward_ops_ms")},
+                       "max_abs_err": t5_figures["kernels"]},
         },
         {
             "name": "cost_volume_backward",
@@ -2810,6 +3268,12 @@ def main() -> int:
                                               "adjoint_ops_ms", "one_volume_adjoint_ms")}, "plan": lv["adjoint_plan"]}
                        for lv in step7["levels"]],
             "launches_slice7": k2_slice7[1],
+            "launches_slice9": k2_slice9[1],
+            "slice9": {"per": f"one t=5 train step: {T5_CORR_LAUNCHES} one-volume launches",
+                       **{k: t5_figures["train_step"]["k2"][k] for k in (
+                           "shape", "adjoint_ms", "adjoint_mid_ms", "adjoint_plain_ms", "adjoint_bytes_ms",
+                           "adjoint_ops_ms", "adjoint_plan", "adjoint_mid_max_abs_err")},
+                       "train_step_launches": t5_figures["train_step"]["launches"]["adjoint"]},
         },
         {
             "name": "quant_downsample",
@@ -2844,6 +3308,7 @@ def main() -> int:
     print(json.dumps({"slice5_data": data_figures}))
     print(json.dumps({"slice6_data": slice6_figures}))
     print(json.dumps({"slice7_windows": slice7_figures}))
+    print(json.dumps({"slice9_t5": t5_figures}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -318,7 +318,6 @@ def test_factory_surface():
     assert not head.use_backbone and head.output2.num_classes == 2
     for cfg in (
         YoloConfig(num_classes=2, k=3, rnn_pos="out"),
-        YoloConfig(num_classes=2, temporal=True),
         YoloConfig(num_classes=2, new_model=True),
         YoloConfig(num_classes=2, k=3, motion_stream="flownet"),
     ):
@@ -332,11 +331,16 @@ def test_factory_surface():
     assert m(torch.zeros(1, 32, 32, 3))["bbox"].shape == (1, 63, 4)  # train mode
     # YOLOv3T trains (ROADMAP.md Queue 1 item 16); with per-frame heads (no
     # join) its train mode gives them a time axis, as JAX's does, and the
-    # per-timestep loss of t_out models raises (item 8)
+    # per-timestep loss (item 8) takes per-timestep gt
     assert build_model(YoloConfig(num_classes=2, k=3))(torch.zeros(1, 3, 32, 32, 3))["bbox"].shape == (1, 63, 4)
+    assert type(build_model(YoloConfig(num_classes=2, temporal=True))).__name__ == "YOLOv3Temporal"
     tm = YOLOv3T(num_classes=2, k=3)
     assert tm(torch.zeros(1, 3, 32, 32, 3))["bbox"].shape == (1, 3, 63, 4)  # train mode
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    with pytest.raises(ValueError, match="per-timestep gt"):
         make_train_step(tm, num_classes=2)(create_train_state(tm, lambda step: 0.0), {
             "image": torch.zeros(1, 3, 32, 32, 3), "gt_boxes": torch.full((1, 1, 4), -1.0),
             "gt_ids": torch.full((1, 1, 1), -1.0)})
+    metrics = make_train_step(tm, num_classes=2)(create_train_state(tm, lambda step: 0.0), {
+        "image": torch.zeros(1, 3, 32, 32, 3), "gt_boxes": torch.full((1, 3, 1, 4), -1.0),
+        "gt_ids": torch.full((1, 3, 1, 1), -1.0)})
+    assert bool(torch.isfinite(metrics["total"]))

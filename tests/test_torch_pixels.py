@@ -327,7 +327,8 @@ def test_train_twin_flags(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     for argv in (["--syncbn"], ["--dataset", "coco", "--mixup", "--host_color"], ["--dataset", "det"],
                  ["--dataset", "vid", "--every", "5", "--noallow_empty"], ["--dataset", "coco", "--dataset_val", "voc"],
-                 ["--dataset", "vid", "--window", "3,1", "--k_join_pos", "late", "--corr_pos", "early"]):
+                 ["--dataset", "vid", "--window", "3,1", "--k_join_pos", "late", "--corr_pos", "early"],
+                 ["--dataset", "vid", "--window", "5,1", "--temp", "--mult_out"]):
         train_yolov3.check_ported(train_yolov3.parse_args(argv))
     with pytest.raises(ValueError, match="video dataset"):  # train_yolov3.py:775-776
         train_yolov3.check_ported(train_yolov3.parse_args(["--window", "3,1"]))
@@ -339,7 +340,6 @@ def test_train_twin_flags(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE")
     for argv, item in ((["--dataset", "comb"], "item 2c"), (["--dataset", "yt"], "item 2d"),
                        (["--dataset", "voc,coco"], "item 2c"),
-                       (["--dataset", "vid", "--window", "3,1", "--mult_out"], "item 8"),
                        (["--dataset", "vid", "--window", "3,1", "--block_conv_type", "21"], "item 6"),
                        (["--features_dir", "f"], "item 13"), (["--trained_on", "voc"], "item 12")):
         with pytest.raises(NotImplementedError, match=item):

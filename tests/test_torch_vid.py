@@ -133,12 +133,15 @@ def test_vid_nonempty_cache_matches_jax(tmp_path, every):
 
 
 def test_vid_unported_options_raise(vid_root):
-    for kw, item in ((dict(window=(3, 1), mult_out=True), "item 8"), (dict(mult_out=True), "item 8"),
-                     (dict(videos=True), "item 11"), (dict(features_dir="x"), "item 13")):
+    for kw, item in ((dict(videos=True), "item 11"), (dict(features_dir="x"), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], **kw)
-    # windows are ported (tests/test_torch_windows.py)
+    # windows are ported (tests/test_torch_windows.py), and their per-frame
+    # labels (mult_out, tests/test_torch_train_tout.py), which need a window
     assert _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], window=(3, 1)).window == (3, 1)
+    assert _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], window=(3, 1), mult_out=True).mult_out
+    with pytest.raises(ValueError, match="k > 1"):
+        _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], mult_out=True)
 
 
 def test_generate_motion_ious_matches_jax(tmp_path):

@@ -21,11 +21,13 @@ videoyolo_tpu/data/imgnetvid.py:337-356), labelled by the key frame:
 Images are `Data/VID/<split>/<video>/<frame>.JPEG`, decoded by the JPEG
 core; a window's sample is its k frames stacked (k, H, W, 3), and
 `window_paths` names them.  Windows keep every frame (`allow_empty` is
-forced on, as in the JAX package).  Per-frame labels of the whole window
-(`mult_out`) come with YOLOv3Temporal's t_out heads, ROADMAP.md Queue 1
-item 8; whole videos (`videos=True`) with streaming, item 11;
-pre-extracted features (`features_dir`) with item 13.  They raise
-NotImplementedError.
+forced on, as in the JAX package).  With `mult_out` a window carries the
+labels of each of its frames (videoyolo_tpu/data/imgnetvid.py:114-155):
+`__getitem__` and `label_and_size` give a list of k labels, `sample_path`
+the k frames' paths and `get_sample_ids` the k frame ids of each window,
+for YOLOv3Temporal's per-timestep heads.  Whole videos (`videos=True`)
+come with streaming, ROADMAP.md Queue 1 item 11, and pre-extracted features
+(`features_dir`) with item 13; they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -59,11 +61,8 @@ class ImageNetVidDetection(DetectionDataset):
         features_dir: Optional[str] = None,
         mult_out: bool = False,
     ):
-        if mult_out:
-            raise NotImplementedError(
-                "per-frame labels of a window (mult_out) come with YOLOv3Temporal's t_out heads, "
-                "ROADMAP.md Queue 1 item 8"
-            )
+        if mult_out and int(window[0]) <= 1:
+            raise ValueError("mult_out labels each frame of a window: it needs window=(k, step) with k > 1")
         if videos:
             raise NotImplementedError("whole VID videos (videos=True) come with streaming, ROADMAP.md Queue 1 item 11")
         if features_dir is not None:
@@ -81,6 +80,7 @@ class ImageNetVidDetection(DetectionDataset):
         self.root = os.path.expanduser(root)
         self._splits = list(splits)
         self._window_size, self._window_step = int(window[0]), int(window[1])
+        self._mult_out = mult_out
         if self._window_size > 1:
             allow_empty = True  # a window's frames are all kept (imgnetvid.py:57-58)
         self._allow_empty = allow_empty
@@ -136,6 +136,9 @@ class ImageNetVidDetection(DetectionDataset):
         return self._label_for_sid(sid)[:, :-1]
 
     def get_sample_ids(self):
+        """The sample ids; with mult_out each window's k frame ids."""
+        if self._mult_out:
+            return [self._windows[sid] for sid in self.sample_ids]
         return self.sample_ids
 
     @property
@@ -143,8 +146,14 @@ class ImageNetVidDetection(DetectionDataset):
         """(k, step) of the windows; k = 1 for single frames."""
         return self._window_size, self._window_step
 
+    @property
+    def mult_out(self) -> bool:
+        return self._mult_out
+
     def sample_path(self, idx):
-        """The (key) frame's path."""
+        """The (key) frame's path; with mult_out the window's k paths."""
+        if self._mult_out:
+            return self.window_paths(idx)
         return self._image_path.format(*self.samples[self.sample_ids[idx]])
 
     def window_paths(self, idx):
@@ -152,7 +161,7 @@ class ImageNetVidDetection(DetectionDataset):
         return [self._image_path.format(*self.all_samples[sid]) for sid in self._windows[self.sample_ids[idx]]]
 
     def __getitem__(self, idx):
-        label = self._load_label(idx)[:, :-1]
+        label = self.label_and_size(idx)[0]
         if self._window_size > 1:
             img = np.stack([read_image(p) for p in self.window_paths(idx)])
         else:
@@ -178,11 +187,16 @@ class ImageNetVidDetection(DetectionDataset):
         return windows
 
     def label_and_size(self, idx):
-        """The label as `__getitem__` gives it (no track id) and the size
+        """The label as `__getitem__` gives it (no track id; with mult_out
+        the list of the window's frames' labels) and the (key) frame's size
         from the XML."""
         sid = self.sample_ids[idx]
         size = self._im_shapes.get(sid)
-        return self._load_label(idx)[:, :-1], (None if size is None else tuple(size))
+        if self._mult_out:
+            label = [self._label_for_sid(f)[:, :-1] for f in self._windows[sid]]
+        else:
+            label = self._load_label(idx)[:, :-1]
+        return label, (None if size is None else tuple(size))
 
     def _per_video_count(self, samples, count):
         """About `count` frames of each video: a stride of ceil(len / count)

@@ -86,8 +86,13 @@ def collate_detection(samples, max_boxes: int = 56, mixup: bool = False) -> Dict
     """(uint8 img, label, (3, 4) colour map), (float32 img, label) or
     (float32 img, label, idx) samples -> a fixed-shape batch dict; an img is
     an image (H, W, 3) or a window (k, H, W, 3), stacked to (B, ...);
-    `mixup` adds `gt_mix`, the labels' last column, and an idx `idx`."""
-    labels = pad_labels([np.atleast_2d(s[1]) for s in samples], max_boxes)
+    `mixup` adds `gt_mix`, the labels' last column, and an idx `idx`.  A
+    label that is a list (a window's per-frame labels, mult_out) gives
+    (B, k, max_boxes, D) labels (videoyolo_tpu/data/loader.py:70-95)."""
+    if isinstance(samples[0][1], (list, tuple)):
+        labels = np.stack([pad_labels([np.atleast_2d(l) for l in s[1]], max_boxes) for s in samples])
+    else:
+        labels = pad_labels([np.atleast_2d(s[1]) for s in samples], max_boxes)
     color = len(samples[0]) > 2 and getattr(samples[0][2], "shape", None) == (3, 4)
     imgs = np.stack([s[0] for s in samples])
     batch = {
@@ -201,7 +206,7 @@ class DetectionLoader:
         in a worker."""
         if self._inference_tf is not None:
             return self._window_inference_job(chunk)
-        paths = [check_jpeg(self._dataset.sample_path(int(j))) for j in chunk]
+        paths = [check_jpeg(self._key_path(int(j))) for j in chunk]
         if self._native_hw is not None:
             labels = [self._dataset.label_and_size(int(j))[0] for j in chunk]
             return lambda: self._inference_batch(chunk, paths, labels)
@@ -234,6 +239,12 @@ class DetectionLoader:
             )
 
         return decode
+
+    def _key_path(self, j: int) -> str:
+        """A sample's path, or its key frame's where a window's labels come
+        a frame (mult_out: `sample_path` names all k)."""
+        path = self._dataset.sample_path(j)
+        return path[len(path) // 2] if isinstance(path, list) else path
 
     def _sample_job(self, chunk, paths, transform) -> Callable[[], Dict[str, np.ndarray]]:
         """The per-sample route (videoyolo_tpu/data/loader.py:236-276): the

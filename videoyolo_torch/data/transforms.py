@@ -332,6 +332,13 @@ def sample_color_matrix(
 # YOLO3 pipelines
 # --------------------------------------------------------------------------
 
+def _float32(bbox: Boxes) -> Boxes:
+    """A label, or a window's list of per-frame labels, as float32."""
+    if isinstance(bbox, list):
+        return [b.astype(np.float32) for b in bbox]
+    return bbox.astype(np.float32)
+
+
 def _sample_train_geometry(label, w, h, rs: np.random.RandomState, rnd: random.Random,
                            max_expand_ratio: float = 4.0):
     """Expand (p=.5) + constrained crop + flip, labels only.
@@ -407,8 +414,8 @@ class YOLO3DefaultTrainTransform:
         bbox, rect, flip, interp, mat = plan
         img = native.crop_resize_pad(src, rect, self._height, self._width, interp, self.fill, flip)
         if self._device_color:
-            return img, bbox.astype(np.float32), mat
-        return apply_color_np(img, mat), bbox.astype(np.float32)
+            return img, _float32(bbox), mat
+        return apply_color_np(img, mat), _float32(bbox)
 
 
 class YOLO3DefaultInferenceTransform:
@@ -426,9 +433,10 @@ class YOLO3DefaultInferenceTransform:
     def out_wh(self):
         return self._width, self._height
 
-    def label(self, label, w, h) -> np.ndarray:
-        """A (w, h) image's label in the output's coordinates."""
-        return bbox_resize(label, (w, h), (self._width, self._height)).astype(np.float32)
+    def label(self, label, w, h):
+        """A (w, h) image's label in the output's coordinates (a list of
+        labels, one a frame, stays a list)."""
+        return _float32(bbox_resize(label, (w, h), (self._width, self._height)))
 
     def __call__(self, src, label, idx=None):
         h, w, _ = src.shape
@@ -442,7 +450,9 @@ class YOLO3VideoTrainTransform(YOLO3DefaultTrainTransform):
     """The train augmentation of a window (videoyolo_tpu/data/transforms.py:
     530-572): one plan, drawn as the 2D transform draws it (geometry,
     filter, then colour: the JAX video transform's order), applied to each
-    of the k frames; the label is the key frame's.  `apply` takes the
+    of the k frames; the label is the key frame's, or with mult_out the list
+    of each frame's labels, which the one plan moves alike (the crop's IoU
+    constraints over all of their boxes).  `apply` takes the
     decoded (k, h, w, 3) window and returns (uint8 (k, H, W, 3), bbox,
     colour map) with `device_color`, else the normalised float32 window."""
 
@@ -460,14 +470,14 @@ class YOLO3VideoTrainTransform(YOLO3DefaultTrainTransform):
         imgs = np.stack([native.crop_resize_pad(f, rect, self._height, self._width, interp, self.fill, flip)
                          for f in src])
         if self._device_color:
-            return imgs, bbox.astype(np.float32), mat
-        return apply_color_np(imgs, mat), bbox.astype(np.float32)
+            return imgs, _float32(bbox), mat
+        return apply_color_np(imgs, mat), _float32(bbox)
 
 
 class YOLO3VideoInferenceTransform(YOLO3DefaultInferenceTransform):
     """Resize (interp 9) and normalise each frame of a (k, H, W, 3) window
-    (videoyolo_tpu/data/transforms.py:575-589); the label scales from the
-    frames' size."""
+    (videoyolo_tpu/data/transforms.py:575-589); the label (or each frame's,
+    with mult_out) scales from the frames' size."""
 
     def __call__(self, src, label, idx=None):
         _, h, w, _ = src.shape

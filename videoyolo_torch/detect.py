@@ -12,6 +12,8 @@ or on seeded synthetic requests.
     python -m videoyolo_torch.detect --dataset vid --every 2 --metrics vid [--metric_agnostic] ...
     python -m videoyolo_torch.detect --dataset vid --window 3,1 --k_join_pos late --corr_pos early \
         --corr_d 4 --metrics voc ...   # YOLOv3T on VID windows
+    python -m videoyolo_torch.detect --dataset vid --window 5,1 --temp --mult_out [--offset 0] \
+        --corr_pos early --corr_d 4 --metrics voc,vid ...   # YOLOv3Temporal, one output a frame
 
 With `--dataset`, detect_yolo3.py's dataset path on its validation splits:
 `voc` is VOC 2007 test under `<dataset_root>/PascalVOC/VOCdevkit`, `coco`
@@ -48,6 +50,16 @@ run on K2 and the NMS on K1 for each batch.  The metrics then read each
 image's size as detect_yolo3.py's `evaluate` reads it for a window, from
 the first two axes of the stacked (k, H, W, 3) frames, so their numbers
 are the JAX CLI's (ROADMAP.md Queue 3: a fault of the reference, mirrored).
+`--temp` and `--mult_out` (detect_yolo3.py:48-49, 297) build YOLOv3Temporal
+on windows of `--window` k (5) frames: `--temp` alone the funnel (one set
+of detections a window, the key frame's), `--mult_out` the per-timestep
+heads (with `--corr_pos`, the `--corr_d` correlation pyramid): each window
+gets detections for each of its frames, one NMS call on the B*k frames,
+and the cache holds one directory a window offset, `pred_o0` ... `pred_o4`
+(a frame of the window clamped onto the key frame at a video's ends is
+written under the key frame only, detect_yolo3.py:560-600).  The metrics
+then score the offset `--offset` (-2..2) from the middle: its frames'
+detections against their own labels, the size read from the frame itself.
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -55,6 +67,8 @@ Without `--dataset`, the seeded synthetic mode:
         --num_requests 3 --seed 0 [--device cpu] [--dtype f32|bf16] [--out preds.json]
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
         --window 3,1 --k_join_pos late --corr_pos early --corr_d 4   # YOLOv3T windows
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
+        --window 5,1 --temp --mult_out --corr_pos early --corr_d 4   # YOLOv3Temporal windows
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
 
 The model takes seeded random weights.  Each request is a batch of uint8
@@ -62,7 +76,9 @@ images drawn from the seed or, with `--window k[,stride]` and k > 1, a batch
 of k-frame windows: window i takes every stride-th frame from frame i of a
 seeded synthetic clip, so neighbouring windows share frames as they do in a
 video.  The temporal flags are those of detect_yolo3.py (`--corr_d` counts
-only with `--corr_pos`).  `--quantize int8` serves the fused-int8 YOLOv3,
+only with `--corr_pos`; `--temp` and `--mult_out` as above, a window's
+frames named `<window>_o<t>` with `--mult_out`).  `--quantize int8` serves
+the fused-int8 YOLOv3,
 calibrated on the first two request batches as detect_yolo3.py calibrates on
 the first two loader batches.  The command prints one summary line per request
 and, with --out, writes the detections as {image or window name: [[cls,
@@ -119,6 +135,9 @@ def parse_args(argv=None):
     p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2 (3 and 21: item 6)")
     p.add_argument("--corr_pos", default=None, help="position of the correlation: early or late")
     p.add_argument("--corr_d", type=int, default=4, help="the d of the correlation")
+    p.add_argument("--temp", action="store_true", help="the t=5 temporal model (YOLOv3Temporal)")
+    p.add_argument("--mult_out", action="store_true", help="one output a frame of the window (t_out)")
+    p.add_argument("--offset", type=int, default=0, help="with --mult_out, the window offset to evaluate: -2..2")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
                    help="int8 serving: the fused int8-end-to-end YOLOv3")
     # the dataset path (detect_yolo3.py's flags)
@@ -155,12 +174,14 @@ def main(argv=None):
     if args.dataset:
         return main_dataset(args)
     k, stride = ([int(w) for w in args.window.split(",")] + [1])[:2]
+    if k == 1 and (args.temp or args.mult_out):
+        k = 5  # YOLOv3Temporal's default t
     temporal = k > 1
     cfg = YoloConfig(
         num_classes=NUM_CLASSES, pad_stem=True,
         k=k if temporal else None,
         k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
-        corr_d=args.corr_d if args.corr_pos else None,
+        corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out,
     )
     if args.quantize and args.quantize != "int8":
         raise NotImplementedError(f"--quantize {args.quantize} is deferred, see ROADMAP.md Queue 1 item 9a")
@@ -186,7 +207,11 @@ def main(argv=None):
             f"{n_det} detections ({n_det / args.batch_size:.1f}/{name}), {ms:.1f} ms"
         )
         for i in range(args.batch_size):
-            collect_boxes(preds, f"request{r}/{name}{i:04d}", ids[i], sc[i], bb[i], s)
+            if ids.ndim == 4:  # one set of detections a frame of the window
+                for t in range(ids.shape[1]):
+                    collect_boxes(preds, f"request{r}/{name}{i:04d}_o{t}", ids[i, t], sc[i, t], bb[i, t], s)
+            else:
+                collect_boxes(preds, f"request{r}/{name}{i:04d}", ids[i], sc[i], bb[i], s)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(preds, f)
@@ -200,10 +225,11 @@ def main(argv=None):
 _ITEMS = {"comb": "2c", "yt": "2d"}
 
 
-def get_dataset(names, dataset_root: str, every: float = 25, window=(1, 1)):
+def get_dataset(names, dataset_root: str, every: float = 25, window=(1, 1), mult_out: bool = False):
     """`--dataset` -> an inference dataset (detect_yolo3.py:145-192): the
     validation split of voc, coco, det or vid (frames, every `every`th, or
-    their `window`s), or JPEG files, directories and `.txt` lists."""
+    their `window`s, labelled a frame with `mult_out`), or JPEG files,
+    directories and `.txt` lists."""
     if names[0] == "voc":
         return VOCDetection(
             root=os.path.join(dataset_root, "PascalVOC", "VOCdevkit"), splits=[(2007, "test")],
@@ -217,7 +243,8 @@ def get_dataset(names, dataset_root: str, every: float = 25, window=(1, 1)):
                                  allow_empty=True, inference=True)
     if names[0] == "vid":
         return ImageNetVidDetection(root=os.path.join(dataset_root, "ImageNetVID", "ILSVRC"),
-                                    splits=[(2017, "val")], every=int(every), window=window, inference=True)
+                                    splits=[(2017, "val")], every=int(every), window=window, mult_out=mult_out,
+                                    inference=True)
     if names[0] in _ITEMS:
         raise NotImplementedError(f"the {names[0]} dataset: see ROADMAP.md Queue 1 item {_ITEMS[names[0]]}")
     img_files = []
@@ -252,20 +279,35 @@ def _cache_file(pred_dir: str, dataset, img_path: str) -> str:
     return os.path.join(pred_dir, name + ".txt")
 
 
-def _pred_dir(save_dir: str) -> str:
-    return os.path.join(save_dir, "pred")
+def _pred_dir(save_dir: str, offset=None) -> str:
+    return os.path.join(save_dir, "pred" if offset is None else f"pred_o{offset}")
 
 
-def save_predictions(save_dir, dataset, boxes, max_do=-1, indices=None) -> str:
+def _layouts(dataset):
+    """The cache's (directory offset, path of a sample) pairs: `pred` and
+    each sample's path, or with mult_out one `pred_o{t}` a window offset
+    and the window's t-th frame (detect_yolo3.py:560-600)."""
+    if getattr(dataset, "mult_out", False):
+        return [(t, lambda idx, t=t: dataset.window_paths(idx)[t]) for t in range(dataset.window[0])]
+    return [(None, dataset.sample_path)]
+
+
+def save_predictions(save_dir, dataset, boxes, max_do=-1, indices=None):
     """The pred/*.txt cache, one file an image, written through a renamed
-    temporary (a kill mid-write leaves a complete file or none).  `indices`
-    restricts the write to those samples."""
-    out_dir = _pred_dir(save_dir)
+    temporary (a kill mid-write leaves a complete file or none); with
+    mult_out `boxes` is a list of one dict a window offset, each written to
+    its own `pred_o{t}`.  `indices` restricts the write to those samples."""
+    for offset, path_of in _layouts(dataset):
+        _save_predictions_dict(_pred_dir(save_dir, offset), dataset, boxes if offset is None else boxes[offset],
+                               path_of, max_do, indices)
+
+
+def _save_predictions_dict(out_dir, dataset, boxes, path_of, max_do, indices):
     os.makedirs(out_dir, exist_ok=True)
     if max_do < 0:
         max_do = len(dataset)
     for idx in indices if indices is not None else range(min(len(dataset), max_do)):
-        img_path = dataset.sample_path(idx)
+        img_path = path_of(idx)
         final = _cache_file(out_dir, dataset, img_path)
         os.makedirs(os.path.dirname(final), exist_ok=True)
         tmp = final + ".tmp"
@@ -273,31 +315,43 @@ def save_predictions(save_dir, dataset, boxes, max_do=-1, indices=None) -> str:
             for box in boxes.get(img_path, []):
                 f.write("{},{},{},{},{},{},{}\n".format(img_path, box[0], box[1], box[2], box[3], box[4], box[5]))
         os.replace(tmp, final)
-    return out_dir
 
 
 def _missing_indices(save_dir, dataset, max_do=-1):
-    """Sample indices whose cache file is missing (the --skip_existing set)."""
+    """Sample indices with a cache file missing (the --skip_existing set):
+    with mult_out, a window counts as done only with all its offsets'
+    files."""
     if max_do < 0:
         max_do = len(dataset)
-    out_dir = _pred_dir(save_dir)
     return [
         idx for idx in range(min(len(dataset), max_do))
-        if not os.path.exists(_cache_file(out_dir, dataset, dataset.sample_path(idx)))
+        if not all(os.path.exists(_cache_file(_pred_dir(save_dir, offset), dataset, path_of(idx)))
+                   for offset, path_of in _layouts(dataset))
     ]
 
 
 def load_predictions(save_dir, dataset, max_do=-1):
-    """The cache as {img_path: [[cls, score, x1..y2]]}; None if a file is
-    missing."""
-    out_dir = _pred_dir(save_dir)
+    """The cache as {img_path: [[cls, score, x1..y2]]} (with mult_out a
+    list of them, one a window offset); None if a file is missing."""
+    out = []
+    for offset, path_of in _layouts(dataset):
+        boxes = _load_predictions_dict(_pred_dir(save_dir, offset), dataset, path_of, max_do)
+        if boxes is None:
+            return None
+        if offset is None:
+            return boxes
+        out.append(boxes)
+    return out
+
+
+def _load_predictions_dict(out_dir, dataset, path_of, max_do):
     if not os.path.exists(out_dir):
         return None
     if max_do < 0:
         max_do = len(dataset)
     boxes = {}
     for idx in range(min(len(dataset), max_do)):
-        path = _cache_file(out_dir, dataset, dataset.sample_path(idx))
+        path = _cache_file(out_dir, dataset, path_of(idx))
         if not os.path.exists(path):
             logging.info("prediction file missing: %s", path)
             return None
@@ -310,40 +364,46 @@ def load_predictions(save_dir, dataset, max_do=-1):
     return boxes
 
 
-def get_metric(dataset, metric_name: str, save_dir: str, agnostic: bool = False):
-    """`--metrics` -> a metric (detect_yolo3.py:890-917)."""
+def get_metric(dataset, metric_name: str, save_dir: str, agnostic: bool = False, offset=None):
+    """`--metrics` -> a metric (detect_yolo3.py:890-917); `offset` the
+    window offset the VID metric scores with mult_out."""
     if metric_name == "voc":
         return VOCMApMetric(iou_thresh=0.5, class_names=dataset.classes)
     if metric_name == "coco":
         return COCODetectionMetric(dataset, os.path.join(save_dir, "coco_eval"), cleanup=True)
     if metric_name == "vid":
-        return VIDDetectionMetric(dataset, agnostic=agnostic)
+        return VIDDetectionMetric(dataset, agnostic=agnostic, offset=offset)
     raise ValueError(f"unknown metric {metric_name!r}")
 
 
-def evaluate(metrics, dataset, predictions):
+def evaluate(metrics, dataset, predictions, offset=0):
     """Update the metrics from the normalised predictions, with each
     image's sample id (detect_yolo3.py:920-952).  Each image's size comes
     from its JPEG header (the JAX package decodes the image for it: the
     same numbers).  For a window, detect_yolo3.py reads the size from the
     first two axes of the stacked (k, H, W, 3) frames, (h, w) = (k, H): its
-    fault, mirrored so that both packages score alike (ROADMAP.md Queue 3)."""
+    fault, mirrored so that both packages score alike (ROADMAP.md Queue 3).
+    With mult_out the window's frame at `offset` from the middle is scored,
+    with its own id, label and size (there the JAX CLI takes the frame's
+    shape, right)."""
     sample_ids = (
         dataset.get_sample_ids() if hasattr(dataset, "get_sample_ids") else dataset.sample_ids
     ) if hasattr(dataset, "sample_ids") else list(range(len(dataset)))
+    mult_out = getattr(dataset, "mult_out", False)
     k = getattr(dataset, "window", (1, 1))[0]
     for idx in range(len(dataset)):
-        img_path = dataset.sample_path(idx)
+        img_path, sid, y = dataset.sample_path(idx), sample_ids[idx], dataset.label_and_size(idx)[0]
+        if mult_out:
+            img_path, sid, y = img_path[offset + 2], sid[offset + 2], y[offset + 2]
         h, w = native.image_size(img_path)
-        if k > 1:
+        if k > 1 and not mult_out:
             h, w = k, h
-        y = dataset.label_and_size(idx)[0]
         preds = np.asarray(predictions.get(img_path, np.zeros((0, 6))), dtype=np.float64).reshape(-1, 6)
         det_bboxes = preds[None, :, 2:6] * np.array([w, h, w, h])
         gt_difficults = y[None, :, 5:6] if y.shape[-1] > 5 else None
         for metric in metrics:
             metric.update(det_bboxes, preds[None, :, 0:1], preds[None, :, 1:2], y[None, :, :4], y[None, :, 4:5],
-                          gt_difficults, sid=sample_ids[idx])
+                          gt_difficults, sid=sid)
     return [m.get() for m in metrics]
 
 
@@ -358,9 +418,13 @@ def load_model_variables(path: str, cfg: YoloConfig):
 
 def detect_dataset(det: Detector, dataset, loader, max_do=-1):
     """The detect step over the loader's batches (the tail batch kept);
-    returns {img_path: [[cls, score, x1..y2 normalised]]}."""
+    returns {img_path: [[cls, score, x1..y2 normalised]]}, or with mult_out
+    a list of them, one a window offset, each frame of a window under its
+    own path (a frame clamped onto the key frame at a video's end is
+    skipped, as detect_yolo3.py:240-242 skips it)."""
     shape = det.data_shape
-    boxes_out = {}
+    mult_out = getattr(dataset, "mult_out", False)
+    boxes_out = [{} for _ in range(dataset.window[0])] if mult_out else {}
     if max_do < 0:
         max_do = len(dataset)
     done = 0
@@ -369,7 +433,15 @@ def detect_dataset(det: Detector, dataset, loader, max_do=-1):
         for i in range(ids.shape[0]):
             if done >= max_do:
                 break
-            collect_boxes(boxes_out, dataset.sample_path(int(batch["idx"][i])), ids[i], sc[i], bb[i], shape)
+            sidx = int(batch["idx"][i])
+            if mult_out:
+                files = dataset.window_paths(sidx)
+                for off, file in enumerate(files):
+                    if off != 2 and file == files[2]:
+                        continue
+                    collect_boxes(boxes_out[off], file, ids[i, off], sc[i, off], bb[i, off], shape)
+            else:
+                collect_boxes(boxes_out, dataset.sample_path(sidx), ids[i], sc[i], bb[i], shape)
             done += 1
         if done >= max_do:
             break
@@ -378,13 +450,14 @@ def detect_dataset(det: Detector, dataset, loader, max_do=-1):
 
 def dataset_config(args, num_classes: int) -> YoloConfig:
     """The dataset path's model (detect_yolo3.py:270-301): YOLOv3 with the
-    standard stem, or YOLOv3T with the temporal flags under --window k > 1."""
+    standard stem, YOLOv3T with the temporal flags under --window k > 1, or
+    YOLOv3Temporal with --temp or --mult_out."""
     k = int(args.window.split(",")[0])
-    if k <= 1:
+    if k <= 1 and not (args.temp or args.mult_out):
         return YoloConfig(num_classes=num_classes)
-    return YoloConfig(num_classes=num_classes, k=k, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
-                      block_conv_type=args.block_conv_type, corr_pos=args.corr_pos,
-                      corr_d=args.corr_d if args.corr_pos else None)
+    return YoloConfig(num_classes=num_classes, k=k if k > 1 else None, k_join_type=args.k_join_type,
+                      k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type, corr_pos=args.corr_pos,
+                      corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out)
 
 
 def main_dataset(args):
@@ -393,7 +466,9 @@ def main_dataset(args):
     window = tuple(([int(w) for w in args.window.split(",")] + [1])[:2])
     if window[0] > 1 and args.dataset.split(",")[0] != "vid":
         raise ValueError("--window k > 1 needs a video dataset (detect_yolo3.py:960-963): --dataset vid")
-    dataset = get_dataset(args.dataset.split(","), args.dataset_root, args.every, window)
+    if args.mult_out and args.dataset.split(",")[0] != "vid":
+        raise NotImplementedError("--mult_out on datasets other than vid (YouTube-BB: ROADMAP.md Queue 1 item 2d)")
+    dataset = get_dataset(args.dataset.split(","), args.dataset_root, args.every, window, args.mult_out)
     classes = dataset.classes or ["object"]
     save_dir = os.path.join(args.save_dir, args.save_prefix)
     os.makedirs(save_dir, exist_ok=True)
@@ -434,16 +509,20 @@ def main_dataset(args):
     else:
         print(f"read {len(dataset)} images' predictions from the cache under {save_dir}; no detect step",
               flush=True)
+    mult_out = getattr(dataset, "mult_out", False)
+    eval_predictions = predictions[args.offset + 2] if mult_out else predictions
     if dataset.classes:
-        metrics = [get_metric(dataset, m, save_dir, args.metric_agnostic) for m in args.metrics.split(",")]
-        for metric_name, (names, values) in zip(args.metrics.split(","), evaluate(metrics, dataset, predictions)):
+        metrics = [get_metric(dataset, m, save_dir, args.metric_agnostic, args.offset if mult_out else None)
+                   for m in args.metrics.split(",")]
+        results = evaluate(metrics, dataset, eval_predictions, args.offset)
+        for metric_name, (names, values) in zip(args.metrics.split(","), results):
             path = os.path.join(save_dir, f"{metric_name}.txt")
             with open(path, "w") as f:
                 for n_, v in zip(names, values):
                     f.write(f"{n_}: {v}\n")
             print(f"{metric_name} mAP {values[-1]} written to {path}", flush=True)
     else:
-        print(f"no labels: wrote predictions for {len(predictions)} images", flush=True)
+        print(f"no labels: wrote predictions for {len(eval_predictions)} images", flush=True)
     return predictions
 
 

@@ -2,12 +2,12 @@
 
   * `VOCMApMetric`: streaming per-class buffers, greedy IoU matching with
     difficult handling, integrated AP, cross-dataset `class_map`;
-  * `VOC07MApMetric`: 11-point interpolated AP.
+  * `VOC07MApMetric`: 11-point interpolated AP;
+  * `VOCMApMetricTemporal`: one VOCMApMetric per timestep of a window, for
+    per-timestep (t_out) outputs.
 
 Protocol: reset() / update(preds, gts) / get() -> (names, values), fed with
 numpy arrays (post-NMS detections brought to the host).
-`VOCMApMetricTemporal` (per-timestep outputs) comes with `YOLOv3Temporal`'s
-t_out heads, ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 
 from ..ops.bbox import np_bbox_iou
 
-__all__ = ["VOCMApMetric", "VOC07MApMetric"]
+__all__ = ["VOCMApMetric", "VOC07MApMetric", "VOCMApMetricTemporal"]
 
 
 def _as_numpy(x):
@@ -180,3 +180,39 @@ class VOC07MApMetric(VOCMApMetric):
             above = prec[rec >= t]
             total += float(above.max()) if above.size else 0.0
         return total / 11.0
+
+
+class VOCMApMetricTemporal:
+    """Per-timestep VOC mAP (videoyolo_tpu/metrics/pascalvoc.py:193-232):
+    one VOCMApMetric a timestep t of the window.  `update` takes length-t
+    lists of per-timestep batch arrays, `update_t` one timestep's; `get`
+    names each value `t{i}:<name>`."""
+
+    def __init__(self, t: int, iou_thresh: float = 0.5, class_names=None, class_map=None):
+        self._t = t
+        self._metrics = [VOCMApMetric(iou_thresh=iou_thresh, class_names=class_names, class_map=class_map)
+                         for _ in range(t)]
+
+    def reset(self):
+        for m in self._metrics:
+            m.reset()
+
+    def update_t(self, t_idx: int, *args, **kwargs):
+        self._metrics[t_idx].update(*args, **kwargs)
+
+    def update(self, pred_bboxes, pred_labels, pred_scores, gt_bboxes, gt_labels, gt_difficults=None):
+        for ti in range(self._t):
+            self._metrics[ti].update(pred_bboxes[ti], pred_labels[ti], pred_scores[ti], gt_bboxes[ti], gt_labels[ti],
+                                     None if gt_difficults is None else gt_difficults[ti])
+
+    def get(self):
+        names, values = [], []
+        for ti, m in enumerate(self._metrics):
+            n, v = m.get()
+            if isinstance(n, list):
+                names += [f"t{ti}:{x}" for x in n]
+                values += list(v)
+            else:
+                names.append(f"t{ti}:{n}")
+                values.append(v)
+        return names, values

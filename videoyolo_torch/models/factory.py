@@ -1,9 +1,11 @@
 """Model factory (port of videoyolo_tpu/models/factory.py:25-154).
 
-It builds the 2D YOLOv3 / Darknet-53 detector and, for k > 1, the YOLOv3T
+It builds the 2D YOLOv3 / Darknet-53 detector, for k > 1 the YOLOv3T
 window model with the JAX factory's defaults (k_join_type "max", k_join_pos
-"early"; pad_stem is ignored there, as in JAX).  The motion-stream, 3D and
-YOLOv3Temporal branches raise and name the ROADMAP slice that brings them.
+"early"; pad_stem is ignored there, as in JAX), and with `temporal` or
+`t_out` the t=5 YOLOv3Temporal (t = k or 5, conv = block_conv_type,
+corr_d or 0).  The motion-stream and 3D branches raise and name the ROADMAP
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -11,11 +13,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .yolo3 import YOLOv3
-from .yolo3_temporal import YOLOv3T
+from .yolo3_temporal import YOLOv3T, YOLOv3Temporal
 
 __all__ = ["YoloConfig", "build_model", "yolo3_darknet53", "yolo3_no_backbone"]
 
-_FAMILIES = "YOLOv3Temporal and the other backbones come with slice 5, see ROADMAP.md"
+_FAMILIES = "the other backbones come with slice 5, see ROADMAP.md"
 
 
 @dataclass(frozen=True)
@@ -49,7 +51,10 @@ def build_model(cfg: YoloConfig):
     if cfg.motion_stream:
         raise NotImplementedError(f"two-stream backbones: {_FAMILIES}")
     if cfg.temporal or cfg.t_out:
-        raise NotImplementedError(f"YOLOv3Temporal: {_FAMILIES}")
+        return YOLOv3Temporal(
+            num_classes=cfg.num_classes, t=cfg.k or 5, conv=int(cfg.block_conv_type), corr_d=cfg.corr_d or 0,
+            t_out=cfg.t_out, agnostic=cfg.agnostic, dtype=cfg.dtype,
+        )
     if cfg.new_model:
         raise NotImplementedError(f"3D and hierarchical darknets: {_FAMILIES}")
     if cfg.k is not None and cfg.k > 1:

@@ -1,4 +1,4 @@
-"""Primitive layers (port of videoyolo_tpu/models/layers.py:32-288, 437-544).
+"""Primitive layers (port of videoyolo_tpu/models/layers.py:32-335, 437-544).
 
 The cells take and return NCHW tensors; the models keep them in
 `channels_last` memory, so NHWC is what lies in device memory, as in the JAX
@@ -12,8 +12,8 @@ and normalise the conv's output in its own dtype.  In train mode BatchNorm
 normalises with the batch's statistics and updates the running ones as
 flax does (`BatchNorm`).
 
-The temporal layers (`time_distributed`, `TemporalPooling`, `Corr`) take
-NHWC windows (B, T, H, W, C), as in the JAX package.
+The temporal layers (`time_distributed`, `TemporalPooling`, `Corr`,
+`ConvBNLeaky3D`) take NHWC windows (B, T, H, W, C), as in the JAX package.
 
 The fused-int8 path (`quant="fused"`, and its calibration twin
 "fused_calib") keeps activations int8 from cell to cell as `QTensor`s; its
@@ -375,6 +375,65 @@ def quant_concat(parts, dim: int = 1):
     return QTensor(torch.cat(qs, dim=dim), s)
 
 
+class Conv3d(nn.Conv3d):
+    """flax's 3-D `nn.Conv`, as `Conv2d` is its 2-D one: float32 kernel
+    (O, I, kt, kh, kw), cast to `dtype` at each call, no bias; NCDHW in and
+    out (an NDHWC window seen through a permute: `channels_last_3d`
+    memory)."""
+
+    _cast = Conv2d._cast
+
+    def __init__(self, in_channels: int, out_channels: int, kernel, stride, padding,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_channels, out_channels, tuple(kernel), stride=tuple(stride), padding=tuple(padding),
+                         bias=False)
+        self.dtype = dtype or torch.float32
+        self._cast_cache = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv3d(x, self._cast("weight", self.weight), None, self.stride, self.padding)
+
+    def _apply(self, fn, recurse=True):
+        # `Module.to(memory_format=torch.channels_last)`, which the entry
+        # points call on whole models, raises on a 5-D tensor: the kernel
+        # then takes the conversion's device and dtype, read off a 4-D
+        # probe, in channels_last_3d memory
+        def convert(t):
+            try:
+                return fn(t)
+            except RuntimeError as e:
+                if t.dim() != 5 or "channels_last" not in str(e):
+                    raise
+                probe = fn(t.new_empty((1, 1, 1, 1)))
+                return t.to(probe.device, probe.dtype, memory_format=torch.channels_last_3d)
+
+        return super()._apply(convert, recurse)
+
+
+class ConvBNLeaky3D(nn.Module):
+    """The 3-D conv-BN-LeakyReLU(0.1) cell over NHWC windows (B, T, H, W, C)
+    (layers.py:291-335): a (kt, kh, kw) conv of `stride`, zero-padded by
+    `padding` (default k//2 on each axis) on both sides of each axis, no
+    bias; BatchNorm over the channels (train mode: the statistics of every
+    frame and pixel of the batch, as flax's); leaky.  Returns (B, T', H',
+    W', features).  Float only: the int8 3-D cells raise."""
+
+    def __init__(self, in_channels: int, features: int, kernel=(3, 3, 3), stride=(1, 1, 1), padding=None,
+                 dtype: torch.dtype | None = None, quant=None):
+        super().__init__()
+        if quant:
+            raise NotImplementedError(f"the int8 3-D cells (quant={quant!r}) {_DEFERRED} 9a")
+        if padding is None:
+            padding = tuple(k // 2 for k in kernel)
+        self.dtype = dtype or torch.float32
+        self.Conv_0 = Conv3d(in_channels, features, kernel, stride, padding, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = leaky(self.BatchNorm_0(self.Conv_0(x.to(self.dtype).permute(0, 4, 1, 2, 3))))
+        return y.permute(0, 2, 3, 4, 1)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init in place: conv kernels N(0, 1/fan_in) (flax's
     lecun scale), conv biases 0, BN at identity (scale 1, bias 0, mean 0,
@@ -382,7 +441,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     weights on every device."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / fan_in**0.5
                 m.weight.copy_(w)
@@ -452,11 +511,14 @@ class Corr(nn.Module):
                    t*C + c), then one cost volume per compared timestep;
     keep='mid'  -> (B, H, W, C + n*D): the middle frame only;
     keep='none' -> (B, n, H, W, D): the stacked cost volumes.
-    `comp_mid` also compares the middle frame with itself.  Each frame goes
-    to `correlation` as a slice of the window (its batch stride is the
-    window's), so the CUDA kernel reads it in place; on CUDA, t=3 without
-    `comp_mid` (kernel_size 1, stride 1) goes to `CostVolumePair`, whose
-    backward is one adjoint launch that writes the window's gradient.  In
+    `comp_mid` also compares the middle frame with itself: f1 and f2 are
+    then views of one frame, the adjoint returns a gradient for each, and
+    autograd adds them.  Each frame goes to `correlation` as a slice of the
+    window (its batch stride is the window's), so the CUDA kernel reads it
+    in place; on CUDA, t=3 without `comp_mid` (kernel_size 1, stride 1)
+    goes to `CostVolumePair`, whose backward is one adjoint launch that
+    writes the window's gradient, and every other comparison to
+    `correlation` (K2 a volume, then for kernel_size > 1 the patch sum).  In
     train mode the gradient reaches each frame through its own channels and
     through the comparisons it takes part in (the middle frame through all
     of them), and returns to the window's dtype through the cast's

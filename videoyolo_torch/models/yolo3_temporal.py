@@ -1,5 +1,5 @@
 """Temporal YOLOv3 over k-frame windows (port of
-videoyolo_tpu/models/yolo3_temporal.py:52-375).
+videoyolo_tpu/models/yolo3_temporal.py:52-549).
 
 `YOLOv3T` takes NHWC windows (B, k, H, W, 3): the Darknet-53 stages run per
 frame, then the k frames join early (on the routes) or late (on the tips) by
@@ -18,10 +18,17 @@ JAX package; each conv cell sees an NCHW view of them (`channels_last`
 memory).  The cells cast their input to the model's dtype, as flax's convs
 do: the correlation routes are float32 and meet the bf16 cells there.
 
+`YOLOv3Temporal` is the t=5 model: per-timestep heads (`t_out`) over
+per-frame stages, or over the correlation pyramid (stage 1 per frame, the
+kernel_size=3 cost volumes of every frame against the middle one, a conv
+pyramid of them beside the middle frame's deeper stages), or, without
+`t_out`, the 5 -> 3 -> 1 funnel of 3-D convs that ends in one frame's
+detections.
+
 Not ported yet (they raise NotImplementedError naming the slice and the
 ROADMAP.md item): the conv-RNN (`rnn_pos`, item 5), 3D and 2+1D blocks
-(item 6), custom backbones (item 7), the streaming split (`feed`, item 11),
-int8 cells (item 9a), and `YOLOv3Temporal` (item 8).
+(item 6), custom backbones (item 7), the streaming split (`feed`, item 11)
+and int8 cells (item 9a).
 """
 from __future__ import annotations
 
@@ -34,12 +41,16 @@ from torch import nn
 from ..ops.anchors import DEFAULT_ANCHORS, DEFAULT_STRIDES
 from ..ops.correlation import num_corr_channels
 from .darknet import DARKNET53_CHANNELS, Darknet53Stage1, DarknetStage
-from .layers import ConvBNLeaky, Corr, TemporalPooling, time_distributed, upsample2x
+from .layers import ConvBNLeaky, ConvBNLeaky3D, Corr, TemporalPooling, time_distributed, upsample2x
 from .yolo3 import FPN_CHANNELS, YOLOOutput
 
-__all__ = ["YOLOv3T"]
+__all__ = ["YOLOv3T", "YOLOv3Temporal"]
 
 _LATER = "comes with slice 5 (the rest of the temporal family), see ROADMAP.md Queue 1 item"
+
+
+def _anchor_pairs(level_anchors):
+    return [(level_anchors[2 * j], level_anchors[2 * j + 1]) for j in range(len(level_anchors) // 2)]
 
 
 def _fold_time_into_channels(x: torch.Tensor) -> torch.Tensor:
@@ -202,8 +213,7 @@ class YOLOv3T(nn.Module):
             self.add_module(
                 f"block{i}", YOLODetectionBlockT(cin, channels[i], block_conv_type, dtype=dtype)
             )
-            pairs = [(anchors_rev[i][2 * j], anchors_rev[i][2 * j + 1])
-                     for j in range(len(anchors_rev[i]) // 2)]
+            pairs = _anchor_pairs(anchors_rev[i])
             tip = after(2 * channels[i], self.late_join, self.late_corr)
             self.add_module(
                 f"output{i}",
@@ -260,6 +270,136 @@ class YOLOv3T(nn.Module):
                 # here, as the next conv would
                 y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
 
+        if self.training:
+            return {key: torch.cat([o[key] for o in level_outs], dim=-2) for key in level_outs[0]}
+        boxes = torch.cat([o[0] for o in level_outs], dim=-2)
+        scores = torch.cat([o[2 if self.agnostic else 1] for o in level_outs], dim=-2)
+        return boxes, scores
+
+
+def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A 2D cell on an NHWC map or window, its input cast to `dtype` (as
+    flax's convs cast a float32 correlation route)."""
+    return _nhwc(cell, x.to(dtype))
+
+
+class YOLOv3Temporal(nn.Module):
+    """The t=5 temporal model (yolo3_temporal.py:378-549) with `conv=2`.
+
+    Input (B, t, H, W, 3) NHWC windows ((B, H, W, 3) for t = 1).
+    t_out=True: every branch runs per frame and the outputs keep the time
+    axis: eval (boxes (B, t, N, 4), scores (B, t, N, C)), train the
+    raw-head dict with (B, t, ...) values.  With `corr_d`, the correlation
+    pyramid: stage 1 per frame, `Corr(corr_d, t, kernel_size=3,
+    keep='none', comp_mid=True)` (each frame against the middle one, the
+    middle one against itself), `convs1-3` per frame on the cost volumes,
+    each level concatenated with the middle frame's stage-1-3 features
+    repeated over t.  t_out=False: the 5 -> 3 -> 1 funnel, per-frame stages
+    fused with (1,3,3)/(1,2,2) then (3,1,1) 3-D cells (`convs{1,2}_s/_t`),
+    single-frame routes and outputs (B, N, ...).  Submodules carry the flax
+    names (`stage1-3`, `corr`, `convs*`, `block{i}`, `output{i}`,
+    `transition{i}`).  In train mode BatchNorm takes its statistics over
+    the frames folded into the batch, as `time_distributed` does in JAX."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        t: int = 5,
+        conv: int = 2,
+        corr_d: int = 0,
+        t_out: bool = True,
+        feed: Optional[str] = None,
+        agnostic: bool = False,
+        anchors=DEFAULT_ANCHORS,
+        strides: Sequence[int] = DEFAULT_STRIDES,
+        channels: Sequence[int] = FPN_CHANNELS,
+        quant: Any = False,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        if t not in (1, 5):
+            raise ValueError(f"YOLOv3Temporal takes t=1 or t=5 (yolo3_temporal.py:400), got {t}")
+        if quant:
+            raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
+        if conv != 2:
+            raise NotImplementedError(f"YOLOv3Temporal's 3D and 2+1D blocks (conv={conv}): {_LATER} 6")
+        if feed is not None:
+            raise NotImplementedError(f"the streaming split (feed={feed!r}): {_LATER} 11")
+        self.t, self.corr_d, self.t_out, self.agnostic = t, corr_d, t_out, agnostic
+        self.dtype = dtype or torch.float32
+        self.path = "single" if t == 1 else ("pyramid" if t_out and corr_d else "per_frame" if t_out else "funnel")
+        self.stage1 = Darknet53Stage1(dtype=dtype)
+        self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
+        self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
+        route_channels = list(DARKNET53_CHANNELS[-3:])
+        if self.path == "pyramid":
+            self.corr = Corr(corr_d, t, kernel_size=3, stride=1, keep="none", comp_mid=True)
+            self.convs1 = ConvBNLeaky(num_corr_channels(corr_d, 1), 128, kernel=3, stride=1, dtype=dtype)
+            self.convs2 = ConvBNLeaky(128, 128, kernel=3, stride=2, dtype=dtype)
+            self.convs3 = ConvBNLeaky(128, 128, kernel=3, stride=2, dtype=dtype)
+            route_channels = [c + 128 for c in route_channels]
+        elif self.path == "funnel":
+            for name, cin, mid, feat in (("convs1", 256, 256, 512), ("convs2", 512, 512, 1024)):
+                self.add_module(f"{name}_s", ConvBNLeaky3D(cin, mid, kernel=(1, 3, 3), stride=(1, 2, 2),
+                                                           padding=(0, 1, 1), dtype=dtype))
+                self.add_module(f"{name}_t", ConvBNLeaky3D(mid, feat, kernel=(3, 1, 1), stride=(1, 1, 1),
+                                                           padding=(0, 0, 0), dtype=dtype))
+        anchors_rev = list(anchors)[::-1]
+        strides_rev = list(strides)[::-1]
+        cin = route_channels[-1]
+        for i in range(3):
+            self.add_module(f"block{i}", YOLODetectionBlockT(cin, channels[i], "2", dtype=dtype))
+            self.add_module(f"output{i}", YOLOOutputConvT(2 * channels[i], num_classes, _anchor_pairs(anchors_rev[i]),
+                                                          strides_rev[i], dtype=dtype))
+            if i < 2:
+                self.add_module(f"transition{i}", ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype))
+                cin = channels[i + 1] + route_channels[1 - i]
+
+    def routes(self, x: torch.Tensor):
+        """The three NHWC routes of the path, deep last: (B, t, H/s, W/s, C)
+        per frame on the t_out paths, (B, H/s, W/s, C) on the funnel and
+        for t = 1."""
+        stage2, stage3 = partial(_nhwc, self.stage2), partial(_nhwc, self.stage3)
+        if self.path == "single":
+            r1 = self.stage1(x)
+            r2 = stage2(r1)
+            return [r1, r2, stage3(r2)]
+        if self.path == "per_frame":
+            r1 = time_distributed(self.stage1, x)
+            r2 = stage2(r1)
+            return [r1, r2, stage3(r2)]
+        y = time_distributed(self.stage1, x)
+        if self.path == "pyramid":
+            mid = y[:, self.t // 2]
+            c = _cell(self.convs1, self.corr(y), self.dtype)
+            routes = []
+            for level in range(3):
+                if level:
+                    mid = (stage2 if level == 1 else stage3)(mid)
+                    c = _cell(getattr(self, f"convs{level + 1}"), c, self.dtype)
+                rep = mid[:, None].expand((-1, self.t) + mid.shape[1:])
+                routes.append(torch.cat([rep, c], dim=-1))
+            return routes
+        # the funnel: T 5 -> 3 -> 1 while the stages run on the shrinking window
+        routes = [y[:, 2]]
+        cx = self.convs1_t(self.convs1_s(y))  # (B, 3, H/16, W/16, 512)
+        y = stage2(y[:, 1:4]) + cx
+        routes.append(y[:, 1])
+        cx = self.convs2_t(self.convs2_s(y))  # (B, 1, H/32, W/32, 1024)
+        y = stage3(y[:, 1:2]) + cx
+        routes.append(y[:, 0])
+        return routes
+
+    def forward(self, x: torch.Tensor):
+        routes = self.routes(x)
+        level_outs = []
+        y = routes[-1]
+        for i in range(3):
+            y, tip = getattr(self, f"block{i}")(y)
+            level_outs.append(getattr(self, f"output{i}")(tip))
+            if i < 2:
+                y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
+                y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
         if self.training:
             return {key: torch.cat([o[key] for o in level_outs], dim=-2) for key in level_outs[0]}
         boxes = torch.cat([o[0] for o in level_outs], dim=-2)

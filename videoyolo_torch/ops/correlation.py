@@ -13,8 +13,12 @@ package does: kernel_size=1, stride1=1, multiply on CUDA tensors goes to
 (`correlation_kernel.cost_volume`) and whose backward is the adjoint kernel
 (`correlation_kernel.cost_volume_backward`), whether a gradient is taken or
 not (`CostVolumePair` takes the Corr layer's two volumes of a window of 3
-frames, with one adjoint launch for both); a CPU tensor, and every other
-configuration on either device, to the plain version, which autograd
+frames, with one adjoint launch for both).  A kernel_size k > 1 volume
+(stride1=1, multiply) is the kernel_size=1 volume summed over a k x k
+patch, zero-padded by k//2, and divided by k^2 (`patch_correlation`): on
+CUDA tensors it runs `CostVolume` (K2 forward, its adjoint backward), then
+that patch sum as torch ops.  A CPU tensor, and every other configuration
+on either device, goes to the plain version, which autograd
 differentiates.  A kernel that fails to build
 or launch raises: nothing on the card falls back to the plain version.
 """
@@ -28,7 +32,8 @@ from .correlation_kernel import (
     cost_volume_pair_backward_plain,
 )
 
-__all__ = ["CostVolume", "CostVolumePair", "correlation", "correlation_plain", "num_corr_channels"]
+__all__ = ["CostVolume", "CostVolumePair", "correlation", "correlation_plain", "num_corr_channels",
+           "patch_correlation"]
 
 
 def num_corr_channels(max_displacement: int, stride2: int = 1) -> int:
@@ -66,15 +71,32 @@ def correlation_plain(
             planes.append(prod.sum(dim=-1))
     out = torch.stack(planes, dim=-1)  # (B, H, W, D)
     if k > 1:
-        # the k x k patch sum, zero-padded by k//2 (reduce_window in JAX)
-        r = k // 2
-        outp = F.pad(out, (0, 0, r, r, r, r))
-        ho, wo = h + 2 * r - k + 1, w + 2 * r - k + 1
-        out = sum(outp[:, i : i + ho, j : j + wo] for i in range(k) for j in range(k))
+        out = patch_sum(out, k)
     out = out / float(k * k * c)
     if stride1 > 1:
         out = out[:, ::stride1, ::stride1]
     return out
+
+
+def patch_sum(volume: torch.Tensor, k: int) -> torch.Tensor:
+    """The k x k patch sum of a (B, H, W, D) volume, zero-padded by k//2
+    (reduce_window in JAX): a sum of k*k shifted slices."""
+    _, h, w, _ = volume.shape
+    r = k // 2
+    padded = F.pad(volume, (0, 0, r, r, r, r))
+    ho, wo = h + 2 * r - k + 1, w + 2 * r - k + 1
+    return sum(padded[:, i : i + ho, j : j + wo] for i in range(k) for j in range(k))
+
+
+def patch_correlation(volume_fn, f1: torch.Tensor, f2: torch.Tensor, max_displacement: int, kernel_size: int,
+                      stride2: int = 1) -> torch.Tensor:
+    """The correlation of `kernel_size` k, stride1=1, multiply, from the
+    kernel_size=1 volume: `volume_fn(f1, f2, max_displacement, stride2)`
+    (the sum over C divided by C: `CostVolume.apply` on the card), summed
+    over a k x k patch zero-padded by k//2 and divided by k^2.  This is
+    `correlation_plain`'s function: it sums the products over the patch
+    before it divides by k^2 * C, so the two agree up to float32 rounding."""
+    return patch_sum(volume_fn(f1, f2, max_displacement, stride2), kernel_size) / float(kernel_size * kernel_size)
 
 
 class CostVolume(torch.autograd.Function):
@@ -143,9 +165,11 @@ def correlation(
     stride2: int = 2,
     is_multiply: bool = True,
 ) -> torch.Tensor:
-    """`correlation_plain`'s function; for kernel_size=1, stride1=1,
-    multiply on CUDA tensors (float32) the kernels of `CostVolume` compute it
-    and its gradient."""
-    if kernel_size == 1 and stride1 == 1 and is_multiply and f1.device.type == "cuda":
-        return CostVolume.apply(f1, f2, max_displacement, stride2)
+    """`correlation_plain`'s function; for stride1=1, multiply on CUDA
+    tensors (float32) the kernels of `CostVolume` compute it and its
+    gradient, followed for kernel_size > 1 by the patch sum."""
+    if stride1 == 1 and is_multiply and f1.device.type == "cuda":
+        if kernel_size == 1:
+            return CostVolume.apply(f1, f2, max_displacement, stride2)
+        return patch_correlation(CostVolume.apply, f1, f2, max_displacement, kernel_size, stride2)
     return correlation_plain(f1, f2, max_displacement, kernel_size, stride1, stride2, is_multiply)

@@ -1,7 +1,7 @@
 """Training-correctness evidence: overfit a tiny synthetic set, the twin of
-`tools/overfit_check.py --configs yolov3` and `--configs k3`.
+`tools/overfit_check.py --configs yolov3`, `k3` and `t5`.
 
-    python -m videoyolo_torch.overfit --out record.json [--config yolov3|k3] [--device cpu] \
+    python -m videoyolo_torch.overfit --out record.json [--config yolov3|k3|t5] [--device cpu] \
         [--dtype bf16|f32] [--steps 400] [--batch_size 8] [--data_shape 160] \
         [--seed 0] [--save_prefix PREFIX]
 
@@ -9,7 +9,12 @@
 on 8 images (one solid color patch on noise, one box each, `synth_set`).
 `k3`: YOLOv3T(num_classes=3, k=3, the late max join, bf16) trains on the
 same kind of set drawn from seed + 1 (the JAX tool's seed 1), each image
-repeated into a static 3-frame window, one loss a window.  Either runs the
+repeated into a static 3-frame window, one loss a window.  `t5`:
+YOLOv3Temporal(num_classes=3, t=5, t_out, the correlation pyramid at
+corr_d=2, bf16) on a set drawn from seed + 2, each image repeated into a
+static 5-frame window with its gt repeated for every frame (per-timestep
+heads and loss); the recovery is checked on the middle frame's detections.
+Each runs the
 whole train step: the forward, the targets on the device, the loss, the
 backward pass, SGD and the BN statistics, with lr_schedule("cosine", 5e-4,
 one epoch of `steps` steps, warmup 0.1 epoch).  Then the eval step (K1's
@@ -38,21 +43,22 @@ import torch
 from .device import resolve_device
 from .models.layers import init_weights
 from .models.yolo3 import YOLOv3
-from .models.yolo3_temporal import YOLOv3T
+from .models.yolo3_temporal import YOLOv3T, YOLOv3Temporal
 from .train.checkpoint import save_params, variables_of
 from .train.lr import lr_schedule
 from .train.step import create_train_state, make_eval_step, make_train_step
 
 NUM_CLASSES = 3
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-# each config's model and the offset of its data seed (tools/overfit_check.py:
-# cfg_yolov3 draws synth_set from seed 0, cfg_k3 from seed 1)
+# each config's model, the offset of its data seed and its frames a window
+# (tools/overfit_check.py:123-183: cfg_yolov3 draws synth_set from seed 0,
+# cfg_k3 from seed 1, cfg_t5 from seed 2)
 CONFIGS = {
-    "yolov3": (lambda dtype: YOLOv3(num_classes=NUM_CLASSES, dtype=dtype), 0),
+    "yolov3": (lambda dtype: YOLOv3(num_classes=NUM_CLASSES, dtype=dtype), 0, 1),
     "k3": (lambda dtype: YOLOv3T(num_classes=NUM_CLASSES, k=3, k_join_type="max", k_join_pos="late", dtype=dtype),
-           1),
+           1, 3),
+    "t5": (lambda dtype: YOLOv3Temporal(num_classes=NUM_CLASSES, t=5, t_out=True, corr_d=2, dtype=dtype), 2, 5),
 }
-WINDOW = 3  # the k3 config's frames a window
 # distinguishable solid patch colors (up to 4 classes)
 _COLORS = [[0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9], [0.9, 0.9, 0.1]]
 
@@ -103,18 +109,21 @@ def run(args):
     """Train and evaluate as the module docstring says; returns (the record,
     the trained model)."""
     dev = resolve_device(args.device)
-    build, data_seed = CONFIGS[args.config]
+    build, data_seed, frames = CONFIGS[args.config]
     images, gtb, gti = synth_set(NUM_CLASSES, args.seed + data_seed, args.batch_size, args.data_shape)
-    if args.config == "k3":
-        images = np.repeat(images[:, None], WINDOW, axis=1)  # a static clip a sample
+    gt = (gtb, gti)
+    if frames > 1:
+        images = np.repeat(images[:, None], frames, axis=1)  # a static clip a sample
+    if args.config == "t5":  # per-timestep gt (B, T, M, .): the mult_out contract
+        gt = tuple(np.repeat(a[:, None], frames, axis=1) for a in gt)
     model = build(DTYPES[args.dtype])
     init_weights(model, torch.Generator().manual_seed(args.seed))
     model.to(dev, memory_format=torch.channels_last)
     lr_fn = lr_schedule("cosine", 5e-4, steps_per_epoch=args.steps, epochs=1, warmup_epochs=0.1)
     state = create_train_state(model, lr_fn)
     step = make_train_step(model, num_classes=NUM_CLASSES)
-    batch = {"image": torch.from_numpy(images).to(dev), "gt_boxes": torch.from_numpy(gtb).to(dev),
-             "gt_ids": torch.from_numpy(gti).to(dev)}
+    batch = {"image": torch.from_numpy(images).to(dev), "gt_boxes": torch.from_numpy(gt[0]).to(dev),
+             "gt_ids": torch.from_numpy(gt[1]).to(dev)}
     losses = []
     t0 = time.perf_counter()
     for i in range(args.steps):
@@ -125,6 +134,8 @@ def run(args):
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     ids, scores, boxes = (t.cpu().numpy() for t in make_eval_step(model)(batch["image"]))
+    if ids.ndim == 4:  # per-timestep detections: the middle frame's
+        ids, scores, boxes = ids[:, frames // 2], scores[:, frames // 2], boxes[:, frames // 2]
     ious = [iou(boxes[i, 0], gtb[i, 0]) for i in range(args.batch_size)]
     cls_ok = [int(ids[i, 0, 0]) == i % NUM_CLASSES for i in range(args.batch_size)]
     rec = {

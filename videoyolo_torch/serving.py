@@ -2,9 +2,11 @@
 
 `Detector` builds the model from a `YoloConfig`, takes the JAX package's
 variables (nested numpy dicts) or a seeded random init, and maps an image
-batch, or a batch of k-frame windows when `cfg.k > 1`, to detections:
-forward, two-stage top-k, greedy NMS (the CUDA kernel on the card), boxes
-clipped to the image.  With `quantize="int8"` it serves the fused-int8
+batch, or a batch of k-frame windows when `cfg.k > 1` (t-frame windows,
+t = k or 5, for YOLOv3Temporal), to detections: forward, two-stage top-k,
+greedy NMS (the CUDA kernel on the card), boxes clipped to the image.
+Per-timestep outputs (`t_out`) go through `postprocess_tout`: T folded
+into the batch, one NMS call on the B*T images.  With `quantize="int8"` it serves the fused-int8
 YOLOv3 of `ops/quantize.py:quantize_fused` (detect_yolo3.py:346-386).
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ from .device import resolve_device
 from .models.factory import YoloConfig, build_model
 from .models.layers import init_weights
 from .models.s2d import pad_stem_cin
-from .models.yolo3 import postprocess
+from .models.yolo3 import postprocess_tout
 from .ops.quantize import quantize_fused, replace_quant
 from .utils.flax_bridge import flax_to_state_dict, state_dict_to_flax, walk
 
@@ -29,10 +31,11 @@ NMS_TOPK = 400
 
 
 class Detector:
-    """images (B, S, S, 3), or windows (B, k, S, S, 3) when `cfg.k > 1`,
-    uint8 in [0, 255] or already normalised float -> (ids (B,100,1), scores
-    (B,100,1), boxes (B,100,4) clipped to [0, S]), torch tensors on the
-    detector's device; a window gets one set of detections.  Padding rows
+    """images (B, S, S, 3), or windows (B, k, S, S, 3) when the model takes
+    k > 1 frames, uint8 in [0, 255] or already normalised float -> (ids
+    (B,100,1), scores (B,100,1), boxes (B,100,4) clipped to [0, S]), torch
+    tensors on the detector's device; a window gets one set of detections,
+    or with `cfg.t_out` one a frame: (B, k, 100, ...).  Padding rows
     have id and score -1 and, after the clip, boxes of 0, as in the JAX
     package.
 
@@ -69,7 +72,8 @@ class Detector:
             cfg = dataclasses.replace(cfg, dtype=dtype)
         self.dtype = cfg.dtype or torch.float32
         self.data_shape = data_shape
-        self.frames = cfg.k if cfg.k is not None and cfg.k > 1 else None
+        k = (cfg.k or 5) if cfg.temporal or cfg.t_out else cfg.k
+        self.frames = k if k is not None and k > 1 else None
         self._mean = torch.tensor(MEAN, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(STD, dtype=torch.float32, device=self.device)
         int8_vars = variables is not None and any(p[-1] == "qkernel" for p, _ in walk(variables))
@@ -101,7 +105,7 @@ class Detector:
         if variables is None:
             init_weights(model, torch.Generator().manual_seed(seed))
             return model
-        if cfg.pad_stem and self.frames is None:
+        if cfg.pad_stem and "backbone" in variables["params"]:
             stem = variables["params"]["backbone"]["conv0"]["Conv_0"]["kernel"]
             if np.shape(stem)[2] == 3:
                 variables = pad_stem_cin(variables, prefix="backbone")
@@ -122,7 +126,7 @@ class Detector:
     def __call__(self, images):
         s = self.data_shape
         boxes, scores = self.model(self._normalized(images))
-        ids, sc, bb = postprocess(boxes, scores, nms_thresh=NMS_THRESH, nms_topk=NMS_TOPK)
+        ids, sc, bb = postprocess_tout(boxes, scores, nms_thresh=NMS_THRESH, nms_topk=NMS_TOPK)
         return ids, sc, bb.clamp(0, s)
 
 

@@ -121,21 +121,24 @@ def make_train_step(
 
     batch: dict with
       image      (B, H, W, 3)  normalised, or uint8 pixels with `color`;
-                 or (B, k, H, W, 3) windows for YOLOv3T, one label and one
-                 colour map a window (train/step.py:171-226)
+                 or (B, k, H, W, 3) windows for YOLOv3T and YOLOv3Temporal,
+                 one colour map a window (train/step.py:171-226)
       color      (B, 3, 4)     optional per-image (per-window) color maps
                                (ops/color.py)
-      gt_boxes   (B, M, 4)     corner pixels, -1 padded
-      gt_ids     (B, M, 1)     or (B, M, C) multi-hot
+      gt_boxes   (B, M, 4)     corner pixels, -1 padded; (B, T, M, 4) a
+                               frame for a t_out model
+      gt_ids     (B, M, 1)     or (B, M, C) multi-hot; (B, T, M, 1)
       gt_mix     (B, M, 1)     read with `mixup`
 
     `input_hw` defaults to the image's (H, W).  `accum_steps` > 1 splits
     the batch into that many micro-batches, carries the BN statistics
     through them, and updates once with the mean of their gradients.
 
-    The JAX step's other inputs come with the slices that need them: a
-    head-only model's `features` (ROADMAP.md Queue 1 item 13) and the
-    per-timestep heads and labels of t_out models (item 8), which raise."""
+    A t_out model's per-timestep heads (B, T, N, ...) take per-timestep gt
+    (B, T, M, ...): T is folded into the batch for the targets and the loss,
+    so the loss is the mean over the B*T frames (train/step.py:190-205).
+
+    A head-only model's `features` come with ROADMAP.md Queue 1 item 13."""
 
     def loss_fn(batch):
         x = batch["image"]
@@ -143,13 +146,15 @@ def make_train_step(
             x = apply_color(x, batch["color"])
         hw = input_hw or tuple(x.shape[-3:-1])
         out = model(x)
-        if out["bbox"].dim() != 3:
-            raise NotImplementedError(
-                "per-timestep heads (B, T, N, ...) and their per-timestep loss (t_out) come with "
-                "YOLOv3Temporal, see ROADMAP.md Queue 1 item 8"
-            )
         gt_boxes, gt_ids = batch["gt_boxes"], batch["gt_ids"]
         gt_mix = batch.get("gt_mix") if mixup else None
+        if out["bbox"].dim() == 4:  # per-timestep heads and gt: T folded into the batch
+            if gt_boxes.dim() != 4:
+                raise ValueError(f"per-timestep heads {tuple(out['bbox'].shape)} take per-timestep gt (B, T, M, 4), "
+                                 f"got gt_boxes {tuple(gt_boxes.shape)}")
+            out = {k: v.flatten(0, 1) for k, v in out.items()}
+            gt_boxes, gt_ids = gt_boxes.flatten(0, 1), gt_ids.flatten(0, 1)
+            gt_mix = None if gt_mix is None else gt_mix.flatten(0, 1)
         tg = prefetch_targets(gt_boxes, gt_ids, gt_mix, input_hw=hw, num_classes=num_classes)
         merged = merge_targets(
             out["bbox"], gt_boxes, *tg, num_classes=num_classes,

@@ -9,6 +9,8 @@ ImageNet-DET and ImageNet-VID frames or windows from disk.
         [--resume P | --start_epoch -1] [--device cpu] ...
     python -m videoyolo_torch.train_yolov3 --dataset vid --window 3,1 --k_join_pos late \
         --corr_pos early --corr_d 4 --nopretrained_cnn --batch_size 16 ...   # YOLOv3T on windows
+    python -m videoyolo_torch.train_yolov3 --dataset vid --window 5,1 --temp --mult_out \
+        --corr_pos early --corr_d 4 --nopretrained_cnn --batch_size 8 ...   # YOLOv3Temporal, t_out
 
 YOLOv3 / Darknet-53 on the dataset's train split (VOC 2007 + 2012
 trainval; COCO's instances_train2017; DET train, images without boxes kept
@@ -48,14 +50,21 @@ from the key frame and applied to its k frames in the per-sample route
 CLI's Python route (each frame decoded, resized with interp 9 and
 normalised in the loader's workers) and VOC mAP.  A train step runs the
 cost volumes (K2) forward and their adjoint kernel backward on the card.
-Like the JAX CLI, `--pretrained_cnn` does not load into YOLOv3T (it has no
-`backbone` scope): pass `--nopretrained_cnn` or `--resume`.
+`--temp` (the funnel) or `--mult_out` (per-timestep heads: t_out, with
+`--corr_d` the correlation pyramid) trains YOLOv3Temporal on windows of
+`--window` k (5) frames, as the JAX CLI builds it; `--mult_out` labels
+every frame of a window, the train step folds the frames into the batch
+for the targets and the loss, and validation scores each offset of the
+window with `VOCMApMetricTemporal`.
+Like the JAX CLI, `--pretrained_cnn` does not load into YOLOv3T or
+YOLOv3Temporal (neither has a `backbone` scope): pass `--nopretrained_cnn`
+or `--resume`.
 
 The log line `Speed: %.3f samples/sec` is the JAX CLI's.  The run is on the
 card unless `--device cpu` is given.  Paths this slice does not port raise
 NotImplementedError naming their ROADMAP.md item: the combined and
-YouTube-BB datasets, `--mult_out`, 3D and 2+1D blocks, `--features_dir`,
-`--trained_on` and more than one process.
+YouTube-BB datasets, 3D and 2+1D blocks, `--features_dir`, `--trained_on`
+and more than one process.
 """
 from __future__ import annotations
 
@@ -85,7 +94,7 @@ from .data.transforms import (
 )
 from .device import resolve_device
 from .metrics.mscoco import COCODetectionMetric
-from .metrics.pascalvoc import VOCMApMetric
+from .metrics.pascalvoc import VOCMApMetric, VOCMApMetricTemporal
 from .models.darknet import Darknet53
 from .models.factory import yolo3_darknet53
 from .models.layers import init_weights
@@ -163,8 +172,9 @@ def parse_args(argv=None):
     p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2 (3 and 21: item 6)")
     p.add_argument("--corr_pos", default=None, help="position of the correlation features: early or late")
     p.add_argument("--corr_d", type=int, default=0, help="the d of the correlation; 0: the model's default")
+    p.add_argument("--temp", action="store_true", help="the t=5 temporal model (YOLOv3Temporal)")
+    p.add_argument("--mult_out", action="store_true", help="one output a frame of the window (t_out)")
     # paths this slice does not port
-    p.add_argument("--mult_out", action="store_true")
     p.add_argument("--features_dir", default=None)
     p.add_argument("--trained_on", default="")
     return p.parse_args(argv)
@@ -182,8 +192,6 @@ def check_ported(args):
         raise NotImplementedError("combined datasets (the class tree): see ROADMAP.md Queue 1 item 2c")
     if window(args)[0] > 1 and args.dataset[0] not in ("vid", "yt"):
         raise ValueError("window > 1 requires a video dataset (train_yolov3.py:775-776)")
-    if args.mult_out:
-        raise NotImplementedError("--mult_out (per-frame heads, t_out): see ROADMAP.md Queue 1 item 8")
     if args.block_conv_type != "2":
         raise NotImplementedError("3D and 2+1D blocks (--block_conv_type): see ROADMAP.md Queue 1 item 6")
     if args.features_dir:
@@ -217,16 +225,20 @@ def get_dataset(args, name: str, val: bool = False):
                                  allow_empty=args.allow_empty or val, inference=val)
     return ImageNetVidDetection(root=os.path.join(root, "ImageNetVID", "ILSVRC"),
                                 splits=[(2017, "val" if val else "train")], allow_empty=args.allow_empty or val,
-                                every=int(args.every), window=window(args), inference=val)
+                                every=int(args.every), window=window(args), mult_out=args.mult_out, inference=val)
 
 
 def get_val_metric(args, val_dataset, save_prefix: str):
     """COCO validation -> the COCO metric at the data shape; anything else
-    -> VOC mAP at IoU 0.5 over the validation set's classes
+    -> VOC mAP at IoU 0.5 over the validation set's classes, one a window
+    offset (`VOCMApMetricTemporal`) for VID with --mult_out
     (train_yolov3.py:340-369)."""
-    if (args.dataset_val or args.dataset)[0] == "coco":
+    name = (args.dataset_val or args.dataset)[0]
+    if name == "coco":
         return COCODetectionMetric(val_dataset, save_prefix + "_eval", cleanup=True,
                                    data_shape=(args.data_shape, args.data_shape))
+    if name == "vid" and args.mult_out:
+        return VOCMApMetricTemporal(t=window(args)[0], iou_thresh=0.5, class_names=list(val_dataset.classes))
     return VOCMApMetric(iou_thresh=0.5, class_names=list(val_dataset.classes))
 
 
@@ -256,12 +268,24 @@ def get_dataloaders(args, train_dataset, val_dataset, rs: np.random.RandomState,
 
 
 def validate(eval_step, val_loader, metric, device):
-    """The eval step on the card, the metric on the host."""
+    """The eval step on the card, the metric on the host.  Per-timestep
+    outputs (B, T, ...) update a temporal metric offset by offset, any
+    other metric with T folded into the batch (train_yolov3.py:371-413)."""
     metric.reset()
     for batch in device_prefetch(iter(val_loader), device, size=2, keys=("image",)):
         ids, scores, bboxes = (a.cpu().numpy() for a in eval_step(batch["image"]))
         label = batch["label"]
         size = batch["image"].shape[-2]
+        if ids.ndim == 4:
+            t = ids.shape[1]
+            if isinstance(metric, VOCMApMetricTemporal):
+                metric.update([bboxes[:, i].clip(0, size) for i in range(t)], [ids[:, i] for i in range(t)],
+                              [scores[:, i] for i in range(t)], [label[:, i, :, :4] for i in range(t)],
+                              [label[:, i, :, 4:5] for i in range(t)],
+                              [label[:, i, :, 5:6] for i in range(t)] if label.shape[-1] > 5 else None)
+                continue
+            ids, scores, bboxes = (a.reshape((-1,) + a.shape[2:]) for a in (ids, scores, bboxes))
+            label = label.reshape((-1,) + label.shape[2:])
         metric.update(bboxes.clip(0, size), ids, scores, label[..., :4], label[..., 4:5],
                       label[..., 5:6] if label.shape[-1] > 5 else None)
     return metric.get()
@@ -298,8 +322,8 @@ def _load_pretrained_base(args, model):
     variables = variables_of(model)
     if "backbone" not in variables["params"]:
         raise RuntimeError(
-            "--pretrained_cnn is not wired for models without a 'backbone' scope (YOLOv3T builds its stages "
-            "inline); pass --nopretrained_cnn or warm-start via --resume."
+            "--pretrained_cnn is not wired for models without a 'backbone' scope (YOLOv3T and YOLOv3Temporal "
+            "build their stages inline); pass --nopretrained_cnn or warm-start via --resume."
         )
     if args.s2d_stem:
         # load into a standard Darknet53 tree, refold its stem, install it
@@ -435,9 +459,10 @@ def main(argv=None):
             raise RuntimeError(f"experiment dir {exp_dir} has checkpoints; pass --resume or a new --save_prefix")
     os.makedirs(exp_dir, exist_ok=True)
 
-    temporal = {} if k <= 1 else dict(
-        k=k, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type,
-        corr_pos=args.corr_pos, corr_d=args.corr_d or None)
+    temporal = {} if k <= 1 and not (args.temp or args.mult_out) else dict(
+        k=k if k > 1 else None, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
+        block_conv_type=args.block_conv_type, corr_pos=args.corr_pos, corr_d=args.corr_d or None,
+        temporal=args.temp, t_out=args.mult_out)
     model = yolo3_darknet53(list(train_dataset.classes), dtype=DTYPES[args.dtype], remat=args.remat,
                             s2d_stem=args.s2d_stem, **temporal)
     init_weights(model, torch.Generator().manual_seed(args.seed))

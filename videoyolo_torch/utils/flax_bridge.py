@@ -7,6 +7,7 @@ The port names its submodules after the flax tree paths
 `transition0`, ...), so the bridge walks the tree and renames leaves only:
 
   params      kernel (HWIO) -> weight (OIHW)
+              kernel (kt, kh, kw, I, O) -> weight (O, I, kt, kh, kw)   a 3-D conv
               kernel (in, out) -> weight (out, in)     a dense layer
               scale         -> weight (BatchNorm)
               bias          -> bias
@@ -66,6 +67,8 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
             t = torch.as_tensor(arr)
             if leaf == "kernel" and t.dim() == 2:
                 t = t.T
+            elif leaf == "kernel" and t.dim() == 5:
+                t = t.permute(4, 3, 0, 1, 2)
             elif leaf in ("kernel", "qkernel"):
                 if t.dim() != 4:
                     raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, got {tuple(t.shape)}")
@@ -78,7 +81,8 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
 
 def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
     """A float model's state_dict -> the JAX package's variables (nested
-    numpy dicts, float32): conv weights OIHW -> kernel HWIO, BatchNorm weight
+    numpy dicts, float32): conv weights OIHW -> kernel HWIO (O, I, kt, kh,
+    kw -> kt, kh, kw, I, O for a 3-D conv), BatchNorm weight
     -> scale, running stats -> batch_stats; num_batches_tracked is dropped."""
     variables: Dict = {"params": {}, "batch_stats": {}}
     for key, t in state.items():
@@ -90,6 +94,8 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
             coll, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
         elif leaf == "weight" and arr.dim() == 4:
             coll, name, arr = "params", "kernel", arr.permute(2, 3, 1, 0)
+        elif leaf == "weight" and arr.dim() == 5:
+            coll, name, arr = "params", "kernel", arr.permute(2, 3, 4, 1, 0)
         elif leaf == "weight" and arr.dim() == 2:
             coll, name, arr = "params", "kernel", arr.T
         elif leaf == "weight" and arr.dim() == 1:
