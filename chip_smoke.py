@@ -221,7 +221,31 @@ Phases; any failure exits non-zero:
      videoyolo_torch.train_yolov3` for three epochs, a SIGTERM to the rank
      after its first step, which must leave `<prefix>_0000.params`, no
      validation and exit 0; a `{"slice11_dp": ...}` line and
-     `launches_slice11` in the kernels line.
+     `launches_slice11` in the kernels line;
+ 16. slice 12, streaming (videoyolo_torch/streaming.py): (a) the JAX bench's
+     stream model (bench.py:479-522: YOLOv3T k=3, late max join, 20
+     classes), bf16, 416 px, B=32 streams of distinct seeded frames through
+     the tip split: K1 once and K2 never a step, the raw (boxes, scores) of
+     the reset and 3 steps within HEAD_TOL of the same model's windowed
+     forward on the same windows, K1 bit-equal to the plain NMS on the
+     stream's candidates, frames/s over 10 steps after 3 warm (CUDA events)
+     beside the windowed Detector on B=32 windows, peak memory, a profiled
+     step's idle share; (b) slice 2's model through the route split, B=32:
+     K2 6 and K1 1 a step, HEAD_TOL, frames/s beside its windowed step; (c)
+     the t=5 pyramid (T5) through the stage-1 split, B=16 streams: K2 5 and
+     K1 1 (on the 80 folded frames) a step, outputs (16, 5, 100, .),
+     HEAD_TOL, frames/s; (d) the plain t_out path (route split) and the
+     funnel (stage-1 split) at B=2, HEAD_TOL and K1; (e) float32, 128 px,
+     B=2 streams of (a)-(d)'s models: every trail step's detections and
+     every center frame's within rtol=atol=1e-4 of the windowed Detector's,
+     the center anchor yielding each frame once, in order; (f) the detect
+     twin with --stream on two snippets of phase 12's VID tree (trail,
+     center, and --temp --mult_out --window 5,1 with the pyramid): one
+     pred/ file a frame, K1 (and K2) counted, the cache bit-equal to an
+     in-process StreamingDetector fed the same decoded frames with a reset
+     at each snippet; one synthetic --stream request through the entry
+     point; a `{"slice12_stream": ...}` line and `launches_slice12` in the
+     kernels line.
 A `{"phase_end_s": ...}` line gives each phase's end in seconds from the
 start.  The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -286,6 +310,7 @@ from videoyolo_torch.ops.nms_kernel import nms_greedy
 from videoyolo_torch.parallel import mesh, multihost
 from videoyolo_torch.profiling import cuda_time_ms, queued_ms
 from videoyolo_torch.serving import NMS_THRESH, NMS_TOPK, Detector, collect_boxes
+from videoyolo_torch.streaming import StreamingDetector, stream_frames
 from videoyolo_torch.train.checkpoint import load_into, load_variables, variables_of
 from videoyolo_torch.train.lr import lr_schedule
 from videoyolo_torch.train.step import average_gradients, create_train_state, make_eval_step, make_train_step
@@ -3893,6 +3918,297 @@ def data_slice11(dev, card):
     return figures, k1
 
 
+# ---------------------------------------------------------------------------
+# phase 16: slice 12, streaming video detection (videoyolo_torch/streaming.py)
+# through the detect twin
+# ---------------------------------------------------------------------------
+
+# (a) the JAX bench's stream configuration (bench.py:479-522): the tip split
+STREAM = dict(num_classes=NUM_CLASSES, k=WINDOW, k_join_type="max", k_join_pos="late")
+STREAM_BATCH = 32  # streams, the JAX bench's
+STREAM_T5_BATCH = 16  # (c): the t=5 pyramid's streams, slice 9's B=16 windows
+STREAM_SMALL_BATCH = 2  # (d) and (e)
+STREAM_CHECK_STEPS = 3  # steps held against the windowed forward after the reset
+STREAM_WARM, STREAM_TIMED = 3, 10
+STREAM_F32_SIZE = 128
+STREAM_TOL = dict(rtol=1e-4, atol=1e-4)  # (e): float32 stream vs windowed Detector, other conv algorithms
+PLAIN_TOUT = dict(num_classes=NUM_CLASSES, temporal=True, t_out=True)  # (d): the route split of t=5
+# (name, config, streams at 416 px, split, K2 launches a step)
+STREAM_CELLS = [
+    ("a_late_max", STREAM, STREAM_BATCH, "tips", 0),
+    ("b_slice2", SLICE2, STREAM_BATCH, "routes", CORR_LAUNCHES),
+    ("c_t5_pyramid", T5, STREAM_T5_BATCH, "stage1", T5_CORR_LAUNCHES),
+    ("d_t5_plain_tout", PLAIN_TOUT, STREAM_SMALL_BATCH, "routes", 0),
+    ("d_t5_funnel", FUNNEL, STREAM_SMALL_BATCH, "stage1", 0),
+]
+STREAM_TIMED_CELLS = ("a_late_max", "b_slice2", "c_t5_pyramid")
+STREAM_SNIPPETS = 2  # (f): two snippets of phase 12's VID tree, every frame
+
+
+def stream_frames_on_card(gen, n, b, size, dev):
+    """n distinct seeded uint8 frames (B, S, S, 3) on the card."""
+    return [torch.randint(0, 256, (b, size, size, 3), generator=gen, dtype=torch.uint8, device=dev)
+            for _ in range(n)]
+
+
+def trail_window(frames, i, k):
+    """The window (B, k, S, S, 3) ending at frame i, left-padded with frame 0."""
+    return torch.stack([frames[max(0, j)] for j in range(i - k + 1, i + 1)], dim=1)
+
+
+def check_head_tol(label, got, want):
+    """A stream's raw (boxes, scores) against the windowed forward's, boxes
+    clipped to the image, within HEAD_TOL; returns the max abs errors."""
+    errs = {}
+    for i, name in enumerate(("boxes", "scores")):
+        a, b_ = (h[i].float().clamp(0, SIZE) if name == "boxes" else h[i].float() for h in (got, want))
+        e = (a - b_).abs()
+        e_max, e_mean, tol = float(e.max()), float(e.mean()), HEAD_TOL[name]
+        check(e_max <= tol["max"] and e_mean <= tol["mean"],
+              f"{label} {name}: stream vs windowed forward max {e_max} (tol {tol['max']}), mean {e_mean} "
+              f"(tol {tol['mean']})")
+        errs[name] = (e_max, e_mean)
+    return errs
+
+
+def stream_cell(name, cfg, b, split, k2_per_step, dev, card, gen):
+    """(a)-(d): `cfg` at 416 px bf16 as B streams through StreamingDetector:
+    the split, K1 once and K2 `k2_per_step` times a step, for
+    STREAM_CHECK_STEPS steps after the reset the raw outputs within HEAD_TOL
+    of the same model's windowed forward on the same window and the
+    detections in range; for the timed cells frames/s over STREAM_TIMED
+    steps after STREAM_WARM (CUDA events) beside the windowed Detector on B
+    windows, peak memory and a profiled step; (a) K1 bit-equal to the plain
+    NMS on the stream's candidates.  Returns (figures, K1, K2 launches)."""
+    det = Detector(YoloConfig(**cfg), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0)
+    m = det.model
+    stream = StreamingDetector(m)
+    check(stream.split == split, f"stream {name}: the {stream.split} split, expected {split}")
+    k = stream.k
+    timed = name in STREAM_TIMED_CELLS
+    frames = stream_frames_on_card(gen, 1 + STREAM_CHECK_STEPS + (STREAM_WARM + STREAM_TIMED if timed else 0), b,
+                                   SIZE, dev)
+    figures = dict(config=cfg, streams=b, split=split, k=k)
+    made, errs = [], []
+
+    def counted(fn):
+        """fn() with the kernels' counts set to 0 just before it; adds what
+        it launched to `made`."""
+        nms_greedy.launches = cost_volume.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        made.append((nms_greedy.launches, cost_volume.launches))
+        return out
+
+    for i in range(1 + STREAM_CHECK_STEPS):
+        dets = counted(lambda: stream.reset(frames[0]) if i == 0 else stream.step(frames[i]))
+        t_out = dets[0].dim() == 4
+        shape = (b, k, POST_NMS) if t_out else (b, POST_NMS)
+        check(dets[0].shape[:-1] == shape and dets[2].shape[:-1] == shape,
+              f"stream {name} step {i}: outputs {[tuple(d.shape) for d in dets]}")
+        check_detections(f"stream {name} step {i}", [tuple(d.flatten(0, 1) if t_out else d for d in
+                                                          (dets[0], dets[1], dets[2].clamp(0, SIZE)))],
+                         [b * k if t_out else b])
+        with torch.inference_mode():
+            want = m(to_normalized(trail_window(frames, i, k), dtype=det.dtype))
+            errs.append(check_head_tol(f"stream {name} step {i}", stream.raw(), want))
+    check(all(mk == (1, k2_per_step) for mk in made), f"stream {name}: launches (K1, K2) a step {made}")
+    steps = len(made)
+    figures["launches_a_step"] = dict(k1=1, k2=k2_per_step)
+    figures["head_vs_windowed"] = {n: [max(e[n][0] for e in errs), max(e[n][1] for e in errs)]
+                                   for n in ("boxes", "scores")}
+    print(f"stream {name} ({split} split, k={k}) B={b} streams at {SIZE} px bf16: reset + {STREAM_CHECK_STEPS} "
+          f"steps, K1 1 and K2 {k2_per_step} a step, raw outputs vs the windowed forward on the same windows "
+          f"(boxes clipped): max/mean abs {figures['head_vs_windowed']} within HEAD_TOL")
+    if name == "a_late_max":
+        with torch.inference_mode():
+            boxes, scores = stream.raw()
+            cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+            got = nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+            want = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+              f"stream {name}: K1 on the stream's candidates is not the plain NMS's")
+        figures["k1_equal_plain"] = True
+        print(f"stream {name}: K1's keep mask and rows on the stream's B={b} candidates (K={cands.shape[1]}) "
+              "equal the plain NMS's")
+    if timed:
+        it = iter(frames[1 + STREAM_CHECK_STEPS:])
+        torch.cuda.reset_peak_memory_stats()
+        ms = statistics.median(counted(lambda: cuda_time_ms(lambda: stream.step(next(it)), iters=STREAM_TIMED,
+                                                            warmup=STREAM_WARM)))
+        peak = torch.cuda.max_memory_allocated()
+        prof = counted(lambda: profile_steps([(f"stream {name} B={b} step", lambda f: stream.step(f), frames[-1], 1,
+                                               8)], card))
+        steps += STREAM_WARM + STREAM_TIMED + 1
+        windows = trail_window(frames, len(frames) - 1, k)
+        w_ms = median_ms(lambda: det(windows), STREAM_TIMED)
+        idle = next(iter(prof.values()), {}).get("idle_share")
+        per = k if t_out else 1  # detections a step: one set a stream, or one a frame of its window (t_out)
+        figures.update(step_ms=ms, frames_s=b / ms * 1e3, windowed_request_ms=w_ms, windowed_frames_s=b / w_ms * 1e3,
+                       stream_over_windowed=w_ms / ms, peak_gib=peak / 2**30, idle_share=idle,
+                       detection_sets_a_step=b * per, buffers_mb=sum(x.numel() * x.element_size()
+                                                                     for x in stream._buffers) / 1e6)
+        print(f"stream {name} B={b} at {SIZE} px bf16 on {card}: {figures['frames_s']:.1f} frames/s ({ms:.3f} ms a "
+              f"step, median of {STREAM_TIMED} after {STREAM_WARM} warm), the windowed Detector on B={b} windows of "
+              f"{k} {w_ms:.3f} ms ({figures['windowed_frames_s']:.1f} frames detected/s): {w_ms / ms:.2f}x; peak "
+              f"memory {peak / 2**30:.2f} GiB, buffers {figures['buffers_mb']:.1f} MB, idle share {idle}")
+    k1, k2 = sum(mk[0] for mk in made), sum(mk[1] for mk in made)
+    check((k1, k2) == (steps, k2_per_step * steps), f"stream {name}: launches (K1, K2) {(k1, k2)} over {steps} steps")
+    del stream, det, m, frames
+    torch.cuda.empty_cache()
+    return figures, k1, k2
+
+
+def match_rows(a, b) -> bool:
+    """Detections (ids, scores, boxes) of one image, numpy, within STREAM_TOL:
+    the scores in order, each row against its own largest magnitude (a
+    corner near 0 of a wide box carries the rounding of its centre and
+    size), rows of scores within the tolerance matched in either order."""
+    rows, ref = (np.concatenate([np.asarray(x, np.float64) for x in d], -1) for d in (a, b))
+    if not np.allclose(rows[:, 1], ref[:, 1], **STREAM_TOL):
+        return False
+    unused = list(range(len(ref)))
+    for row in rows:
+        hit = next((u for u in unused if np.abs(row - ref[u]).max()
+                    <= STREAM_TOL["atol"] + STREAM_TOL["rtol"] * np.abs(ref[u]).max()), None)
+        if hit is None:
+            return False
+        unused.remove(hit)
+    return True
+
+
+def stream_f32(dev, card):
+    """(e): float32 at 128 px, B=2 streams, each of (a)-(d)'s configurations:
+    the trail stream over k+1 frames against the windowed Detector on the
+    same weights and windows, every step (STREAM_TOL); the center anchor over
+    k+2 frames: exactly that many pairs, in order, each equal to the window
+    centred on its frame, clamped at the clip's ends.  Returns the steps
+    held a configuration."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    s, b = STREAM_F32_SIZE, STREAM_SMALL_BATCH
+    for name, cfg, *_ in STREAM_CELLS:
+        det = Detector(YoloConfig(**cfg), dtype=torch.float32, data_shape=s, device="cuda", seed=1)
+        stream = StreamingDetector(det.model)
+        k = stream.k
+        frames = stream_frames_on_card(gen, k + 2, b, s, dev)
+
+        def held(dets, window, label):
+            want = [x.cpu().numpy().reshape(-1, POST_NMS, x.shape[-1]) for x in det(window)]
+            got = [x.cpu().numpy().reshape(-1, POST_NMS, x.shape[-1]) for x in (dets[0], dets[1], dets[2].clamp(0, s))]
+            for i in range(len(got[0])):  # an image: a stream, or a frame of its window (t_out)
+                check(match_rows([x[i] for x in got], [x[i] for x in want]),
+                      f"stream float32 {name} {label} image {i}: not within {STREAM_TOL} of the windowed Detector")
+
+        for i in range(k + 1):
+            held(stream.reset(frames[0]) if i == 0 else stream.step(frames[i]), trail_window(frames, i, k),
+                 f"trail step {i}")
+        pairs = list(stream_frames(stream, iter(frames), anchor="center"))
+        check([m for m, _ in pairs] == list(range(len(frames))),
+              f"stream float32 {name} center: frames {[m for m, _ in pairs]}")
+        for m, dets in pairs:
+            idx = [min(max(0, m + d), len(frames) - 1) for d in range(-(k // 2), k - k // 2)]
+            held(dets, torch.stack([frames[j] for j in idx], 1), f"center frame {m}")
+        out[name] = dict(trail_steps=k + 1, center_frames=len(pairs))
+        del det, stream
+        torch.cuda.empty_cache()
+    print(f"stream float32 {s} px B={b} streams, configurations {list(out)}: every trail step and every center "
+          f"frame within rtol=atol={STREAM_TOL['rtol']} of the windowed Detector on the same windows (rows against "
+          "their own magnitude, near-tied rows in either order); center yields each clip's frames once, in order")
+    return out
+
+
+def stream_twin(dev, card):
+    """(f): the detect twin with --stream on STREAM_SNIPPETS snippets of
+    phase 12's VID tree (--every 1, bf16, 416 px): YOLOv3T late max, trail
+    and center, and --temp --mult_out --window 5,1 with the correlation
+    pyramid; one pred/ file a frame, K1 (and K2) counted, and the cache equal
+    bit for bit to an in-process StreamingDetector on the same weights fed
+    the same frames (decoded one at a time by the JPEG core, as the loader
+    decodes them) with a reset at each snippet; then one synthetic --stream
+    request through the entry point.  Returns (figures, K1, K2 launches)."""
+    figures, k1, k2 = {}, {}, {}
+    workers = os.cpu_count() or 1
+    with tempfile.TemporaryDirectory() as tmp:
+        write_vid_tree(tmp, (("val", STREAM_SNIPPETS, 3000),))
+        vid = f"{tmp}/ImageNetVID/ILSVRC/Data/VID/val"
+        videos = sorted(os.listdir(vid))
+        paths = [[f"{vid}/{v}/{f}" for f in sorted(os.listdir(f"{vid}/{v}"))] for v in videos]
+        n = sum(map(len, paths))
+        base = ["--dataset", "vid", "--dataset_root", tmp, "--every", "1", "--data_shape", str(SIZE), "--dtype",
+                "bf16", "--num_workers", str(workers), "--metrics", "voc", "--stream"]
+        runs = [("trail", ["--window", f"{WINDOW},1", "--k_join_type", "max", "--k_join_pos", "late"]),
+                ("center", ["--window", f"{WINDOW},1", "--k_join_type", "max", "--k_join_pos", "late",
+                            "--stream_anchor", "center"]),
+                ("t5_trail", ["--window", f"{T5_FRAMES},1", "--temp", "--mult_out", "--corr_pos", "early",
+                              "--corr_d", str(T5["corr_d"])])]
+        for label, extra in runs:
+            flags = base + extra + ["--save_dir", f"{tmp}/res", "--save_prefix", label]
+            nms_greedy.launches = cost_volume.launches = 0
+            t0 = time.perf_counter()
+            preds = detect.main(flags)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            k1[label], k2[label] = nms_greedy.launches, cost_volume.launches
+            args = detect.parse_args(flags)
+            stream = StreamingDetector(detect.stream_model(detect.dataset_config(args, 30), None, torch.bfloat16,
+                                                           "cuda", args.seed))
+            lag = (stream.k - 1 - stream.k // 2) if args.stream_anchor == "center" else 0
+            k2_step = T5_CORR_LAUNCHES if label.startswith("t5") else 0
+            check((k1[label], k2[label]) == (n + lag * len(videos), k2_step * (n + lag * len(videos))),
+                  f"stream twin {label}: launches (K1, K2) {(k1[label], k2[label])} for {n} frames")
+            files = sorted(f"{v}/{f}" for v in os.listdir(f"{tmp}/res/{label}/pred")
+                           for f in os.listdir(f"{tmp}/res/{label}/pred/{v}"))
+            check(files == sorted(f"{v}/{os.path.basename(p)[:-5]}.txt" for v, ps in zip(videos, paths) for p in ps),
+                  f"stream twin {label}: {len(files)} cache files for {n} frames, or misnamed")
+            want = {}
+            t_off = -1 if args.stream_anchor == "trail" else stream.k // 2
+            for ps in paths:  # a reset at each snippet
+                frames = (torch.from_numpy(native.load_batch([p], SIZE, SIZE)[0]).to(dev) for p in ps)
+                for m, dets in stream_frames(stream, frames, anchor=args.stream_anchor):
+                    ids, sc, bb = (x[0].cpu().numpy() for x in dets)
+                    if ids.ndim == 3:
+                        ids, sc, bb = ids[t_off], sc[t_off], bb[t_off]
+                    collect_boxes(want, ps[m], ids, sc, bb.clip(0, SIZE), SIZE)
+            check(preds == want, f"stream twin {label}: the cache differs from the in-process stream")
+            figures[label] = dict(frames=n, seconds=secs, frames_s_disk_to_metrics=n / secs, k1=k1[label],
+                                  k2=k2[label], detections=sum(map(len, preds.values())),
+                                  voc=open(f"{tmp}/res/{label}/voc.txt").read().splitlines()[-1])
+            print(f"stream twin {label} ({stream.split} split) on {len(videos)} VID snippets, {n} frames, bf16, "
+                  f"{SIZE} px, on {card}: {n / secs:.1f} frames/s from JPEG on disk to the metrics (model build "
+                  f"included), one pred/ file a frame, K1 {k1[label]}, K2 {k2[label]}, the cache equal to the "
+                  f"in-process stream with a reset at each snippet")
+            del stream
+            torch.cuda.empty_cache()
+    nms_greedy.launches = cost_volume.launches = 0
+    preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "4", "--num_requests", "3", "--seed", "2",
+                         "--dtype", "bf16", "--window", f"{WINDOW},1", "--k_join_type", "max", "--k_join_pos", "late",
+                         "--stream"])
+    k1["entry_point"], k2["entry_point"] = nms_greedy.launches, cost_volume.launches
+    check((nms_greedy.launches, cost_volume.launches) == (3, 0),
+          f"stream entry point: launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)}")
+    entries = check_entry_point(preds, 4 * 3)
+    print(f"stream entry point: 4 synthetic streams x 3 frames, {len(entries)} normalised detections, in range")
+    return figures, k1, k2
+
+
+def data_slice12(dev, card):
+    """Phase 16.  Returns (the phase's figures, K1's and K2's launches on
+    its paths)."""
+    figures, k1, k2 = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for name, cfg, b, split, k2_per_step in STREAM_CELLS:
+        figures[name], k1[name], k2[name] = stream_cell(name, cfg, b, split, k2_per_step, dev, card, gen)
+    figures["f32_vs_windowed"] = stream_f32(dev, card)
+    figures["twin"], k1_twin, k2_twin = stream_twin(dev, card)
+    k1.update({f"twin_{k}": v for k, v in k1_twin.items()})
+    k2.update({f"twin_{k}": v for k, v in k2_twin.items()})
+    k1["total"], k2["total"] = sum(k1.values()), sum(k2.values())
+    figures["k1"], figures["k2"] = k1, k2
+    print(f"slice 12 launches: K1 {k1}, K2 {k2}")
+    return figures, k1["total"], k2["total"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -3989,6 +4305,11 @@ def main() -> int:
     dp_figures, k1_slice11 = data_slice11(dev, card)
     phase_s["15"] = time.perf_counter() - t_start
 
+    # 16. slice 12: streaming video detection through the detect twin
+    torch.cuda.empty_cache()
+    stream_figures, k1_slice12, k2_slice12 = data_slice12(dev, card)
+    phase_s["16"] = time.perf_counter() - t_start
+
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
         plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
@@ -4021,6 +4342,7 @@ def main() -> int:
             "launches_slice10": k1_slice10,
             "slice10_285_class_b128_ms": comb_figures["step"][TREE_CLASSES]["k1_ms"],
             "launches_slice11": k1_slice11,
+            "launches_slice12": k1_slice12,
         },
         {
             "name": "cost_volume",
@@ -4047,6 +4369,7 @@ def main() -> int:
                            "shape", "forward_ms", "forward_bytes_ms", "forward_ops_ms")},
                        "max_abs_err": t5_figures["kernels"]},
             "launches_slice10": k2_slice10[0],
+            "launches_slice12": k2_slice12,
         },
         {
             "name": "cost_volume_backward",
@@ -4110,6 +4433,7 @@ def main() -> int:
     print(json.dumps({"slice9_t5": t5_figures}))
     print(json.dumps({"slice10_comb": comb_figures}))
     print(json.dumps({"slice11_dp": dp_figures}))
+    print(json.dumps({"slice12_stream": stream_figures}))
     print(json.dumps({"phase_end_s": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

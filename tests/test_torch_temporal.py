@@ -284,8 +284,11 @@ def test_factory_raises_on_unported_axes():
             build_model(YoloConfig(num_classes=2, k=3, **cfg))
     with pytest.raises(NotImplementedError, match="item 9a"):
         YOLOv3T(num_classes=2, k=3, quant=True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        YOLOv3T(num_classes=2, k=3, feed="tips")
+    # the streaming split is ported (tests/test_torch_streaming.py): feed="tips"
+    # builds the late join's head over tip windows, its output convs only
+    with torch.device("meta"):
+        tips_head = YOLOv3T(num_classes=2, k=3, k_join_type="max", k_join_pos="late", feed="tips")
+    assert {key.split(".")[0] for key in tips_head.state_dict()} == {"output0", "output1", "output2"}
     with pytest.raises(ValueError, match="corr_d"):
         YOLOv3T(num_classes=2, k=3, corr_pos="early")
     with pytest.raises(ValueError, match="k_join_type"):

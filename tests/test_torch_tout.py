@@ -329,8 +329,12 @@ def test_factory_branch_and_bridge_both_ways(name):
 def test_factory_raises_on_unported_axes():
     with pytest.raises(NotImplementedError, match="item 6"):
         build_model(YoloConfig(num_classes=2, temporal=True, block_conv_type="21"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        YOLOv3Temporal(num_classes=2, feed="stage1")
+    # the streaming split is ported (tests/test_torch_streaming.py): feed="stage1"
+    # builds the pyramid's head over stage-1 windows, everything but stage 1
+    with torch.device("meta"):
+        stage1_head = YOLOv3Temporal(num_classes=2, corr_d=2, feed="stage1")
+    assert {key.split(".")[0] for key in stage1_head.state_dict()} >= {"stage2", "stage3", "convs1", "block0"}
+    assert not any(key.startswith("stage1.") for key in stage1_head.state_dict())
     with pytest.raises(NotImplementedError, match="item 9a"):
         YOLOv3Temporal(num_classes=2, quant="fused")
     with pytest.raises(ValueError, match="t=1 or t=5"):

@@ -134,9 +134,13 @@ def test_vid_nonempty_cache_matches_jax(tmp_path, every):
 
 
 def test_vid_unported_options_raise(vid_root):
-    for kw, item in ((dict(videos=True), "item 11"), (dict(features_dir="x"), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], features_dir="x")
+    # whole videos are ported (streaming; against JAX in tests/test_torch_streaming.py):
+    # each video's frames and their labels padded to 20 rows
+    videos = _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], videos=True)
+    clip, labels = videos[0]
+    assert len(videos) == 3 and clip.shape == (12, 96, 128, 3) and labels.shape == (12, 20, 6)
     # windows are ported (tests/test_torch_windows.py), and their per-frame
     # labels (mult_out, tests/test_torch_train_tout.py), which need a window
     assert _vid(ImageNetVidDetection, vid_root, splits=[(2017, "val")], window=(3, 1)).window == (3, 1)

@@ -25,9 +25,14 @@ forced on, as in the JAX package).  With `mult_out` a window carries the
 labels of each of its frames (videoyolo_tpu/data/imgnetvid.py:114-155):
 `__getitem__` and `label_and_size` give a list of k labels, `sample_path`
 the k frames' paths and `get_sample_ids` the k frame ids of each window,
-for YOLOv3Temporal's per-timestep heads.  Whole videos (`videos=True`)
-come with streaming, ROADMAP.md Queue 1 item 11, and pre-extracted features
-(`features_dir`) with item 13; they raise NotImplementedError.
+for YOLOv3Temporal's per-timestep heads.  With `videos=True` each sample
+is a whole video (videoyolo_tpu/data/imgnetvid.py:195-218), keyed by its
+name: `__getitem__` gives its frames stacked (n, H, W, 3), each through the
+transform, and their labels, track ids kept, each padded to 20 rows with -1
+(n, 20, 6); `every` keeps the frames whose number is a multiple of it
+within each video, and `sample_path` is `<split>/<video>`.  Pre-extracted
+features (`features_dir`) come with ROADMAP.md Queue 1 item 13 and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -63,8 +68,6 @@ class ImageNetVidDetection(DetectionDataset):
     ):
         if mult_out and int(window[0]) <= 1:
             raise ValueError("mult_out labels each frame of a window: it needs window=(k, step) with k > 1")
-        if videos:
-            raise NotImplementedError("whole VID videos (videos=True) come with streaming, ROADMAP.md Queue 1 item 11")
         if features_dir is not None:
             raise NotImplementedError(
                 "VID with pre-extracted features (features_dir) comes with the extract twin, "
@@ -74,15 +77,16 @@ class ImageNetVidDetection(DetectionDataset):
             raise ValueError("one split at a time: the frame ids of two splits collide")
         if every < 1:
             raise ValueError(f"every must be >= 1, got {every}")
-        if frames_per_video > 0 and every != 1:
-            raise ValueError("frames_per_video excludes every")
+        if frames_per_video > 0 and (every != 1 or videos):
+            raise ValueError("frames_per_video excludes every and videos")
         super().__init__(transform=transform, inference=inference)
         self.root = os.path.expanduser(root)
         self._splits = list(splits)
         self._window_size, self._window_step = int(window[0]), int(window[1])
         self._mult_out = mult_out
-        if self._window_size > 1:
-            allow_empty = True  # a window's frames are all kept (imgnetvid.py:57-58)
+        self._videos = videos
+        if self._window_size > 1 or videos:
+            allow_empty = True  # a window's or a video's frames are all kept (imgnetvid.py:57-58)
         self._allow_empty = allow_empty
         self._coco_path = os.path.join(
             self.root, "jsons", "_".join(str(s[0]) + s[1] for s in self._splits) + ".json"
@@ -100,14 +104,26 @@ class ImageNetVidDetection(DetectionDataset):
         self._windows = self._window_ids() if self._window_size > 1 else None
         self._every = int(every)
         self._frames_per_video = int(frames_per_video)
-        if every != 1:
+        if videos:
+            # each video's frames whose number is a multiple of `every`
+            self.samples = {
+                name: [v[0], v[1], [f for f in v[2] if int(f) % self._every == 0],
+                       [i for f, i in zip(v[2], v[3]) if int(f) % self._every == 0]]
+                for name, v in self.videos.items()
+            }
+        elif every != 1:
             self.samples = {k: v for k, v in self.samples.items() if int(v[-1]) % self._every == 0}
         if self._frames_per_video > 0:
             self.samples = self._per_video_count(self.samples, self._frames_per_video)
         self.sample_ids = sorted(self.samples.keys())
-        self._labels = {}  # sample id -> parsed rows, filled below
+        self._labels = {}  # frame id -> parsed rows, filled below
         for sid in self.sample_ids:
-            self._label_for_sid(sid)
+            if not videos:
+                self._label_for_sid(sid)
+            elif self.samples[sid][3]:  # a video's size is its first frame's
+                self._label_for_sid(self.samples[sid][3][0])
+                if self.samples[sid][3][0] in self._im_shapes:
+                    self._im_shapes[sid] = self._im_shapes[self.samples[sid][3][0]]
         if not allow_empty:
             self.samples, self.sample_ids = self._remove_empties()
 
@@ -151,7 +167,10 @@ class ImageNetVidDetection(DetectionDataset):
         return self._mult_out
 
     def sample_path(self, idx):
-        """The (key) frame's path; with mult_out the window's k paths."""
+        """The (key) frame's path; with mult_out the window's k paths; for a
+        video `<split>/<video>`."""
+        if self._videos:
+            return os.path.join(*self.samples[self.sample_ids[idx]][:2])
         if self._mult_out:
             return self.window_paths(idx)
         return self._image_path.format(*self.samples[self.sample_ids[idx]])
@@ -161,12 +180,33 @@ class ImageNetVidDetection(DetectionDataset):
         return [self._image_path.format(*self.all_samples[sid]) for sid in self._windows[self.sample_ids[idx]]]
 
     def __getitem__(self, idx):
+        if self._videos:
+            return self._video_sample(idx)
         label = self.label_and_size(idx)[0]
         if self._window_size > 1:
             img = np.stack([read_image(p) for p in self.window_paths(idx)])
         else:
             img = read_image(self.sample_path(idx))
         return self._transformed(img, label, idx)
+
+    def _video_sample(self, idx):
+        """A whole video: its frames, each through the transform, stacked,
+        and their labels padded to 20 rows (videoyolo_tpu/data/imgnetvid.py:
+        195-218)."""
+        split, video, names, ids = self.samples[self.sample_ids[idx]]
+        clip, labels = [], []
+        for name, fid in zip(names, ids):
+            img, label = read_image(self._image_path.format(split, video, name)), self._label_for_sid(fid)
+            if self._transform is not None:
+                out = self._transform(img, label)
+                if len(out) == 3:
+                    raise NotImplementedError("device-colour train transforms are not supported on whole videos "
+                                              "(one colour matrix a frame); pass --host_color")
+                img, label = out
+            labels.append(self._pad_to_dense(label, 20))
+            clip.append(img)
+        clip, labels = np.stack(clip), np.array(labels)
+        return (clip, labels, idx) if self._inference else (clip, labels)
 
     def _window_ids(self) -> Dict[int, List[int]]:
         """Each frame id's window: k frame ids of its video, every step-th,
@@ -338,19 +378,22 @@ class ImageNetVidDetection(DetectionDataset):
         n_boxes = [0] * len(self.classes)
         vids = set()
         vid_instances = [set() for _ in self.classes]
-        for idx, sample_id in enumerate(self.sample_ids):
+        n_frames = 0
+        for sample_id in self.sample_ids:
             vid_id = self.samples[sample_id][1]
             vids.add(vid_id)
-            for box in self._load_label(idx):
-                if int(box[4]) < 0:
-                    continue
-                n_boxes[int(box[4])] += 1
-                vid_instances[int(box[4])].add(vid_id + str(box[-1]))
+            for fid in self.samples[sample_id][3] if self._videos else [sample_id]:
+                n_frames += 1
+                for box in self._label_for_sid(fid):
+                    if int(box[4]) < 0:
+                        continue
+                    n_boxes[int(box[4])] += 1
+                    vid_instances[int(box[4])].add(vid_id + str(box[-1]))
         n_instances = [len(vi) for vi in vid_instances]
         out = (
             f"{'Split:': <10} {', '.join(str(s[0]) + s[1] for s in self._splits)}\n"
             f"{'Videos:': <10} {len(vids)}\n"
-            f"{'Frames:': <10} {len(self.sample_ids)}\n"
+            f"{'Frames:': <10} {n_frames}\n"
             f"{'Boxes:': <10} {sum(n_boxes)}\n"
             f"{'Instances:': <10} {sum(n_instances)}\n"
             f"{'Classes:': <10} {len(self.classes)}\n"

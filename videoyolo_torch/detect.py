@@ -79,6 +79,20 @@ then score the offset `--offset` (-2..2) from the middle: its frames'
 detections against their own labels, the size read from the frame itself.
 `--mult_out` takes `vid`: YouTube-BB gives no per-frame labels of a
 window, in either package.
+`--stream` with `--window k,1` (k > 1) detects with the streaming detector
+(streaming.py, detect_yolo3.py:400-460): the frames one at a time in the
+dataset's order, each decoded alone (the single-frame JPEG route), one
+per-frame pass each, the rest of the window from buffers on the card; a
+stream resets where the frame's directory changes (a new video).  Each
+frame gets the detections of the window ending at it (`--stream_anchor
+trail`) or centred on it, clamped at the video's ends
+(`--stream_anchor center`: the windowed path's windows, emitted k//2 frames
+late).  It takes any `--window` model (YOLOv3T's flags, or `--temp` /
+`--mult_out` for YOLOv3Temporal, whose per-frame outputs give each frame
+its own offset's detections: the last for trail, the middle for center),
+on vid, yt or ad-hoc JPEG inputs; the cache is the flat `pred/` of one
+file a frame.  It refuses `--skip_existing` (the buffers need consecutive
+frames) and `--quantize` (item 9a).
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -88,6 +102,8 @@ Without `--dataset`, the seeded synthetic mode:
         --window 3,1 --k_join_pos late --corr_pos early --corr_d 4   # YOLOv3T windows
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
         --window 5,1 --temp --mult_out --corr_pos early --corr_d 4   # YOLOv3Temporal windows
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
+        --window 3,1 --k_join_type max --k_join_pos late --stream   # 32 streams of a clip
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
 
 The model takes seeded random weights.  Each request is a batch of uint8
@@ -96,7 +112,10 @@ of k-frame windows: window i takes every stride-th frame from frame i of a
 seeded synthetic clip, so neighbouring windows share frames as they do in a
 video.  The temporal flags are those of detect_yolo3.py (`--corr_d` counts
 only with `--corr_pos`; `--temp` and `--mult_out` as above, a window's
-frames named `<window>_o<t>` with `--mult_out`).  `--quantize int8` serves
+frames named `<window>_o<t>` with `--mult_out`).  With `--stream`, B
+streams of `--num_requests` frames each (every stream its own seeded clip)
+go through the streaming detector, one frame of every stream a request,
+named `stream<i>/frame<j>`.  `--quantize int8` serves
 the fused-int8 YOLOv3,
 calibrated on the first two request batches as detect_yolo3.py calibrates on
 the first two loader batches.  The command prints one summary line per request
@@ -109,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -134,6 +154,7 @@ from .metrics.mscoco import COCODetectionMetric
 from .metrics.pascalvoc import VOCMApMetric
 from .models.factory import YoloConfig, build_model
 from .serving import Detector, collect_boxes
+from .streaming import StreamingDetector, stream_frames
 from .train.checkpoint import load_detector_params, variables_of
 
 NUM_CLASSES = 20  # the VOC classes of the main path
@@ -161,6 +182,10 @@ def parse_args(argv=None):
     p.add_argument("--offset", type=int, default=0, help="with --mult_out, the window offset to evaluate: -2..2")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
                    help="int8 serving: the fused int8-end-to-end YOLOv3")
+    p.add_argument("--stream", action="store_true",
+                   help="streaming detection over frames in order, one per-frame pass a frame (--window k,1)")
+    p.add_argument("--stream_anchor", choices=["trail", "center"], default="trail",
+                   help="--stream: the window ending at each frame, or centred on it")
     # the dataset path (detect_yolo3.py's flags)
     p.add_argument("--dataset", default=None,
                    help="voc, coco, det, vid, yt or comb, or comma-separated JPEG files, directories and .txt lists")
@@ -193,11 +218,28 @@ def _requests(rs, num, b, s, k, stride):
         yield np.stack([clip[i : i + span : stride] for i in range(b)])
 
 
+def check_stream_args(args, window) -> None:
+    """detect_yolo3.py's --stream asserts (:960-968, 1008-1011), and the int8
+    stream deferred."""
+    if window[0] <= 1:
+        raise ValueError("--stream needs a temporal window (--window k,1)")
+    if window[1] != 1:
+        raise ValueError("--stream runs stride-1 windows (--window k,1); strided windows skip frames the buffers "
+                         "would need")
+    if args.skip_existing:
+        raise ValueError("--skip_existing cannot compose with --stream: the buffers need consecutive frames")
+    if args.quantize:
+        raise NotImplementedError("--quantize with --stream (the int8 temporal family) is deferred, see ROADMAP.md "
+                                  "Queue 1 item 9a")
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.dataset:
         return main_dataset(args)
     k, stride = ([int(w) for w in args.window.split(",")] + [1])[:2]
+    if args.stream:
+        return main_stream(args, (k, stride))
     if k == 1 and (args.temp or args.mult_out):
         k = 5  # YOLOv3Temporal's default t
     temporal = k > 1
@@ -236,6 +278,45 @@ def main(argv=None):
                     collect_boxes(preds, f"request{r}/{name}{i:04d}_o{t}", ids[i, t], sc[i, t], bb[i, t], s)
             else:
                 collect_boxes(preds, f"request{r}/{name}{i:04d}", ids[i], sc[i], bb[i], s)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(preds, f)
+    return preds
+
+
+def stream_model(cfg: YoloConfig, variables, dtype, device, seed: int):
+    """A windowed config's model for the streaming detector, as `Detector`
+    builds it: on `device`, in eval mode, channels_last."""
+    return Detector(cfg, variables, dtype=dtype, device=device, seed=seed).model
+
+
+def main_stream(args, window):
+    """The synthetic mode with --stream: `--batch_size` streams, each a
+    seeded clip of `--num_requests` frames, through the streaming detector
+    (`--stream_anchor`); one summary line a frame of the streams."""
+    check_stream_args(args, window)
+    cfg = YoloConfig(
+        num_classes=NUM_CLASSES, k=window[0],
+        k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
+        corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out,
+    )
+    stream = StreamingDetector(stream_model(cfg, None, DTYPES[args.dtype], args.device, args.seed))
+    s, b = args.data_shape, args.batch_size
+    clips = np.random.RandomState(args.seed).randint(0, 256, (args.num_requests, b, s, s, 3)).astype(np.uint8)
+    t_off = -1 if args.stream_anchor == "trail" else stream.k // 2
+    preds = {}
+    t0 = time.perf_counter()
+    for m, (ids, sc, bb) in stream_frames(stream, iter(clips), anchor=args.stream_anchor):
+        ids, sc, bb = (a.cpu().numpy() for a in (ids, sc, bb.clamp(0, s)))
+        ms = (time.perf_counter() - t0) * 1e3
+        if ids.ndim == 4:  # t_out: the anchor frame's offset of the window
+            ids, sc, bb = ids[:, t_off], sc[:, t_off], bb[:, t_off]
+        n_det = int((ids >= 0).sum())
+        print(f"frame {m} of {b} streams at {s} px on {stream.device} ({stream.split} split, {args.stream_anchor}): "
+              f"{n_det} detections ({n_det / b:.1f}/frame), {ms:.1f} ms")
+        for i in range(b):
+            collect_boxes(preds, f"stream{i:04d}/frame{m:04d}", ids[i], sc[i], bb[i], s)
+        t0 = time.perf_counter()
     if args.out:
         with open(args.out, "w") as f:
             json.dump(preds, f)
@@ -536,6 +617,45 @@ def detect_dataset(det: Detector, dataset, loader, max_do=-1):
     return boxes_out
 
 
+def detect_stream(stream: StreamingDetector, dataset, loader, shape: int, anchor: str = "trail", max_do=-1):
+    """Streaming detection over the loader's frames (batch 1, in the
+    dataset's order; detect_yolo3.py:400-461): a stream resets where the
+    directory of the frame's path changes, and each frame gets the
+    detections of the window ending at it or centred on it (`anchor`),
+    boxes clipped to the image; a t_out model's the anchor frame's offset
+    (-1 for trail, k//2 for center).  Returns {img_path: [[cls, score,
+    x1..y2 normalised]]}."""
+    t_off = -1 if anchor == "trail" else stream.k // 2
+    boxes_out = {}
+    if max_do < 0:
+        max_do = len(dataset)
+    done = 0
+
+    def path_frame_pairs():
+        for batch in device_prefetch(iter(loader), stream.device, size=2, keys=("image",)):
+            yield dataset.sample_path(int(batch["idx"][0])), batch["image"]
+
+    for _, group in itertools.groupby(path_frame_pairs(), key=lambda pf: os.path.dirname(pf[0])):
+        if done >= max_do:
+            break
+        paths = []
+
+        def frames():
+            for p, img in group:
+                paths.append(p)
+                yield img
+
+        for m, dets in stream_frames(stream, frames(), anchor=anchor):
+            if done >= max_do:
+                break
+            ids, sc, bb = (a[0].cpu().numpy() for a in dets)
+            if ids.ndim == 3:  # t_out (T, P, 1): the anchor frame's offset
+                ids, sc, bb = ids[t_off], sc[t_off], bb[t_off]
+            collect_boxes(boxes_out, paths[m], ids, sc, bb.clip(0, shape), shape)
+            done += 1
+    return boxes_out
+
+
 def dataset_config(args, num_classes: int) -> YoloConfig:
     """The dataset path's model (detect_yolo3.py:270-301): YOLOv3 with the
     standard stem, YOLOv3T with the temporal flags under --window k > 1, or
@@ -553,13 +673,20 @@ def main_dataset(args):
     write the cache, evaluate.  Returns the predictions."""
     window = tuple(([int(w) for w in args.window.split(",")] + [1])[:2])
     name = args.dataset.split(",")[0]
-    if window[0] > 1 and name not in ("vid", "yt"):
-        raise ValueError("--window k > 1 needs a video dataset (detect_yolo3.py:960-963): --dataset vid or yt")
-    if args.mult_out and name != "vid":
+    if args.stream:
+        check_stream_args(args, window)
+    elif window[0] > 1 and name not in ("vid", "yt"):
+        raise ValueError("--window k > 1 needs a video dataset (detect_yolo3.py:960-963): --dataset vid or yt, "
+                         "or --stream")
+    if args.mult_out and name != "vid" and not args.stream:
         raise ValueError("--mult_out scores each frame of a window by its own labels, which only the vid dataset "
                          "gives (YouTube-BB's windows carry the key frame's)")
-    dataset = get_dataset(args.dataset.split(","), args.dataset_root, args.every, window, args.mult_out,
-                          args.hier_level)
+    # --stream reads single frames in order: the dataset's frames, not its
+    # windows (detect_yolo3.py:178-198); --mult_out then picks the model's
+    # per-frame heads, not the cache's layout
+    data_window = (1, 1) if args.stream else window
+    dataset = get_dataset(args.dataset.split(","), args.dataset_root, args.every, data_window,
+                          args.mult_out and not args.stream, args.hier_level)
     trained_on = dataset
     if args.trained_on:
         trained_on = get_dataset([args.trained_on], args.dataset_root, args.every, hier_level=args.hier_level)
@@ -574,10 +701,10 @@ def main_dataset(args):
             indices = _missing_indices(save_dir, dataset, args.max_do) or None
             logging.info("resuming detect: %d samples still to run", len(indices or ()))
         s = args.data_shape
-        route = (dict(inference_transform=YOLO3VideoInferenceTransform(s, s)) if window[0] > 1
+        route = (dict(inference_transform=YOLO3VideoInferenceTransform(s, s)) if data_window[0] > 1
                  else dict(native_decode=(s, s)))
         loader = DetectionLoader(
-            dataset, batch_size=args.batch_size, num_workers=args.num_workers, **route,
+            dataset, batch_size=1 if args.stream else args.batch_size, num_workers=args.num_workers, **route,
             sampler=None if indices is None else (lambda epoch: np.asarray(indices, np.int64)),
             num_samples=None if indices is None else len(indices),
         )
@@ -588,15 +715,24 @@ def main_dataset(args):
             logging.info("loaded params from %s", args.model_path)
         else:
             logging.warning("no --model_path: seeded random weights")
-        det = Detector(cfg, variables, dtype=DTYPES[args.dtype], data_shape=args.data_shape,
-                       device=args.device, seed=args.seed)
-        t0 = time.perf_counter()
-        boxes = detect_dataset(det, dataset, loader, args.max_do)
-        secs = time.perf_counter() - t0
         n = len(indices) if indices is not None else min(len(dataset), args.max_do if args.max_do >= 0 else len(dataset))
-        name = f"windows of {window[0]} frames" if window[0] > 1 else "images"
-        print(f"detected {n} {name} at {args.data_shape} px on {det.device} in {secs:.3f} s "
-              f"({n / max(secs, 1e-9):.1f} {name.split()[0]}/s from JPEG on disk)", flush=True)
+        if args.stream:
+            stream = StreamingDetector(stream_model(cfg, variables, DTYPES[args.dtype], args.device, args.seed))
+            t0 = time.perf_counter()
+            boxes = detect_stream(stream, dataset, loader, args.data_shape, args.stream_anchor, args.max_do)
+            secs = time.perf_counter() - t0
+            print(f"streamed {n} frames (windows of {window[0]}, {stream.split} split, {args.stream_anchor}) at "
+                  f"{args.data_shape} px on {stream.device} in {secs:.3f} s ({n / max(secs, 1e-9):.1f} frames/s "
+                  "from JPEG on disk)", flush=True)
+        else:
+            det = Detector(cfg, variables, dtype=DTYPES[args.dtype], data_shape=args.data_shape,
+                           device=args.device, seed=args.seed)
+            t0 = time.perf_counter()
+            boxes = detect_dataset(det, dataset, loader, args.max_do)
+            secs = time.perf_counter() - t0
+            name = f"windows of {window[0]} frames" if window[0] > 1 else "images"
+            print(f"detected {n} {name} at {args.data_shape} px on {det.device} in {secs:.3f} s "
+                  f"({n / max(secs, 1e-9):.1f} {name.split()[0]}/s from JPEG on disk)", flush=True)
         save_predictions(save_dir, dataset, boxes, args.max_do, indices=indices)
         predictions = load_predictions(save_dir, dataset, args.max_do) if indices is not None else boxes
         if predictions is None:

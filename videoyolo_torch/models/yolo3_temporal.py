@@ -25,10 +25,22 @@ pyramid of them beside the middle frame's deeper stages), or, without
 `t_out`, the 5 -> 3 -> 1 funnel of 3-D convs that ends in one frame's
 detections.
 
+The forward is built from halves that the streaming detector
+(`videoyolo_torch/streaming.py`) calls apart, so that a new frame pays one
+per-frame pass: YOLOv3T's `frame_routes` (the stages, per frame),
+`window_routes` (the early join or correlation), `fpn` (the detection
+blocks and transitions, giving the three tips) and `outputs` (the late join
+or correlation, the output heads); YOLOv3Temporal's `frame_routes` or
+`frame_stage1`, `routes_from_stage1` and `head`.  A model built with `feed`
+holds only the parameters of the half its forward then takes, as the JAX
+package's feed clones do: YOLOv3T `feed="tips"` the outputs over windows of
+pre-join tips; YOLOv3Temporal `feed="stage1"` everything after stage 1 over
+a window of stage-1 features, `feed="routes"` the head over windows of
+routes.
+
 Not ported yet (they raise NotImplementedError naming the slice and the
 ROADMAP.md item): the conv-RNN (`rnn_pos`, item 5), 3D and 2+1D blocks
-(item 6), custom backbones (item 7), the streaming split (`feed`, item 11)
-and int8 cells (item 9a).
+(item 6), custom backbones (item 7) and int8 cells (item 9a).
 """
 from __future__ import annotations
 
@@ -137,12 +149,13 @@ class YOLOv3T(nn.Module):
     """k-frame temporal YOLOv3 (yolo3_temporal.py:166-375) with the built-in
     Darknet-53 stages.
 
-    Input (B, k, H, W, 3) NHWC for k > 1 ((B, H, W, 3) for k = 1).  The
-    joins and the correlation follow the JAX package's precedence: an early
-    join pre-empts an early correlation, a late join a late one, and once
-    the routes are joined the late ones do not run.  `frame_routes` and
-    `head` are the forward's two halves, around the early join or
-    correlation."""
+    Input (B, k, H, W, 3) NHWC for k > 1 ((B, H, W, 3) for k = 1), or with
+    `feed="tips"` the three (B, k, H/s, W/s, C) windows of pre-join tips,
+    deep first.  The joins and the correlation follow the JAX package's
+    precedence: an early join pre-empts an early correlation, a late join a
+    late one, and once the routes are joined the late ones do not run.  The
+    forward is `outputs(fpn(window_routes(frame_routes(x))))`; `head` is
+    `outputs(fpn(.))`."""
 
     def __init__(
         self,
@@ -173,16 +186,22 @@ class YOLOv3T(nn.Module):
             raise NotImplementedError(f"3D and 2+1D blocks: {_LATER} 6")
         if backbone is not None:
             raise NotImplementedError(f"custom and two-stream backbones: {_LATER} 7")
-        if feed is not None:
-            raise NotImplementedError(f"the streaming split (feed): {_LATER} 11")
+        if feed not in (None, "tips"):
+            raise ValueError(f"YOLOv3T's feed must be None or 'tips', got {feed!r}")
+        if feed == "tips" and corr_pos is not None:
+            raise ValueError("feed='tips' needs a frame-pure per-frame FPN: no correlation")
+        if feed == "tips" and not (k_join_pos == "late" and k_join_type is not None):
+            raise ValueError("feed='tips' covers plain late joins")
         self.k = k or 1
-        self.k_join_type = k_join_type
+        self.k_join_type, self.k_join_pos = k_join_type, k_join_pos
+        self.corr_pos, self.block_conv_type, self.feed = corr_pos, block_conv_type, feed
         self.agnostic = agnostic
         temporal = self.k > 1
 
-        self.stage1 = Darknet53Stage1(dtype=dtype)
-        self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
-        self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
+        if feed is None:
+            self.stage1 = Darknet53Stage1(dtype=dtype)
+            self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
+            self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
 
         # which join and correlation run where (yolo3_temporal.py:306-345)
         self.early_join = temporal and k_join_pos == "early"
@@ -210,9 +229,10 @@ class YOLOv3T(nn.Module):
         strides_rev = list(strides)[::-1]
         cin = route_channels[-1]
         for i in range(3):
-            self.add_module(
-                f"block{i}", YOLODetectionBlockT(cin, channels[i], block_conv_type, dtype=dtype)
-            )
+            if feed is None:
+                self.add_module(
+                    f"block{i}", YOLODetectionBlockT(cin, channels[i], block_conv_type, dtype=dtype)
+                )
             pairs = _anchor_pairs(anchors_rev[i])
             tip = after(2 * channels[i], self.late_join, self.late_corr)
             self.add_module(
@@ -220,10 +240,11 @@ class YOLOv3T(nn.Module):
                 YOLOOutputConvT(tip, num_classes, pairs, strides_rev[i], dtype=dtype),
             )
             if i < 2:
-                self.add_module(
-                    f"transition{i}",
-                    ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype),
-                )
+                if feed is None:
+                    self.add_module(
+                        f"transition{i}",
+                        ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype),
+                    )
                 cin = channels[i + 1] + route_channels[1 - i]
 
     def _join(self, x: torch.Tensor) -> torch.Tensor:
@@ -231,17 +252,15 @@ class YOLOv3T(nn.Module):
             return _fold_time_into_channels(x)
         return self.pool(x)
 
-    def forward(self, x: torch.Tensor):
-        routes = self.frame_routes(x)
-        if routes[0].dim() == 5 and self.early_join:
-            routes = [self._join(r) for r in routes]
-        elif routes[0].dim() == 5 and self.early_corr:
-            routes = [self.corr(r) for r in routes]
-        return self.head(routes)
+    def forward(self, x):
+        if self.feed == "tips":
+            return self.outputs(x)
+        return self.head(self.window_routes(self.frame_routes(x)))
 
     def frame_routes(self, x: torch.Tensor):
         """The Darknet-53 stages, per frame of a window: the three NHWC
-        routes, (B, k, H/s, W/s, C) for s = 8, 16, 32."""
+        routes, (B, k, H/s, W/s, C) for s = 8, 16, 32 ((B, H/s, W/s, C) for
+        one frame)."""
         temporal = self.k > 1 and x.dim() == 5
         routes = []
         y = x
@@ -250,31 +269,60 @@ class YOLOv3T(nn.Module):
             routes.append(y)
         return routes
 
-    def head(self, routes):
-        """Routes after any early join or correlation -> the detection
-        blocks, late join or correlation, outputs: (boxes, scores), or in
-        train mode the raw-head dict, levels deep -> shallow."""
-        level_outs = []
+    def window_routes(self, routes):
+        """Per-frame route windows -> the routes after the early join or
+        correlation (unchanged when neither runs, or for one frame)."""
+        if routes[0].dim() == 5 and self.early_join:
+            return [self._join(r) for r in routes]
+        if routes[0].dim() == 5 and self.early_corr:
+            return [self.corr(r) for r in routes]
+        return list(routes)
+
+    def fpn(self, routes):
+        """Routes -> the three tips, deep first: the detection blocks, and
+        between them the transitions, the upsample and the concat with the
+        next route.  Per frame when the routes are (a frame's, or a window's
+        that no early join or correlation mixed)."""
+        tips = []
         y = routes[-1]
         for i in range(3):
             y, tip = getattr(self, f"block{i}")(y)
+            tips.append(tip)
+            if i < 2:
+                y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
+                # a float32 correlation route meets the bf16 cells: cast it
+                # here, as the next conv would
+                y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
+        return tips
+
+    def outputs(self, tips):
+        """The three tips, deep first -> the late join or correlation of a
+        window's tips, the output heads: (boxes, scores), or in train mode
+        the raw-head dict, levels deep -> shallow."""
+        level_outs = []
+        for i, tip in enumerate(tips):
             if tip.dim() == 5:
                 if self.late_join:
                     tip = self._join(tip)
                 elif self.late_corr:
                     tip = self.corr(tip)
             level_outs.append(getattr(self, f"output{i}")(tip))
-            if i < 2:
-                y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
-                # a float32 correlation route meets the bf16 cells: cast it
-                # here, as the next conv would
-                y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
+        return _finish(level_outs, self.training, self.agnostic)
 
-        if self.training:
-            return {key: torch.cat([o[key] for o in level_outs], dim=-2) for key in level_outs[0]}
-        boxes = torch.cat([o[0] for o in level_outs], dim=-2)
-        scores = torch.cat([o[2 if self.agnostic else 1] for o in level_outs], dim=-2)
-        return boxes, scores
+    def head(self, routes):
+        """Routes after any early join or correlation -> the detection
+        blocks, late join or correlation, outputs."""
+        return self.outputs(self.fpn(routes))
+
+
+def _finish(level_outs, training: bool, agnostic: bool):
+    """The levels' outputs -> (boxes, scores), or the raw-head dict in train
+    mode (yolo3_temporal.py:241-256)."""
+    if training:
+        return {key: torch.cat([o[key] for o in level_outs], dim=-2) for key in level_outs[0]}
+    boxes = torch.cat([o[0] for o in level_outs], dim=-2)
+    scores = torch.cat([o[2 if agnostic else 1] for o in level_outs], dim=-2)
+    return boxes, scores
 
 
 def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -286,7 +334,10 @@ def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class YOLOv3Temporal(nn.Module):
     """The t=5 temporal model (yolo3_temporal.py:378-549) with `conv=2`.
 
-    Input (B, t, H, W, 3) NHWC windows ((B, H, W, 3) for t = 1).
+    Input (B, t, H, W, 3) NHWC windows ((B, H, W, 3) for t = 1); with
+    `feed="stage1"` (the pyramid and the funnel) the (B, t, H/8, W/8, 256)
+    window of stage-1 features, with `feed="routes"` (the plain t_out path)
+    the three windows of per-frame routes.
     t_out=True: every branch runs per frame and the outputs keep the time
     axis: eval (boxes (B, t, N, 4), scores (B, t, N, C)), train the
     raw-head dict with (B, t, ...) values.  With `corr_d`, the correlation
@@ -323,14 +374,22 @@ class YOLOv3Temporal(nn.Module):
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
         if conv != 2:
             raise NotImplementedError(f"YOLOv3Temporal's 3D and 2+1D blocks (conv={conv}): {_LATER} 6")
-        if feed is not None:
-            raise NotImplementedError(f"the streaming split (feed={feed!r}): {_LATER} 11")
-        self.t, self.corr_d, self.t_out, self.agnostic = t, corr_d, t_out, agnostic
+        # the JAX package's feed asserts (yolo3_temporal.py:420-427)
+        if feed not in (None, "stage1", "routes"):
+            raise ValueError(f"YOLOv3Temporal's feed must be None, 'stage1' or 'routes', got {feed!r}")
+        if feed == "routes" and not (t_out and not corr_d):
+            raise ValueError("feed='routes' is the plain t_out split; the corr/funnel paths split at stage1 "
+                             "(feed='stage1')")
+        if feed == "stage1" and not (t > 1 and (corr_d or not t_out)):
+            raise ValueError("feed='stage1' is the split of the correlation pyramid and the funnel (t=5)")
+        self.t, self.corr_d, self.t_out, self.agnostic, self.feed = t, corr_d, t_out, agnostic, feed
         self.dtype = dtype or torch.float32
         self.path = "single" if t == 1 else ("pyramid" if t_out and corr_d else "per_frame" if t_out else "funnel")
-        self.stage1 = Darknet53Stage1(dtype=dtype)
-        self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
-        self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
+        if feed is None:
+            self.stage1 = Darknet53Stage1(dtype=dtype)
+        if feed != "routes":
+            self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
+            self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
         route_channels = list(DARKNET53_CHANNELS[-3:])
         if self.path == "pyramid":
             self.corr = Corr(corr_d, t, kernel_size=3, stride=1, keep="none", comp_mid=True)
@@ -355,20 +414,30 @@ class YOLOv3Temporal(nn.Module):
                 self.add_module(f"transition{i}", ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype))
                 cin = channels[i + 1] + route_channels[1 - i]
 
+    def frame_routes(self, x: torch.Tensor):
+        """Stages 1-3, per frame of a window: the three NHWC routes of a
+        frame (B, H/s, W/s, C), or of each frame of a window (B, t, ...)."""
+        r1 = self.frame_stage1(x)
+        r2 = _nhwc(self.stage2, r1)
+        return [r1, r2, _nhwc(self.stage3, r2)]
+
+    def frame_stage1(self, x: torch.Tensor) -> torch.Tensor:
+        """Stage 1 on a frame (B, H, W, 3), or per frame of a window."""
+        return time_distributed(self.stage1, x) if x.dim() == 5 else self.stage1(x)
+
     def routes(self, x: torch.Tensor):
         """The three NHWC routes of the path, deep last: (B, t, H/s, W/s, C)
         per frame on the t_out paths, (B, H/s, W/s, C) on the funnel and
         for t = 1."""
+        if self.path in ("single", "per_frame"):
+            return self.frame_routes(x)
+        return self.routes_from_stage1(self.frame_stage1(x))
+
+    def routes_from_stage1(self, y: torch.Tensor):
+        """The pyramid's or the funnel's routes from the window's stage-1
+        features (B, t, H/8, W/8, 256): everything after stage 1 mixes the
+        window."""
         stage2, stage3 = partial(_nhwc, self.stage2), partial(_nhwc, self.stage3)
-        if self.path == "single":
-            r1 = self.stage1(x)
-            r2 = stage2(r1)
-            return [r1, r2, stage3(r2)]
-        if self.path == "per_frame":
-            r1 = time_distributed(self.stage1, x)
-            r2 = stage2(r1)
-            return [r1, r2, stage3(r2)]
-        y = time_distributed(self.stage1, x)
         if self.path == "pyramid":
             mid = y[:, self.t // 2]
             c = _cell(self.convs1, self.corr(y), self.dtype)
@@ -390,8 +459,17 @@ class YOLOv3Temporal(nn.Module):
         routes.append(y[:, 0])
         return routes
 
-    def forward(self, x: torch.Tensor):
-        routes = self.routes(x)
+    def forward(self, x):
+        if self.feed == "routes":
+            return self.head(list(x))
+        if self.feed == "stage1":
+            return self.head(self.routes_from_stage1(x))
+        return self.head(self.routes(x))
+
+    def head(self, routes):
+        """Routes -> the detection blocks, transitions and outputs: (boxes,
+        scores), per frame on the t_out paths, or the raw-head dict in train
+        mode."""
         level_outs = []
         y = routes[-1]
         for i in range(3):
@@ -400,8 +478,4 @@ class YOLOv3Temporal(nn.Module):
             if i < 2:
                 y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
                 y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
-        if self.training:
-            return {key: torch.cat([o[key] for o in level_outs], dim=-2) for key in level_outs[0]}
-        boxes = torch.cat([o[0] for o in level_outs], dim=-2)
-        scores = torch.cat([o[2 if self.agnostic else 1] for o in level_outs], dim=-2)
-        return boxes, scores
+        return _finish(level_outs, self.training, self.agnostic)
