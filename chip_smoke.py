@@ -229,8 +229,8 @@ Phases; any failure exits non-zero:
      the reset and 3 steps within HEAD_TOL of the same model's windowed
      forward on the same windows, K1 bit-equal to the plain NMS on the
      stream's candidates, frames/s over 10 steps after 3 warm (CUDA events)
-     beside the windowed Detector on B=32 windows, peak memory, a profiled
-     step's idle share; (b) slice 2's model through the route split, B=32:
+     beside the windowed Detector on B=32 windows, peak memory, the idle
+     share of 5 profiled steps; (b) slice 2's model through the route split, B=32:
      K2 6 and K1 1 a step, HEAD_TOL, frames/s beside its windowed step; (c)
      the t=5 pyramid (T5) through the stage-1 split, B=16 streams: K2 5 and
      K1 1 (on the 80 folded frames) a step, outputs (16, 5, 100, .),
@@ -3930,6 +3930,7 @@ STREAM_T5_BATCH = 16  # (c): the t=5 pyramid's streams, slice 9's B=16 windows
 STREAM_SMALL_BATCH = 2  # (d) and (e)
 STREAM_CHECK_STEPS = 3  # steps held against the windowed forward after the reset
 STREAM_WARM, STREAM_TIMED = 3, 10
+STREAM_PROFILED = 5  # steps of the profiled run (one step's idle share spread 0.17-0.65)
 STREAM_F32_SIZE = 128
 STREAM_TOL = dict(rtol=1e-4, atol=1e-4)  # (e): float32 stream vs windowed Detector, other conv algorithms
 PLAIN_TOUT = dict(num_classes=NUM_CLASSES, temporal=True, t_out=True)  # (d): the route split of t=5
@@ -3978,8 +3979,10 @@ def stream_cell(name, cfg, b, split, k2_per_step, dev, card, gen):
     of the same model's windowed forward on the same window and the
     detections in range; for the timed cells frames/s over STREAM_TIMED
     steps after STREAM_WARM (CUDA events) beside the windowed Detector on B
-    windows, peak memory and a profiled step; (a) K1 bit-equal to the plain
-    NMS on the stream's candidates.  Returns (figures, K1, K2 launches)."""
+    windows, peak memory and STREAM_PROFILED profiled steps (their idle
+    share, and the device busy time they read over the CUDA-event step:
+    the profiler's own host cost lengthens its wall time); (a) K1
+    bit-equal to the plain NMS on the stream's candidates.  Returns (figures, K1, K2 launches)."""
     det = Detector(YoloConfig(**cfg), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0)
     m = det.model
     stream = StreamingDetector(m)
@@ -4037,21 +4040,25 @@ def stream_cell(name, cfg, b, split, k2_per_step, dev, card, gen):
         ms = statistics.median(counted(lambda: cuda_time_ms(lambda: stream.step(next(it)), iters=STREAM_TIMED,
                                                             warmup=STREAM_WARM)))
         peak = torch.cuda.max_memory_allocated()
-        prof = counted(lambda: profile_steps([(f"stream {name} B={b} step", lambda f: stream.step(f), frames[-1], 1,
-                                               8)], card))
-        steps += STREAM_WARM + STREAM_TIMED + 1
+        prof = counted(lambda: profile_steps([(f"stream {name} B={b} step", lambda f: stream.step(f), frames[-1],
+                                               STREAM_PROFILED, 8)], card))
+        steps += STREAM_WARM + STREAM_TIMED + STREAM_PROFILED
         windows = trail_window(frames, len(frames) - 1, k)
         w_ms = median_ms(lambda: det(windows), STREAM_TIMED)
-        idle = next(iter(prof.values()), {}).get("idle_share")
+        prof = next(iter(prof.values()), {})
+        idle, busy = prof.get("idle_share"), prof.get("busy_ms")
+        idle_events = None if busy is None else max(0.0, 1 - busy / ms)
         per = k if t_out else 1  # detections a step: one set a stream, or one a frame of its window (t_out)
         figures.update(step_ms=ms, frames_s=b / ms * 1e3, windowed_request_ms=w_ms, windowed_frames_s=b / w_ms * 1e3,
                        stream_over_windowed=w_ms / ms, peak_gib=peak / 2**30, idle_share=idle,
+                       profiled_wall_ms=prof.get("wall_ms"), busy_ms=busy, idle_share_events=idle_events,
                        detection_sets_a_step=b * per, buffers_mb=sum(x.numel() * x.element_size()
                                                                      for x in stream._buffers) / 1e6)
         print(f"stream {name} B={b} at {SIZE} px bf16 on {card}: {figures['frames_s']:.1f} frames/s ({ms:.3f} ms a "
               f"step, median of {STREAM_TIMED} after {STREAM_WARM} warm), the windowed Detector on B={b} windows of "
               f"{k} {w_ms:.3f} ms ({figures['windowed_frames_s']:.1f} frames detected/s): {w_ms / ms:.2f}x; peak "
-              f"memory {peak / 2**30:.2f} GiB, buffers {figures['buffers_mb']:.1f} MB, idle share {idle}")
+              f"memory {peak / 2**30:.2f} GiB, buffers {figures['buffers_mb']:.1f} MB, idle share {idle} profiled, "
+              f"{idle_events} of the CUDA-event step")
     k1, k2 = sum(mk[0] for mk in made), sum(mk[1] for mk in made)
     check((k1, k2) == (steps, k2_per_step * steps), f"stream {name}: launches (K1, K2) {(k1, k2)} over {steps} steps")
     del stream, det, m, frames
@@ -4151,8 +4158,8 @@ def stream_twin(dev, card):
             secs = time.perf_counter() - t0
             k1[label], k2[label] = nms_greedy.launches, cost_volume.launches
             args = detect.parse_args(flags)
-            stream = StreamingDetector(detect.stream_model(detect.dataset_config(args, 30), None, torch.bfloat16,
-                                                           "cuda", args.seed))
+            stream = StreamingDetector(Detector(detect.dataset_config(args, 30), dtype=torch.bfloat16, device="cuda",
+                                                seed=args.seed).model)
             lag = (stream.k - 1 - stream.k // 2) if args.stream_anchor == "center" else 0
             k2_step = T5_CORR_LAUNCHES if label.startswith("t5") else 0
             check((k1[label], k2[label]) == (n + lag * len(videos), k2_step * (n + lag * len(videos))),

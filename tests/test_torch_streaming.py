@@ -19,12 +19,14 @@ carries the rounding of both; rows are matched in score order, and two rows
 whose scores agree within the tolerance may come in either order.  On the CPU
 the port takes the plain NMS and the plain correlation; the card's kernels
 are held by chip_smoke.py's phase 16."""
+import contextlib
 import functools
 import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax.experimental.compilation_cache.compilation_cache import reset_cache
 import numpy as np
 import pytest
 import torch
@@ -40,10 +42,11 @@ from videoyolo_torch import detect, native, streaming
 from videoyolo_torch.data.imgnetvid import ImageNetVidDetection
 from videoyolo_torch.models.factory import YoloConfig, build_model
 from videoyolo_torch.models.yolo3_temporal import YOLOv3T, YOLOv3Temporal
-from videoyolo_torch.serving import collect_boxes
+from videoyolo_torch.serving import Detector, collect_boxes
 from videoyolo_torch.streaming import StreamingDetector, split_temporal_variables, stream_frames
 from videoyolo_torch.utils.flax_bridge import flax_to_state_dict
 from torch_heap import return_heap  # noqa: F401  (autouse: the module's freed heap back to the system)
+from torch_heap import trim_heap
 
 torch.set_num_threads(2)
 
@@ -224,18 +227,38 @@ def test_stream_center_matches_jax_windows():
         assert_dets_close(dets, apply(variables, jnp.asarray(_window(frames, idx))))
 
 
+@contextlib.contextmanager
+def _no_compilation_cache():
+    """JAX's persistent compilation cache off inside, as it was after."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)
+        reset_cache()
+
+
 def test_stream_matches_jax_streaming_detector():
     """One stream against JAX's own StreamingDetector through both packages'
     stream_frames (center anchor, the tail flushed), step by step.  JAX's
-    three jits bake the variables in, so they run first and are dropped
-    before the port's model is built."""
+    three jits bake the variables in, so they run first, after the worker's
+    earlier compiles are dropped, and are dropped before the port's model is
+    built.  The persistent compilation cache is off for them: writing their
+    three entries took this case from 2.1 to 2.8 GB, and reading them back
+    to 3.6 GB."""
+    jax.clear_caches()
+    trim_heap()
     variables = _variables("late-max", seed=4)
     frames = _frames(5, seed=4)
-    jstream = jstreaming.StreamingDetector(JaxYOLOv3T(num_classes=3, **_kw("late-max")), variables)
-    ref = [(m, tuple(np.asarray(a) for a in dets))
-           for m, dets in jstreaming.stream_frames(jstream, (jnp.asarray(f) for f in frames), anchor="center")]
-    del jstream
-    jax.clear_caches()
+    with _no_compilation_cache():
+        jstream = jstreaming.StreamingDetector(JaxYOLOv3T(num_classes=3, **_kw("late-max")), variables)
+        ref = [(m, tuple(np.asarray(a) for a in dets))
+               for m, dets in jstreaming.stream_frames(jstream, (jnp.asarray(f) for f in frames), anchor="center")]
+        del jstream
+        jax.clear_caches()
+    trim_heap()
     tm = YOLOv3T(num_classes=3, **_kw("late-max"))
     tm.load_state_dict(flax_to_state_dict(variables), strict=True)
     del variables
@@ -379,7 +402,7 @@ def test_detect_twin_streams_per_frame(tmp_path, anchor):
     pred_dir = tmp_path / "res" / "s" / "pred"
     assert sorted(os.listdir(pred_dir)) == [f"v{v}_{i:04d}.txt" for v in range(2) for i in range(3)]
     cfg = YoloConfig(num_classes=1, k=3, k_join_type="max", k_join_pos="late")  # no classes: "object"
-    stream = StreamingDetector(detect.stream_model(cfg, None, torch.float32, "cpu", 0))
+    stream = StreamingDetector(Detector(cfg, dtype=torch.float32, device="cpu", seed=0).model)
     paths = [sorted(str(p) for p in d.iterdir()) for d in dirs]
     frames = [torch.from_numpy(native.load_batch(p, S, S)[0])[:, None] for p in paths]
 

@@ -11,8 +11,13 @@ import gc
 import pytest
 
 
+def trim_heap():
+    """Collect, and give the freed heap back to the system now."""
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def return_heap():
     yield
-    gc.collect()
-    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    trim_heap()

@@ -284,12 +284,6 @@ def main(argv=None):
     return preds
 
 
-def stream_model(cfg: YoloConfig, variables, dtype, device, seed: int):
-    """A windowed config's model for the streaming detector, as `Detector`
-    builds it: on `device`, in eval mode, channels_last."""
-    return Detector(cfg, variables, dtype=dtype, device=device, seed=seed).model
-
-
 def main_stream(args, window):
     """The synthetic mode with --stream: `--batch_size` streams, each a
     seeded clip of `--num_requests` frames, through the streaming detector
@@ -300,7 +294,7 @@ def main_stream(args, window):
         k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
         corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out,
     )
-    stream = StreamingDetector(stream_model(cfg, None, DTYPES[args.dtype], args.device, args.seed))
+    stream = StreamingDetector(Detector(cfg, dtype=DTYPES[args.dtype], device=args.device, seed=args.seed).model)
     s, b = args.data_shape, args.batch_size
     clips = np.random.RandomState(args.seed).randint(0, 256, (args.num_requests, b, s, s, 3)).astype(np.uint8)
     t_off = -1 if args.stream_anchor == "trail" else stream.k // 2
@@ -717,7 +711,8 @@ def main_dataset(args):
             logging.warning("no --model_path: seeded random weights")
         n = len(indices) if indices is not None else min(len(dataset), args.max_do if args.max_do >= 0 else len(dataset))
         if args.stream:
-            stream = StreamingDetector(stream_model(cfg, variables, DTYPES[args.dtype], args.device, args.seed))
+            stream = StreamingDetector(
+                Detector(cfg, variables, dtype=DTYPES[args.dtype], device=args.device, seed=args.seed).model)
             t0 = time.perf_counter()
             boxes = detect_stream(stream, dataset, loader, args.data_shape, args.stream_anchor, args.max_do)
             secs = time.perf_counter() - t0

@@ -136,12 +136,12 @@ def _split_fns(model) -> Tuple[str, Callable, Callable]:
 
 def _make_streaming_fns(
     model, nms_thresh: float = 0.45, nms_topk: int = 400, post_nms: int = 100,
-) -> Tuple[Callable, Callable, Callable]:
-    """(embed_fn, head_fn, step_fn) of `model`: embed_fn as `_split_fns`'s;
-    head_fn(buffers) -> (ids, scores, boxes), the window's half and the NMS;
-    step_fn(buffers, frame) -> (buffers', detections), the buffers rolled by
-    one frame."""
-    _, embed_fn, window_fn = _split_fns(model)
+) -> Tuple[str, Callable, Callable, Callable, Callable]:
+    """(split, embed_fn, window_fn, head_fn, step_fn) of `model`: the first
+    three as `_split_fns`'s; head_fn(buffers) -> (ids, scores, boxes), the
+    window's half and the NMS; step_fn(buffers, frame) -> (buffers',
+    detections), the buffers rolled by one frame."""
+    split, embed_fn, window_fn = _split_fns(model)
 
     def head_fn(buffers):
         boxes, scores = window_fn(buffers)
@@ -151,7 +151,7 @@ def _make_streaming_fns(
         buffers = tuple(torch.cat([buf[:, 1:], r[:, None]], dim=1) for buf, r in zip(buffers, embed_fn(frame)))
         return buffers, head_fn(buffers)
 
-    return embed_fn, head_fn, step_fn
+    return split, embed_fn, window_fn, head_fn, step_fn
 
 
 def make_streaming_step(
@@ -159,7 +159,7 @@ def make_streaming_step(
 ) -> Tuple[Callable, Callable]:
     """(embed_fn, step_fn) of `model` (see `_make_streaming_fns`): the pure
     stream step, buffers in and out, for a caller that keeps them."""
-    embed_fn, _, step_fn = _make_streaming_fns(model, nms_thresh, nms_topk, post_nms)
+    _, embed_fn, _, _, step_fn = _make_streaming_fns(model, nms_thresh, nms_topk, post_nms)
     return embed_fn, step_fn
 
 
@@ -174,9 +174,9 @@ class StreamingDetector:
 
     def __init__(self, model, nms_thresh: float = 0.45, nms_topk: int = 400, post_nms: int = 100):
         self.model = model
-        self.split, _, self._window = _split_fns(model)
+        self.split, self._embed, self._window, self._head, self._step = _make_streaming_fns(
+            model, nms_thresh, nms_topk, post_nms)
         self.k = model.k if type(model) is YOLOv3T else model.t
-        self._embed, self._head, self._step = _make_streaming_fns(model, nms_thresh, nms_topk, post_nms)
         param = next(model.parameters())
         self.device, self.dtype = param.device, param.dtype
         self._mean = torch.tensor(MEAN, dtype=torch.float32, device=self.device)
