@@ -230,11 +230,11 @@ Phases; any failure exits non-zero:
      forward on the same windows, K1 bit-equal to the plain NMS on the
      stream's candidates, frames/s over 10 steps after 3 warm (CUDA events)
      beside the windowed Detector on B=32 windows, peak memory, the idle
-     share of 5 profiled steps; (b) slice 2's model through the route split, B=32:
-     K2 6 and K1 1 a step, HEAD_TOL, frames/s beside its windowed step; (c)
-     the t=5 pyramid (T5) through the stage-1 split, B=16 streams: K2 5 and
-     K1 1 (on the 80 folded frames) a step, outputs (16, 5, 100, .),
-     HEAD_TOL, frames/s; (d) the plain t_out path (route split) and the
+     share of 5 profiled steps; (b) slice 2's model through the route
+     split, B=32: K2 6 and K1 1 a step, HEAD_TOL, frames/s beside its
+     windowed step; (c) the t=5 pyramid (T5) through the stage-1 split,
+     B=16 streams: K2 5 and K1 1 (on the 80 folded frames) a step, outputs
+     (16, 5, 100, .), HEAD_TOL, frames/s; (d) the plain t_out path (route split) and the
      funnel (stage-1 split) at B=2, HEAD_TOL and K1; (e) float32, 128 px,
      B=2 streams of (a)-(d)'s models: every trail step's detections and
      every center frame's within rtol=atol=1e-4 of the windowed Detector's,
@@ -3982,7 +3982,8 @@ def stream_cell(name, cfg, b, split, k2_per_step, dev, card, gen):
     windows, peak memory and STREAM_PROFILED profiled steps (their idle
     share, and the device busy time they read over the CUDA-event step:
     the profiler's own host cost lengthens its wall time); (a) K1
-    bit-equal to the plain NMS on the stream's candidates.  Returns (figures, K1, K2 launches)."""
+    bit-equal to the plain NMS on the stream's candidates.  Returns
+    (figures, K1, K2 launches)."""
     det = Detector(YoloConfig(**cfg), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0)
     m = det.model
     stream = StreamingDetector(m)
