@@ -245,7 +245,34 @@ Phases; any failure exits non-zero:
      in-process StreamingDetector fed the same decoded frames with a reset
      at each snippet; one synthetic --stream request through the entry
      point; a `{"slice12_stream": ...}` line and `launches_slice12` in the
-     kernels line.
+     kernels line;
+ 17. slice 13, the conv-RNN and the 3D / 2+1D blocks (models/layers.py
+     ConvRNN, Conv21D; models/yolo3_temporal.py), YOLOv3T at 416 px, bf16,
+     30 VID classes, k=3 (the JAX package's rnn profile,
+     tools/prof_temporal.py:141-150): (a) B=16 windows through the Detector
+     for the tip GRU with the late max join, the output GRU, the tip GRU
+     with the late correlation d=4 (no join; K2 6 a request on the GRU's
+     outputs, within rtol=atol=1e-5 of the plain correlation, the bf16
+     heads on them within HEAD_TOL of the heads on the plain one), '3'
+     blocks (mean) and '21' blocks (max): K1 once a request and bit-equal
+     to the plain NMS on the model's candidates, ms and windows/s (median
+     of 10 after 3 warm, CUDA events), peak memory, one profiled request
+     with the GRU gates' and the directions' mean's device time; (b) each
+     model in float32 at 128 px, card vs CPU within rtol=atol=1e-3; (c) B=16
+     streams of the output GRU (tip split) and the tip GRU (route split):
+     the reset and 3 steps within HEAD_TOL of the windowed forward,
+     frames/s beside the windowed rate, and in float32 at 128 px every
+     trail step within 1e-4 of the windowed Detector; (d) a float32 window
+     train step at 128 px card vs CPU (TRAIN_TOL) and the B=8-window bf16
+     step (median of 10 after 3 warm, peak memory, a profiled step) of the
+     tip GRU with the late correlation (K2 6 and K2' 3 a step) and of the
+     '21' blocks; (e) the train twin with --rnn_pos late --k_join_pos late
+     --corr_pos late --corr_d 4 (the factory's late max join pre-empts the
+     correlation: K2 0) three steps on phase 12's VID tree (two of its val
+     snippets), then the detect
+     twin on its checkpoint, raw outputs and the first batch's detections
+     bit-equal to the trained model's; a `{"slice13_rnn_3d": ...}` line and
+     `launches_slice13` in the kernels line.
 A `{"phase_end_s": ...}` line gives each phase's end in seconds from the
 start.  The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -253,6 +280,7 @@ start.  The line before last lists every kernel; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import logging
 import math
@@ -295,6 +323,7 @@ from videoyolo_torch.models.darknet import Darknet53
 from videoyolo_torch.models.factory import YoloConfig, build_model
 from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights, time_distributed
 from videoyolo_torch.models.yolo3 import YOLOv3, decode_predictions, postprocess, select_topk_candidates
+from videoyolo_torch.models.yolo3_temporal import YOLOv3T
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation, correlation_plain, num_corr_channels, patch_correlation
 from videoyolo_torch.ops.color import apply_color
@@ -571,13 +600,13 @@ def bf16_steps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def check_detections(label, outs, batches):
+def check_detections(label, outs, batches, classes=NUM_CLASSES):
     """Range checks of a Detector's outputs (ids, scores, boxes per request)."""
     for (ids, sc, bb), b in zip(outs, batches):
         check(ids.shape == sc.shape == (b, POST_NMS, 1), f"{label} B={b}: ids/scores {tuple(ids.shape)}")
         check(bb.shape == (b, POST_NMS, 4), f"{label} B={b}: boxes {tuple(bb.shape)}")
         check(all(bool(torch.isfinite(t).all()) for t in (ids, sc, bb)), f"{label} B={b}: non-finite output")
-        check(bool(((ids >= -1) & (ids < NUM_CLASSES) & (ids == ids.round())).all()), f"{label} B={b}: ids")
+        check(bool(((ids >= -1) & (ids < classes) & (ids == ids.round())).all()), f"{label} B={b}: ids")
         kept = ids >= 0
         check(bool(((sc > VALID_THRESH) & (sc <= 1))[kept].all()), f"{label} B={b}: kept scores")
         check(bool((sc[~kept] == -1).all()), f"{label} B={b}: padding scores")
@@ -4217,6 +4246,417 @@ def data_slice12(dev, card):
     return figures, k1["total"], k2["total"]
 
 
+# ---------------------------------------------------------------------------
+# phase 17: slice 13, the conv-RNN and the 3D / 2+1D blocks of YOLOv3T
+# (videoyolo_torch/models/layers.py ConvRNN, Conv21D; yolo3_temporal.py)
+# ---------------------------------------------------------------------------
+
+# the JAX package's rnn profile (tools/prof_temporal.py:141-150): YOLOv3T on
+# ImageNet-VID's 30 classes, k=3, the late max join, B=16 windows at 416 px;
+# beside it the one conv-RNN configuration that runs K2 (the tip GRU, then
+# the late correlation, no join), and the 3-D and 2+1D blocks
+S13_CLASSES = 30
+S13_MODELS = {  # name: (YOLOv3T keywords, K2 launches a request)
+    "rnn_late_max": (dict(k_join_type="max", k_join_pos="late", rnn_pos="late"), 0),
+    "rnn_out": (dict(k_join_type="max", k_join_pos="late", rnn_pos="out"), 0),
+    "rnn_late_corr": (dict(k_join_pos="late", rnn_pos="late", corr_pos="late", corr_d=4), CORR_LAUNCHES),
+    "block3_mean": (dict(k_join_type="mean", k_join_pos="late", block_conv_type="3"), 0),
+    "block21_max": (dict(k_join_type="max", k_join_pos="late", block_conv_type="21"), 0),
+}
+S13_BATCH = 16
+S13_WARM, S13_TIMED = 3, 10
+S13_F32_SIZE = 128
+S13_STREAMS = {"rnn_out": "tips", "rnn_late_max": "routes"}  # (c): the split each takes
+S13_STREAM_STEPS = 3  # steps held against the windowed forward after the reset
+S13_TRAIN = ("rnn_late_corr", "block21_max")  # (d)
+S13_TRAIN_WINDOWS = 8
+S13_F32_WINDOWS = 2  # (d): the float32 step's windows, phase 12's (BN statistics over 6 frames)
+S13_TWIN_EVERY = 8  # (e): 24 train windows (3 steps at B=8), 8 val windows (one batch)
+S13_TWIN_VAL_SNIPPETS = 2  # (e): the first two of phase 12's val snippets
+# (e): the flags as a user of the JAX CLI passes them; the factory's default
+# k_join_type "max" makes this the tip GRU with the late max join
+S13_TWIN_FLAGS = ["--window", f"{WINDOW},1", "--rnn_pos", "late", "--k_join_pos", "late", "--corr_pos", "late",
+                  "--corr_d", "4", "--every", str(S13_TWIN_EVERY)]
+S13_SCOPES = {"rnn_gates": ("ConvGRUCell", "ConvLSTMCell"), "rnn_average": ("ConvRNN",)}
+
+
+def s13_model(name, dtype=torch.bfloat16, seed=0) -> YOLOv3T:
+    """The phase's model `name` from a seeded init.  The factory gives the
+    late join whenever k_join_pos is late (its k_join_type defaults to
+    "max"), so YOLOv3T is built from its keywords, as the factory would
+    build the others."""
+    model = YOLOv3T(num_classes=S13_CLASSES, k=WINDOW, dtype=dtype, **S13_MODELS[name][0])
+    return init_weights(model, torch.Generator().manual_seed(seed))
+
+
+class S13Detector(Detector):
+    """`Detector` (normalise, forward, top-k, K1, clip) over `s13_model`."""
+
+    def __init__(self, name, dtype, size, device, seed=0):
+        self.name = name
+        super().__init__(YoloConfig(num_classes=S13_CLASSES, k=WINDOW), dtype=dtype, data_shape=size, device=device,
+                         seed=seed)
+
+    def _float_model(self, cfg, variables, seed):
+        return s13_model(self.name, cfg.dtype, seed)
+
+
+def s13_windows(gen, b, size, dev):
+    return torch.randint(0, 256, (b, WINDOW, size, size, 3), generator=gen, dtype=torch.uint8, device=dev)
+
+
+def s13_profile(label, fn, n, card):
+    """n profiled calls of fn() with the conv-RNN's gate arithmetic
+    (`gates`) and its two directions' mean (`average`) in named ranges:
+    wall, device busy and idle share a call, device ops, and each range's
+    device time a call (the kernels its ops launched) and share of the
+    busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from videoyolo_torch.models import layers
+
+    saved = []
+    for scope, names in S13_SCOPES.items():
+        for cls in (getattr(layers, n_) for n_ in names):
+            attr = "average" if cls is layers.ConvRNN else "gates"
+            raw = cls.__dict__[attr]
+            static = isinstance(raw, staticmethod)
+            inner = raw.__func__ if static else raw
+
+            def wrapped(*a, _f=inner, _s=scope, **k):
+                with record_function(_s):
+                    return _f(*a, **k)
+
+            setattr(cls, attr, staticmethod(wrapped) if static else wrapped)
+            saved.append((cls, attr, raw))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        for cls, attr, raw in saved:
+            setattr(cls, attr, raw)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in S13_SCOPES]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy_ms == 0:
+        print(f"profile {label}: the profiler recorded no device time; busy share not measured")
+        return {}
+    scoped = {s: sum(e.device_time_total for e in prof.events()
+                     if e.name == s and e.device_type == torch.autograd.DeviceType.CPU) / 1e3 / n
+              for s in S13_SCOPES}
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "ops": sum(e.count for e in kernels) // n,
+           **{f"{s}_ms": v if v else None for s, v in scoped.items()},
+           **{f"{s}_share": v / busy_ms if v else None for s, v in scoped.items()}}
+    print(f"profile {label} x{n} on {card} (profiler on): wall {wall_ms:.3f} ms a call, device busy {busy_ms:.3f} ms, "
+          f"idle share {out['idle_share']:.3f}, {out['ops']} device ops; the GRU gates "
+          f"{out['rnn_gates_ms']} ms ({out['rnn_gates_share']} of busy), the directions' mean "
+          f"{out['rnn_average_ms']} ms ({out['rnn_average_share']})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms a call  {e.count // n:4d}x  {e.key[:90]}")
+    return out
+
+
+def s13_outputs(model, vols):
+    """(boxes, scores) of the output heads on the three given tips."""
+    outs = [getattr(model, f"output{i}")(v) for i, v in enumerate(vols)]
+    return torch.cat([o[0] for o in outs], dim=-2), torch.cat([o[1] for o in outs], dim=-2)
+
+
+def s13_serve(name, dev, card, gen):
+    """(a), and (c) for the streamed models: B=16 windows at 416 px bf16
+    through the Detector; returns (figures, K1, K2 launches)."""
+    k2_req = S13_MODELS[name][1]
+    t0 = time.perf_counter()
+    det = S13Detector(name, torch.bfloat16, SIZE, "cuda")
+    m = det.model
+    figures = dict(config=S13_MODELS[name][0], windows=S13_BATCH, build_s=time.perf_counter() - t0)
+    x = s13_windows(gen, S13_BATCH, SIZE, dev)
+    nms_greedy.launches = cost_volume.launches = 0
+    outs = det(x)
+    torch.cuda.synchronize()
+    k1, k2 = nms_greedy.launches, cost_volume.launches
+    check((k1, k2) == (1, k2_req), f"slice 13 {name}: launches (K1, K2) a request {(k1, k2)}, expected (1, {k2_req})")
+    check_detections(f"slice 13 {name}", [outs], [S13_BATCH], classes=S13_CLASSES)
+    with torch.inference_mode():
+        xn = det._normalized(x)
+        boxes, scores = m(xn)
+        cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+        got = nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+        want = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), f"slice 13 {name}: K1 on its candidates differs from the "
+          "plain NMS")
+    figures["k1_equal_plain"] = True
+    # (the comparisons with the plain versions are not counted)
+    if k2_req:  # the late correlation on the tip GRU's outputs: K2 against the plain version, and the heads on each
+        with torch.inference_mode():
+            tips = m.fpn(m.window_routes(m.frame_routes(xn)))
+            k_vols = [m.corr(t) for t in tips]
+            p_vols = [plain_corr(m.corr, t) for t in tips]
+            errs = [float((a - b).abs().max()) for a, b in zip(k_vols, p_vols)]
+            check(all(bool(torch.allclose(a, b, **CORR_TOL)) for a, b in zip(k_vols, p_vols)),
+                  f"slice 13 {name}: K2 on the tip GRU's outputs vs the plain correlation, max abs errors {errs}")
+            head_err = check_head_tol(f"slice 13 {name} heads, K2 vs the plain correlation", s13_outputs(m, k_vols),
+                                      s13_outputs(m, p_vols))
+        figures.update(k2_max_abs_err=max(errs), k2_shapes=[list(t.shape) for t in tips],
+                       head_kernel_vs_plain=head_err)
+        print(f"slice 13 {name}: K2 on the tip GRU's outputs {[tuple(t.shape) for t in tips]} within rtol=atol="
+              f"{CORR_TOL['rtol']} of the plain correlation (max abs {max(errs):.3g}); the bf16 heads on them within "
+              f"HEAD_TOL: {head_err}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_greedy.launches = cost_volume.launches = 0
+    ms = statistics.median(cuda_time_ms(lambda: det(x), iters=S13_TIMED, warmup=S13_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    prof = s13_profile(f"slice 13 {name} B={S13_BATCH} windows", lambda: det(x), 1, card)
+    n_req = S13_TIMED + S13_WARM + 2
+    check((nms_greedy.launches, cost_volume.launches) == (n_req, k2_req * n_req),
+          f"slice 13 {name}: launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)} over {n_req} requests")
+    k1, k2 = k1 + nms_greedy.launches, k2 + cost_volume.launches
+    figures.update(ms=ms, windows_s=S13_BATCH / ms * 1e3, frames_s=S13_BATCH * WINDOW / ms * 1e3,
+                   peak_gib=peak / 2**30, profile=prof, launches_a_request=dict(k1=1, k2=k2_req),
+                   idle_share_events=max(0.0, 1 - prof["busy_ms"] / ms) if prof else None)
+    print(f"slice 13 {name} B={S13_BATCH} windows of {WINDOW} at {SIZE} px bf16 ({S13_CLASSES} classes) on {card}: "
+          f"{figures['windows_s']:.1f} windows/s, {figures['frames_s']:.1f} frames/s ({ms:.3f} ms a request, median "
+          f"of {S13_TIMED} after {S13_WARM} warm), peak memory {peak / 2**30:.2f} GiB; K1 1 and K2 {k2_req} a request")
+    if name in S13_STREAMS:
+        stream_fig, sk1 = s13_stream(name, det, gen, dev, card, ms)
+        figures["stream"] = stream_fig
+        k1 += sk1
+    del det, m, x
+    torch.cuda.empty_cache()
+    return figures, k1, k2
+
+
+def s13_stream(name, det, gen, dev, card, windowed_ms):
+    """(c): B=16 streams of `det`'s model: the split, K1 once a step, the
+    raw outputs of the reset and S13_STREAM_STEPS steps within HEAD_TOL of
+    the windowed forward on the same windows, frames/s over 10 steps after
+    3 warm beside the windowed rate.  Returns (figures, K1 launches)."""
+    stream = StreamingDetector(det.model)
+    check(stream.split == S13_STREAMS[name], f"slice 13 stream {name}: the {stream.split} split")
+    frames = stream_frames_on_card(gen, 1 + S13_STREAM_STEPS + S13_WARM + S13_TIMED, S13_BATCH, SIZE, dev)
+    nms_greedy.launches = cost_volume.launches = 0
+    errs = []
+    for i in range(1 + S13_STREAM_STEPS):
+        dets = stream.reset(frames[0]) if i == 0 else stream.step(frames[i])
+        check_detections(f"slice 13 stream {name} step {i}", [tuple(dets[:2]) + (dets[2].clamp(0, SIZE),)],
+                         [S13_BATCH], classes=S13_CLASSES)
+        with torch.inference_mode():
+            want = det.model(to_normalized(trail_window(frames, i, WINDOW), dtype=det.dtype))
+            errs.append(check_head_tol(f"slice 13 stream {name} step {i}", stream.raw(), want))
+    it = iter(frames[1 + S13_STREAM_STEPS:])
+    ms = statistics.median(cuda_time_ms(lambda: stream.step(next(it)), iters=S13_TIMED, warmup=S13_WARM))
+    steps = 1 + S13_STREAM_STEPS + S13_WARM + S13_TIMED
+    check((nms_greedy.launches, cost_volume.launches) == (steps, 0),
+          f"slice 13 stream {name}: launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)} over {steps} steps")
+    figures = dict(split=stream.split, step_ms=ms, frames_s=S13_BATCH / ms * 1e3,
+                   windowed_frames_s=S13_BATCH / windowed_ms * 1e3, stream_over_windowed=windowed_ms / ms,
+                   head_vs_windowed={n: [max(e[n][0] for e in errs), max(e[n][1] for e in errs)]
+                                     for n in ("boxes", "scores")})
+    print(f"slice 13 stream {name} ({stream.split} split) B={S13_BATCH} at {SIZE} px bf16 on {card}: "
+          f"{figures['frames_s']:.1f} frames/s ({ms:.3f} ms a step, median of {S13_TIMED} after {S13_WARM} warm) "
+          f"against the windowed Detector's {figures['windowed_frames_s']:.1f} frames detected/s: "
+          f"{figures['stream_over_windowed']:.2f}x; reset + {S13_STREAM_STEPS} steps within HEAD_TOL of the windowed "
+          f"forward: {figures['head_vs_windowed']}")
+    del stream, frames
+    return figures, nms_greedy.launches
+
+
+def s13_f32(dev, card, gen):
+    """(b) and (c)'s float32 streams at 128 px: each model's raw outputs on
+    the card against the CPU's from the same seed (rtol=atol=1e-3), and the
+    streamed models' B=2 streams against the windowed Detector on the card
+    at every trail step (STREAM_TOL).  Returns (figures, K1 launches)."""
+    s, out, k1 = S13_F32_SIZE, {}, 0
+    for name in S13_MODELS:
+        x = s13_windows(gen, 1, s, dev)
+        det = S13Detector(name, torch.float32, s, "cuda", seed=1)
+        cpu = copy.deepcopy(det.model).cpu()
+        with torch.inference_mode():
+            xn = det._normalized(x)
+            raw = [[t.cpu() for t in det.model(xn)], list(cpu(xn.cpu()))]
+        del cpu
+        errs = {n_: float((a - r).abs().max()) for n_, a, r in zip(("boxes", "scores"), *raw)}
+        check(all(bool(torch.allclose(a, r, rtol=1e-3, atol=1e-3)) for a, r in zip(*raw)),
+              f"slice 13 {name} float32 at {s} px, card vs CPU: max abs errors {errs}")
+        out[name] = dict(card_vs_cpu_max_abs=errs)
+        print(f"slice 13 {name} float32 at {s} px, card vs CPU: max abs errors {errs} (allclose rtol=atol=1e-3)")
+        if name in S13_STREAMS:
+            stream = StreamingDetector(det.model)
+            frames = stream_frames_on_card(gen, WINDOW + 1, STREAM_SMALL_BATCH, s, dev)
+            nms_greedy.launches = 0
+            for i in range(WINDOW + 1):
+                dets = stream.reset(frames[0]) if i == 0 else stream.step(frames[i])
+                want = [t.cpu().numpy() for t in det(trail_window(frames, i, WINDOW))]
+                got = [t.cpu().numpy() for t in (dets[0], dets[1], dets[2].clamp(0, s))]
+                for j in range(STREAM_SMALL_BATCH):
+                    check(match_rows([g[j] for g in got], [w[j] for w in want]),
+                          f"slice 13 stream {name} float32 step {i} stream {j}: not within {STREAM_TOL} of the "
+                          "windowed Detector")
+            k1 += nms_greedy.launches
+            out[name]["stream_trail_steps"] = WINDOW + 1
+            print(f"slice 13 stream {name} float32 at {s} px, B={STREAM_SMALL_BATCH} streams: every trail step within "
+                  f"rtol=atol={STREAM_TOL['rtol']} of the windowed Detector")
+            del stream
+        del det
+        torch.cuda.empty_cache()
+    return out, k1
+
+
+def s13_train(name, dev, card):
+    """(d): one float32 step on B=2 windows at 128 px (phase 12's) card vs
+    CPU (TRAIN_TOL), then
+    the B=8-window 416-px bf16 step timed as phase 12's (median of 10 after
+    3 warm), its peak memory, K2 and its adjoint counted, one profiled step.
+    Returns (figures, (K2, K2') launches)."""
+    k2_step, bwd_step = (CORR_LAUNCHES, CORR_BWD_LAUNCHES) if S13_MODELS[name][1] else (0, 0)
+    figures = {"card_vs_cpu": check_train_card_vs_cpu(
+        f"slice 13 {name}", s13_model(name, dtype=None),
+        lambda device: window_batch(np.random.RandomState(1), S13_F32_WINDOWS, S13_F32_SIZE, device),
+        S13_CLASSES, f"{S13_F32_SIZE} px, B={S13_F32_WINDOWS} windows")}
+    torch.cuda.empty_cache()
+    model = s13_model(name).to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+    step = make_train_step(model, num_classes=S13_CLASSES)
+    batch = window_batch(np.random.RandomState(0), S13_TRAIN_WINDOWS, SIZE, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cost_volume.launches = cost_volume_backward.launches = 0
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=S13_TIMED, warmup=S13_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    prof = s13_profile(f"slice 13 {name} train B={S13_TRAIN_WINDOWS} windows", lambda: step(state, batch), 1, card)
+    torch.cuda.synchronize()
+    n = S13_TIMED + S13_WARM + 3  # the profile's warm step and its profiled step
+    launches = (cost_volume.launches, cost_volume_backward.launches)
+    check(launches == (k2_step * n, bwd_step * n),
+          f"slice 13 {name} train step: K2 (forward, adjoint) launches {launches} over {n} steps")
+    check(all(np.isfinite(v) for v in losses.values()), f"slice 13 {name} train step losses not finite: {losses}")
+    figures.update(ms=ms, windows_s=S13_TRAIN_WINDOWS / ms * 1e3, frames_s=S13_TRAIN_WINDOWS * WINDOW / ms * 1e3,
+                   peak_gib=peak / 2**30, profile=prof,
+                   idle_share_events=max(0.0, 1 - prof["busy_ms"] / ms) if prof else None, launches_a_step=dict(k2=k2_step, k2_adjoint=bwd_step),
+                   losses=losses)
+    print(f"slice 13 {name} train step B={S13_TRAIN_WINDOWS} windows of {WINDOW} at {SIZE} px bf16 on {card}: "
+          f"{figures['windows_s']:.1f} windows/s, {figures['frames_s']:.1f} frames/s ({ms:.3f} ms a step, median of "
+          f"{S13_TIMED} after {S13_WARM} warm), peak memory {peak / 2**30:.2f} GiB, K2 {k2_step} + K2' {bwd_step} a "
+          f"step; losses {losses}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return figures, launches
+
+
+def s13_twins(dev, card):
+    """(e): the train twin a few steps on phase 12's VID tree (its first two
+    val snippets) with the tip GRU (S13_TWIN_FLAGS, B=8, 416 px, bf16),
+    then the detect twin on its checkpoint: the checkpoint's raw outputs and
+    the first batch's detections equal the trained model's bit for bit.
+    Returns (figures, K1 launches, K2 launches)."""
+    workers = os.cpu_count() or 1
+    figures, k1, k2 = {}, 0, 0
+    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
+        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+        vid = f"{tmp}/ImageNetVID/ILSVRC"
+        val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S13_TWIN_EVERY, window=(WINDOW, 1),
+                                   inference=True)
+        train = ImageNetVidDetection(root=vid, splits=[(2017, "train")], every=S13_TWIN_EVERY, window=(WINDOW, 1))
+        flags = ["--dataset", "vid", "--dataset_root", tmp, "--data_shape", str(SIZE), "--dtype", "bf16",
+                 "--num_workers", str(workers), "--batch_size", str(S13_TRAIN_WINDOWS)] + S13_TWIN_FLAGS
+        exp = f"{tmp}/exp"
+        nms_greedy.launches = cost_volume.launches = cost_volume_backward.launches = 0
+        model, stats = train_yolov3.main(flags + ["--no_random_shape", "--epochs", "1", "--nopretrained_cnn",
+                                                  "--save_prefix", "0000", "--experiment_root", exp,
+                                                  "--save_interval", "1", "--log_interval", "1"])
+        torch.cuda.synchronize()
+        n_steps, n_val = len(train) // S13_TRAIN_WINDOWS, -(-len(val) // S13_TRAIN_WINDOWS)
+        check(type(model) is YOLOv3T and model.rnn_pos == "late" and model.late_join and not model.late_corr,
+              "slice 13 train twin: not the tip GRU with the late max join")
+        check((nms_greedy.launches, cost_volume.launches, cost_volume_backward.launches) == (n_val, 0, 0),
+              f"slice 13 train twin launches (K1, K2, K2') "
+              f"{(nms_greedy.launches, cost_volume.launches, cost_volume_backward.launches)}")
+        k1 += nms_greedy.launches
+        ep = stats["epochs"][0]
+        figures["train_twin"] = {"steps": len(ep["steps"]), "samples_s": ep["samples_s"], "val": stats["val"],
+                                 "logged": list(speed)}
+        print(f"slice 13 train twin ({' '.join(S13_TWIN_FLAGS)}, bf16, B={S13_TRAIN_WINDOWS}, {SIZE} px, "
+              f"{n_steps} steps, {len(val)} val windows) on {card}: {ep['samples_s']:.1f} windows/s over the epoch; "
+              f"K1 {n_val}; the factory's late max join pre-empts the late correlation, so K2 0")
+        ckpt = f"{exp}/0000/yolo3_darknet53_vid_0000.params"
+        check(os.path.exists(ckpt), f"the slice 13 train twin wrote no checkpoint {ckpt}")
+
+        nms_greedy.launches = cost_volume.launches = 0
+        t0 = time.perf_counter()
+        preds = detect.main(flags + ["--model_path", ckpt, "--save_dir", f"{tmp}/res", "--save_prefix", "rnn",
+                                     "--metrics", "voc"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_batches = -(-len(val) // S13_TRAIN_WINDOWS)
+        check((nms_greedy.launches, cost_volume.launches) == (n_batches, 0),
+              f"slice 13 detect twin launches (K1, K2) {(nms_greedy.launches, cost_volume.launches)}")
+        k1 += nms_greedy.launches
+        args = detect.parse_args(flags)
+        cfg = detect.dataset_config(args, S13_CLASSES)
+        twin_det = Detector(cfg, detect.load_model_variables(ckpt, cfg), dtype=torch.bfloat16, data_shape=SIZE)
+        tf = YOLO3VideoInferenceTransform(SIZE, SIZE)
+        idxs = range(min(S13_TRAIN_WINDOWS, len(val)))
+        images = torch.from_numpy(np.stack([
+            tf(np.stack([native.decode(p) for p in val.window_paths(i)]), val.label_and_size(i)[0])[0] for i in idxs
+        ])).to(dev)
+        model.eval()
+        with torch.inference_mode():
+            raw_twin, raw_trained = twin_det.model(twin_det._normalized(images)), model(images)
+        check(all(torch.equal(a, b) for a, b in zip(raw_twin, raw_trained)),
+              "slice 13: the raw outputs of the checkpoint's model differ from the trained model's")
+        nms_greedy.launches = 0
+        ids, sc, bb = (a.cpu().numpy() for a in make_eval_step(model)(images))
+        k1 += nms_greedy.launches
+        ref = {}
+        for n, i in enumerate(idxs):
+            collect_boxes(ref, val.sample_path(i), ids[n], sc[n], np.clip(bb[n], 0, SIZE), SIZE)
+        check(all(preds.get(val.sample_path(i), []) == ref.get(val.sample_path(i), []) for i in idxs),
+              "slice 13: the detect twin's detections from the checkpoint differ from the trained model's")
+        figures["detect_twin"] = {"windows": len(val), "seconds": secs, "detections": sum(map(len, preds.values())),
+                                  "voc": open(f"{tmp}/res/rnn/voc.txt").read().splitlines()[-1]}
+        print(f"slice 13 detect twin from the checkpoint (B={S13_TRAIN_WINDOWS}, {len(val)} windows, {secs:.2f} s, "
+              f"model load included) on {card}: raw outputs and the first batch's "
+              f"{sum(map(len, ref.values()))} detections equal the trained model's bit for bit")
+        del model, twin_det
+        torch.cuda.empty_cache()
+    return figures, k1, k2
+
+
+def data_slice13(dev, card):
+    """Phase 17.  Returns (the phase's figures, K1's launches, K2's
+    (forward, adjoint) launches on its paths)."""
+    figures, k1, k2, seconds = {}, {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t0 = time.perf_counter()
+    for name in S13_MODELS:
+        figures[name], k1[name], fwd = s13_serve(name, dev, card, gen)
+        k2[name] = (fwd, 0)
+    seconds["a_c"] = time.perf_counter() - t0
+    figures["f32"], k1["f32_streams"] = s13_f32(dev, card, gen)
+    seconds["b_c_f32"] = time.perf_counter() - t0
+    for name in S13_TRAIN:
+        figures[name]["train_step"], k2[f"train_{name}"] = s13_train(name, dev, card)
+    seconds["d"] = time.perf_counter() - t0
+    figures["twins"], k1["twins"], _ = s13_twins(dev, card)
+    seconds["e"] = time.perf_counter() - t0
+    figures["seconds_from_start"] = seconds
+    print(f"slice 13 parts' ends, seconds from the phase's start: {seconds}")
+    k1["total"] = sum(k1.values())
+    k2["total"] = [sum(v[0] for v in k2.values()), sum(v[1] for v in k2.values())]
+    figures["k1"], figures["k2"] = k1, k2
+    print(f"slice 13 launches: K1 {k1}, K2 (forward, adjoint) {k2}")
+    return figures, k1["total"], k2["total"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -4318,6 +4758,11 @@ def main() -> int:
     stream_figures, k1_slice12, k2_slice12 = data_slice12(dev, card)
     phase_s["16"] = time.perf_counter() - t_start
 
+    # 17. slice 13: the conv-RNN and the 3D / 2+1D blocks through both twins and the stream
+    torch.cuda.empty_cache()
+    s13_figures, k1_slice13, k2_slice13 = data_slice13(dev, card)
+    phase_s["17"] = time.perf_counter() - t_start
+
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
         plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
@@ -4351,6 +4796,7 @@ def main() -> int:
             "slice10_285_class_b128_ms": comb_figures["step"][TREE_CLASSES]["k1_ms"],
             "launches_slice11": k1_slice11,
             "launches_slice12": k1_slice12,
+            "launches_slice13": k1_slice13,
         },
         {
             "name": "cost_volume",
@@ -4378,6 +4824,11 @@ def main() -> int:
                        "max_abs_err": t5_figures["kernels"]},
             "launches_slice10": k2_slice10[0],
             "launches_slice12": k2_slice12,
+            "launches_slice13": k2_slice13[0],
+            "slice13": {"per": f"one B={S13_BATCH} request of the tip GRU with the late correlation: {CORR_LAUNCHES} "
+                               "launches, on the GRU's outputs",
+                        "max_abs_err": s13_figures["rnn_late_corr"]["k2_max_abs_err"],
+                        "shapes": s13_figures["rnn_late_corr"]["k2_shapes"]},
         },
         {
             "name": "cost_volume_backward",
@@ -4404,6 +4855,7 @@ def main() -> int:
                            "adjoint_ops_ms", "adjoint_plan", "adjoint_mid_max_abs_err")},
                        "train_step_launches": t5_figures["train_step"]["launches"]["adjoint"]},
             "launches_slice10": k2_slice10[1],
+            "launches_slice13": k2_slice13[1],
         },
         {
             "name": "quant_downsample",
@@ -4442,6 +4894,7 @@ def main() -> int:
     print(json.dumps({"slice10_comb": comb_figures}))
     print(json.dumps({"slice11_dp": dp_figures}))
     print(json.dumps({"slice12_stream": stream_figures}))
+    print(json.dumps({"slice13_rnn_3d": s13_figures}))
     print(json.dumps({"phase_end_s": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

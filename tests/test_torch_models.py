@@ -318,12 +318,16 @@ def test_factory_surface():
     head = yolo3_no_backbone(["a", "b"])
     assert not head.use_backbone and head.output2.num_classes == 2
     for cfg in (
-        YoloConfig(num_classes=2, k=3, rnn_pos="out"),
         YoloConfig(num_classes=2, new_model=True),
         YoloConfig(num_classes=2, k=3, motion_stream="flownet"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg)
+    # the output conv-RNN builds (tests/test_torch_rnn.py), but not after an
+    # early correlation
+    assert type(build_model(YoloConfig(num_classes=2, k=3, rnn_pos="out")).output0).__name__ == "YOLOOutputRNN"
+    with pytest.raises(ValueError, match="not built"):
+        build_model(YoloConfig(num_classes=2, k=3, rnn_pos="out", corr_pos="early", corr_d=2))
     # slice 4 builds the s2d stem and remat, and trains the 2D model
     s2d = build_model(YoloConfig(num_classes=2, s2d_stem=True, remat="stem"))
     assert s2d.backbone.conv0.Conv_0.weight.shape == (128, 12, 3, 3)

@@ -15,6 +15,7 @@ import sys
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from test_torch_coco import write_coco_tree
 from test_torch_data import write_voc_tree
@@ -30,6 +31,7 @@ from videoyolo_torch import native, train_yolov3
 from videoyolo_torch.data.loader import DetectionLoader
 from videoyolo_torch.data.mscoco import COCODetection
 from videoyolo_torch.data.pascalvoc import VOCDetection
+from videoyolo_torch.models.factory import yolo3_darknet53
 from videoyolo_torch.data.transforms import (
     MixupDetection,
     YOLO3DefaultInferenceTransform,
@@ -348,10 +350,23 @@ def test_train_twin_flags(monkeypatch):
     train_yolov3.check_ported(args)
     assert args.syncbn and args.gpus == ["0", "1", "2", "3"] and args.num_samples == 100
     monkeypatch.delenv("WORLD_SIZE")
-    for argv, item in ((["--dataset", "vid", "--window", "3,1", "--block_conv_type", "21"], "item 6"),
-                       (["--features_dir", "f"], "item 13"), (["--trained_on", "voc"], "item 12")):
+    for argv, item in ((["--features_dir", "f"], "item 13"), (["--trained_on", "voc"], "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             train_yolov3.check_ported(train_yolov3.parse_args(argv))
+    # the 3-D blocks and the conv-RNN train (tests/test_torch_blocks3d.py,
+    # tests/test_torch_rnn.py); the model refuses what the JAX package
+    # asserts on or runs at fault
+    for argv in (["--block_conv_type", "21", "--k_join_pos", "late"], ["--rnn_pos", "late", "--k_join_pos", "late"]):
+        args = train_yolov3.parse_args(["--dataset", "vid", "--window", "3,1"] + argv)
+        train_yolov3.check_ported(args)
+        with torch.device("meta"):
+            yolo3_darknet53(2, **train_yolov3.temporal_kwargs(args))
+    for argv, match in ((["--block_conv_type", "21"], "join late"),
+                        (["--rnn_pos", "late", "--k_join_pos", "late", "--corr_pos", "early", "--corr_d", "2"],
+                         "not built")):
+        with pytest.raises(ValueError, match=match):
+            yolo3_darknet53(2, **train_yolov3.temporal_kwargs(train_yolov3.parse_args(
+                ["--dataset", "vid", "--window", "3,1"] + argv)))
     args = train_yolov3.parse_args([])
     assert args.allow_empty and args.no_mixup_epochs == 20 and args.every == 25 and not args.syncbn
     assert sys.modules["videoyolo_torch.train_yolov3"] is train_yolov3

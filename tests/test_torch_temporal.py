@@ -276,12 +276,20 @@ def test_factory_param_shapes(name):
 
 
 def test_factory_raises_on_unported_axes():
-    for cfg in (
-        dict(rnn_pos="late", k_join_pos="late"),
-        dict(block_conv_type="3", k_join_pos="late"),
-    ):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            build_model(YoloConfig(num_classes=2, k=3, **cfg))
+    # the conv-RNN (item 5) and the 3-D blocks (item 6) build
+    # (tests/test_torch_rnn.py, tests/test_torch_blocks3d.py); after an early
+    # correlation, where the JAX forward is at fault, they raise
+    with torch.device("meta"):
+        for cfg in (dict(rnn_pos="late", k_join_pos="late"), dict(block_conv_type="3", k_join_pos="late")):
+            assert isinstance(build_model(YoloConfig(num_classes=2, k=3, **cfg)), YOLOv3T)
+    for cfg in (dict(rnn_pos="late", k_join_pos="late"), dict(block_conv_type="3", k_join_pos="late")):
+        with pytest.raises(ValueError, match="corr_pos='early'.*not built"):
+            build_model(YoloConfig(num_classes=2, k=3, corr_pos="early", corr_d=2, **cfg))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        YOLOv3T(num_classes=2, k=3, backbone=torch.nn.Identity())
+    for cfg in (YoloConfig(num_classes=2, new_model=True), YoloConfig(num_classes=2, k=3, motion_stream="flownet")):
+        with pytest.raises(NotImplementedError, match="items 7 and 12"):
+            build_model(cfg)
     with pytest.raises(NotImplementedError, match="item 9a"):
         YOLOv3T(num_classes=2, k=3, quant=True)
     # the streaming split is ported (tests/test_torch_streaming.py): feed="tips"

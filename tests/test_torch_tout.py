@@ -327,7 +327,11 @@ def test_factory_branch_and_bridge_both_ways(name):
 
 
 def test_factory_raises_on_unported_axes():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the 3-D blocks build on the t_out paths (tests/test_torch_blocks3d.py);
+    # the 3-D funnel, whose JAX forward mixes a batch's images, raises
+    with torch.device("meta"):
+        assert build_model(YoloConfig(num_classes=2, t_out=True, block_conv_type="21")).path == "per_frame"
+    with pytest.raises(ValueError, match="not built"):
         build_model(YoloConfig(num_classes=2, temporal=True, block_conv_type="21"))
     # the streaming split is ported (tests/test_torch_streaming.py): feed="stage1"
     # builds the pyramid's head over stage-1 windows, everything but stage 1

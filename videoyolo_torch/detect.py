@@ -58,8 +58,8 @@ With `--window k[,step]` and k > 1 on `vid` or `yt`, each sample is the
 window of k frames around a val frame (the VID window sampler, which
 YouTube-BB's clips share) and the model is
 YOLOv3T with the temporal flags (`--k_join_type`, `--k_join_pos`,
-`--block_conv_type` '2', `--corr_pos`, `--corr_d`, read only with
-`--corr_pos`, as detect_yolo3.py reads them).  The windows take the JAX
+`--block_conv_type` 2, 3 or 21, `--rnn_pos` late or out, `--corr_pos`,
+`--corr_d`, read only with `--corr_pos`, as detect_yolo3.py reads them).  The windows take the JAX
 detect CLI's Python route (detect_yolo3.py:989-992): each frame decoded,
 resized with interp 9 and normalised, in the loader's workers; the
 detections are the key frame's, cached under its name.  The cost volumes
@@ -100,6 +100,8 @@ Without `--dataset`, the seeded synthetic mode:
         --num_requests 3 --seed 0 [--device cpu] [--dtype f32|bf16] [--out preds.json]
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
         --window 3,1 --k_join_pos late --corr_pos early --corr_d 4   # YOLOv3T windows
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
+        --window 3,1 --k_join_pos late --rnn_pos late   # the tip conv-RNN (--block_conv_type 3|21: 3-D blocks)
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
         --window 5,1 --temp --mult_out --corr_pos early --corr_d 4   # YOLOv3Temporal windows
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
@@ -174,7 +176,8 @@ def parse_args(argv=None):
     p.add_argument("--window", default="1,1", help="temporal window size of frames and stride")
     p.add_argument("--k_join_type", default=None, help="way to fuse k: max, mean or cat")
     p.add_argument("--k_join_pos", default=None, help="position of the k fuse: early or late")
-    p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2 (3 and 21: item 6)")
+    p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2, 3 or 21")
+    p.add_argument("--rnn_pos", default=None, help="position of RNN: late or out")
     p.add_argument("--corr_pos", default=None, help="position of the correlation: early or late")
     p.add_argument("--corr_d", type=int, default=4, help="the d of the correlation")
     p.add_argument("--temp", action="store_true", help="the t=5 temporal model (YOLOv3Temporal)")
@@ -246,8 +249,9 @@ def main(argv=None):
     cfg = YoloConfig(
         num_classes=NUM_CLASSES, pad_stem=True,
         k=k if temporal else None,
-        k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
-        corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out,
+        k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type,
+        rnn_pos=args.rnn_pos, corr_pos=args.corr_pos, corr_d=args.corr_d if args.corr_pos else None,
+        temporal=args.temp, t_out=args.mult_out,
     )
     if args.quantize and args.quantize != "int8":
         raise NotImplementedError(f"--quantize {args.quantize} is deferred, see ROADMAP.md Queue 1 item 9a")
@@ -291,8 +295,9 @@ def main_stream(args, window):
     check_stream_args(args, window)
     cfg = YoloConfig(
         num_classes=NUM_CLASSES, k=window[0],
-        k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, corr_pos=args.corr_pos,
-        corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out,
+        k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type,
+        rnn_pos=args.rnn_pos, corr_pos=args.corr_pos, corr_d=args.corr_d if args.corr_pos else None,
+        temporal=args.temp, t_out=args.mult_out,
     )
     stream = StreamingDetector(Detector(cfg, dtype=DTYPES[args.dtype], device=args.device, seed=args.seed).model)
     s, b = args.data_shape, args.batch_size
@@ -658,7 +663,8 @@ def dataset_config(args, num_classes: int) -> YoloConfig:
     if k <= 1 and not (args.temp or args.mult_out):
         return YoloConfig(num_classes=num_classes)
     return YoloConfig(num_classes=num_classes, k=k if k > 1 else None, k_join_type=args.k_join_type,
-                      k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type, corr_pos=args.corr_pos,
+                      k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type, rnn_pos=args.rnn_pos,
+                      corr_pos=args.corr_pos,
                       corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out)
 
 

@@ -2,10 +2,13 @@
 
 It builds the 2D YOLOv3 / Darknet-53 detector, for k > 1 the YOLOv3T
 window model with the JAX factory's defaults (k_join_type "max", k_join_pos
-"early"; pad_stem is ignored there, as in JAX), and with `temporal` or
-`t_out` the t=5 YOLOv3Temporal (t = k or 5, conv = block_conv_type,
-corr_d or 0).  The motion-stream and 3D branches raise and name the ROADMAP
-slice that brings them.
+"early"; pad_stem is ignored there, as in JAX) and its `block_conv_type`
+and `rnn_pos`, and with `temporal` or `t_out` the t=5 YOLOv3Temporal (t = k
+or 5, conv = block_conv_type, corr_d or 0).  Since k_join_type defaults to
+"max", a late join always pre-empts the late correlation here, as in the
+JAX factory: a YOLOv3T with corr_pos="late" and no join is built directly.
+The motion-stream and 3D-backbone branches raise and name the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from .yolo3_temporal import YOLOv3T, YOLOv3Temporal
 
 __all__ = ["YoloConfig", "build_model", "yolo3_darknet53", "yolo3_no_backbone"]
 
-_FAMILIES = "the other backbones come with slice 5, see ROADMAP.md"
+_FAMILIES = "the other backbones come with a later slice, see ROADMAP.md Queue 1 items 7 and 12"
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""Primitive layers (port of videoyolo_tpu/models/layers.py:32-335, 437-544).
+"""Primitive layers (port of videoyolo_tpu/models/layers.py:32-636).
 
 The cells take and return NCHW tensors; the models keep them in
 `channels_last` memory, so NHWC is what lies in device memory, as in the JAX
@@ -13,7 +13,9 @@ normalises with the batch's statistics and updates the running ones as
 flax does (`BatchNorm`).
 
 The temporal layers (`time_distributed`, `TemporalPooling`, `Corr`,
-`ConvBNLeaky3D`) take NHWC windows (B, T, H, W, C), as in the JAX package.
+`ConvBNLeaky3D`, `Conv21D`, `Conv1DTemporal`, `temporal_pad`, `ConvRNN`)
+take NHWC windows (B, T, H, W, C), as in the JAX package; the conv-RNN's
+cells (`ConvGRUCell`, `ConvLSTMCell`) take NCHW frames.
 
 The fused-int8 path (`quant="fused"`, and its calibration twin
 "fused_calib") keeps activations int8 from cell to cell as `QTensor`s; its
@@ -459,14 +461,14 @@ class Conv3d(nn.Conv3d):
     _cast = Conv2d._cast
 
     def __init__(self, in_channels: int, out_channels: int, kernel, stride, padding,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, groups: int = 1):
         super().__init__(in_channels, out_channels, tuple(kernel), stride=tuple(stride), padding=tuple(padding),
-                         bias=False)
+                         bias=False, groups=groups)
         self.dtype = dtype or torch.float32
         self._cast_cache = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv3d(x, self._cast("weight", self.weight), None, self.stride, self.padding)
+        return F.conv3d(x, self._cast("weight", self.weight), None, self.stride, self.padding, 1, self.groups)
 
     def _apply(self, fn, recurse=True):
         # `Module.to(memory_format=torch.channels_last)`, which the entry
@@ -509,6 +511,182 @@ class ConvBNLeaky3D(nn.Module):
         return y.permute(0, 2, 3, 4, 1)
 
 
+class Conv21D(nn.Module):
+    """The R(2+1)D factored cell (layers.py:369-401): a (1, k, k) cell of
+    spatial stride `stride` and padding (0, p, p) to `mid` channels (default
+    `features`), then a (k, 1, 1) cell of temporal stride `stride` and
+    padding (p, 0, 0); each a `ConvBNLeaky3D` (`ConvBNLeaky3D_0`, `_1`).
+    NHWC windows in and out."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3, mid: Optional[int] = None,
+                 padding: int = 1, stride: int = 1, dtype: torch.dtype | None = None, quant=None):
+        super().__init__()
+        m = features if mid is None else mid
+        self.ConvBNLeaky3D_0 = ConvBNLeaky3D(in_channels, m, kernel=(1, kernel, kernel), stride=(1, stride, stride),
+                                             padding=(0, padding, padding), dtype=dtype, quant=quant)
+        self.ConvBNLeaky3D_1 = ConvBNLeaky3D(m, features, kernel=(kernel, 1, 1), stride=(stride, 1, 1),
+                                             padding=(padding, 0, 0), dtype=dtype, quant=quant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvBNLeaky3D_1(self.ConvBNLeaky3D_0(x))
+
+
+def temporal_pad(x: torch.Tensor, padding: int = 1, zeros: bool = True) -> torch.Tensor:
+    """(B, T, ...) padded along T by `padding` steps on each side: zeros, or
+    copies of the first and last step (layers.py:71-81)."""
+    first, last = x[:, :1], x[:, -1:]
+    if zeros:
+        first, last = torch.zeros_like(first), torch.zeros_like(last)
+    reps = (1, padding) + (1,) * (x.dim() - 2)
+    return torch.cat([first.repeat(reps), x, last.repeat(reps)], dim=1)
+
+
+class Conv1DTemporal(nn.Module):
+    """The depthwise temporal cell (layers.py:404-434): a (k, 1, 1) conv of
+    `features` groups (one channel each) over NHWC windows (B, T, H, W, C =
+    features), temporal stride and zero padding, no bias, zero kernel at
+    init (`init_weights` leaves it at zero); BatchNorm; leaky."""
+
+    def __init__(self, features: int, kernel: int = 3, padding: int = 0, stride: int = 1,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.dtype = dtype or torch.float32
+        self.Conv_0 = Conv3d(features, features, (kernel, 1, 1), (stride, 1, 1), (padding, 0, 0), dtype=dtype,
+                             groups=features)
+        nn.init.zeros_(self.Conv_0.weight)
+        self.Conv_0.zero_init = True
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = leaky(self.BatchNorm_0(self.Conv_0(x.to(self.dtype).permute(0, 4, 1, 2, 3))))
+        return y.permute(0, 2, 3, 4, 1)
+
+
+def _square_padding(kernel) -> int | tuple:
+    """flax's k//2 padding of a (kh, kw) kernel as `Conv2d` takes it."""
+    kh, kw = kernel
+    return kh // 2 if kh == kw else (kw // 2, kw // 2, kh // 2, kh // 2)
+
+
+class ConvGRUCell(nn.Module):
+    """The conv-GRU cell (layers.py:547-573): biased convs `i2h` (input) and
+    `h2h` (carry) to 3 x `channels`, split into the r, z, n gates:
+
+      r = sigmoid(i_r + h_r);  z = sigmoid(i_z + h_z)
+      n = tanh(i_n + r * h_n); h' = (1 - z) * n + z * h
+
+    NCHW.  The convs compute in `dtype` from float32 parameters and the gate
+    arithmetic stays in the convs' dtype, as flax's.  `step` takes the
+    input's conv `xi` already made (`ConvRNN` makes it for every frame in
+    one conv); on the `first` step the carry is zero and its conv is the
+    bias alone."""
+
+    n_gates = 3
+
+    def __init__(self, in_channels: int, channels: int, kernel=(3, 3), dtype: torch.dtype | None = None):
+        super().__init__()
+        self.channels, self.dtype = channels, dtype or torch.float32
+        pad = _square_padding(kernel)
+        self.i2h = Conv2d(in_channels, self.n_gates * channels, tuple(kernel), padding=pad, bias=True, dtype=dtype)
+        self.h2h = Conv2d(channels, self.n_gates * channels, tuple(kernel), padding=pad, bias=True, dtype=dtype)
+
+    def zero_carry(self, x: torch.Tensor):
+        """The zero carry of a frame batch `x` (B, C, H, W), in x's dtype."""
+        b, _, h, w = x.shape
+        return torch.zeros((b, self.channels, h, w), dtype=x.dtype, device=x.device).to(
+            memory_format=torch.channels_last)
+
+    def _h2h(self, h: torch.Tensor, like: torch.Tensor, first: bool) -> torch.Tensor:
+        if first:
+            return self.h2h._cast("bias", self.h2h.bias).view(1, -1, 1, 1).expand_as(like)
+        return self.h2h(h.to(self.dtype))
+
+    def step(self, carry, xi: torch.Tensor, first: bool = False):
+        h = carry[0] if isinstance(carry, tuple) else carry
+        return self.gates(xi, self._h2h(h, xi, first), carry)
+
+    def gates(self, xi: torch.Tensor, hh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The step's gate arithmetic from the convs of the input (`xi`) and
+        of the carry (`hh`)."""
+        ir, iz, i_n = xi.chunk(3, dim=1)
+        hr, hz, h_n = hh.chunk(3, dim=1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h
+
+    def forward(self, carry, x: torch.Tensor):
+        """One step on a frame batch `x` (B, C, H, W) from `carry`."""
+        return self.step(carry, self.i2h(x.to(self.dtype)))
+
+
+class ConvLSTMCell(ConvGRUCell):
+    """The conv-LSTM cell (layers.py:576-601): gates = i2h(x) + h2h(h) to 4 x
+    `channels`, split into i, f, o, g; c' = f * c + i * g, h' = o *
+    tanh(c').  The carry is (h, c)."""
+
+    n_gates = 4
+
+    def zero_carry(self, x: torch.Tensor):
+        z = super().zero_carry(x)
+        return z, z
+
+    def gates(self, xi: torch.Tensor, hh: torch.Tensor, carry):
+        _, c = carry
+        i, f, o, g = (xi + hh).chunk(4, dim=1)
+        i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), torch.tanh(g)
+        c_new = f * c + i * g
+        return o * torch.tanh(c_new), c_new
+
+
+class ConvRNN(nn.Module):
+    """k-step conv-GRU or conv-LSTM over NHWC windows (B, T, H, W, C) ->
+    (B, T, H, W, `channels`) (layers.py:604-636): the carry starts at zeros
+    in the input's dtype and each step's output is its h; with `bi`, a
+    second cell (`bwd`) runs over the reversed window and the two
+    directions average, (out + out_b) / 2.  The input convs of every frame
+    run as one conv over the frames folded into the batch; the carry's conv
+    runs once a step after the first."""
+
+    def __init__(self, in_channels: int, channels: int, kernel=(3, 3), type: str = "gru", bi: bool = True,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        if type not in ("gru", "lstm"):
+            raise ValueError(f"ConvRNN type must be 'gru' or 'lstm', got {type!r}")
+        cell = ConvGRUCell if type == "gru" else ConvLSTMCell
+        self.fwd = cell(in_channels, channels, kernel, dtype=dtype)
+        self.bwd = cell(in_channels, channels, kernel, dtype=dtype) if bi else None
+
+    def _run(self, cell: ConvGRUCell, x: torch.Tensor, reverse: bool) -> torch.Tensor:
+        t = x.shape[1]
+        xi = _nchw_frames(cell.i2h, x.to(cell.dtype))  # (B, T, G*C, H, W)
+        carry = cell.zero_carry(x[:, 0].permute(0, 3, 1, 2))
+        outs = [None] * t
+        for n, i in enumerate(range(t - 1, -1, -1) if reverse else range(t)):
+            carry = cell.step(carry, xi[:, i], first=n == 0)
+            outs[i] = (carry[0] if isinstance(carry, tuple) else carry).permute(0, 2, 3, 1)
+        return torch.stack(outs, dim=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._run(self.fwd, x, reverse=False)
+        if self.bwd is not None:
+            out = self.average(out, self._run(self.bwd, x, reverse=True))
+        return out
+
+    @staticmethod
+    def average(out: torch.Tensor, out_b: torch.Tensor) -> torch.Tensor:
+        """The two directions' mean, in their dtype."""
+        return (out + out_b) / 2.0
+
+
+def _nchw_frames(module: Callable, x: torch.Tensor) -> torch.Tensor:
+    """An NCHW module on every frame of an NHWC window (B, T, H, W, C) ->
+    (B, T, C', H', W'), the frames folded into the batch."""
+    b, t = x.shape[:2]
+    y = module(x.flatten(0, 1).permute(0, 3, 1, 2))
+    return y.reshape((b, t) + y.shape[1:])
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init in place: conv kernels N(0, 1/fan_in) (flax's
     lecun scale), conv biases 0, BN at identity (scale 1, bias 0, mean 0,
@@ -516,7 +694,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     weights on every device."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            if getattr(m, "zero_init", False):
+                m.weight.zero_()
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / fan_in**0.5
                 m.weight.copy_(w)

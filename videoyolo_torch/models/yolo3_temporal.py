@@ -38,9 +38,19 @@ pre-join tips; YOLOv3Temporal `feed="stage1"` everything after stage 1 over
 a window of stage-1 features, `feed="routes"` the head over windows of
 routes.
 
-Not ported yet (they raise NotImplementedError naming the slice and the
-ROADMAP.md item): the conv-RNN (`rnn_pos`, item 5), 3D and 2+1D blocks
-(item 6), custom backbones (item 7) and int8 cells (item 9a).
+The conv-RNN (`rnn_pos`): "late" replaces each block's tip cell by a
+bidirectional 3x3 conv-GRU over the window of routes (`tip_rnn{i}`), then
+the late join or correlation; "out" keeps the per-frame FPN and its tips
+and replaces each output conv by `YOLOOutputRNN`, a 1x1 conv-GRU over the
+window of tips, pooled over time.  The 3D and 2+1D blocks
+(`block_conv_type` '3' / '21', YOLOv3Temporal's `conv` 3 / 21) run the
+detection blocks over the window, (k, k, k) or (1, k, k) then (k, 1, 1)
+cells; the transitions stay per frame.
+
+The configurations whose JAX forward is at fault raise ValueError (ROADMAP.md
+Queue 3): the conv-RNN or 3-D blocks after an early correlation, and the
+3-D funnel.  Not ported yet (NotImplementedError naming the ROADMAP.md
+item): custom backbones (item 7) and int8 cells (item 9a).
 """
 from __future__ import annotations
 
@@ -53,12 +63,14 @@ from torch import nn
 from ..ops.anchors import DEFAULT_ANCHORS, DEFAULT_STRIDES
 from ..ops.correlation import num_corr_channels
 from .darknet import DARKNET53_CHANNELS, Darknet53Stage1, DarknetStage
-from .layers import ConvBNLeaky, ConvBNLeaky3D, Corr, TemporalPooling, time_distributed, upsample2x
-from .yolo3 import FPN_CHANNELS, YOLOOutput
+from .layers import (
+    Conv21D, ConvBNLeaky, ConvBNLeaky3D, ConvRNN, Corr, TemporalPooling, time_distributed, upsample2x,
+)
+from .yolo3 import FPN_CHANNELS, YOLOOutput, decode_predictions
 
 __all__ = ["YOLOv3T", "YOLOv3Temporal"]
 
-_LATER = "comes with slice 5 (the rest of the temporal family), see ROADMAP.md Queue 1 item"
+_LATER = "comes with a later slice of the temporal family, see ROADMAP.md Queue 1 item"
 
 
 def _anchor_pairs(level_anchors):
@@ -79,41 +91,79 @@ def _nhwc(fn: Callable, x: torch.Tensor) -> torch.Tensor:
 
 
 class _TCell(nn.Module):
-    """A 2D conv cell on NHWC input, per frame when 5-D (yolo3_temporal.py:
-    66-92, conv_type '2'); it casts its input to its dtype."""
+    """A conv cell on NHWC input (yolo3_temporal.py:66-92): conv_type '2' a
+    2D cell, per frame when 5-D; '3' a (k, k, k) `ConvBNLeaky3D` and '21' a
+    `Conv21D` over a window (B, T, H, W, C), a 1x1 cell of either a (1, 1,
+    1) one.  It casts its input to its dtype."""
 
     def __init__(self, in_channels: int, features: int, kernel: int, conv_type: str = "2",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if conv_type != "2":
-            raise NotImplementedError(f"3D and 2+1D cells: {_LATER} 6")
-        self.dtype = dtype or torch.float32
-        self.ConvBNLeaky_0 = ConvBNLeaky(in_channels, features, kernel=kernel, dtype=dtype)
+        if conv_type not in ("2", "3", "21"):
+            raise ValueError(f"conv_type must be '2', '3' or '21', got {conv_type!r}")
+        self.conv_type, self.dtype = conv_type, dtype or torch.float32
+        if conv_type == "2":
+            self.ConvBNLeaky_0 = ConvBNLeaky(in_channels, features, kernel=kernel, dtype=dtype)
+        elif conv_type == "3" or kernel == 1:
+            kt = kernel if conv_type == "3" else 1
+            self.ConvBNLeaky3D_0 = ConvBNLeaky3D(in_channels, features, kernel=(kt, kernel, kernel), dtype=dtype)
+        else:
+            self.Conv21D_0 = Conv21D(in_channels, features, kernel=kernel, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _nhwc(self.ConvBNLeaky_0, x.to(self.dtype))
+        if self.conv_type == "2":
+            return _nhwc(self.ConvBNLeaky_0, x.to(self.dtype))
+        if x.dim() != 5:
+            raise ValueError(f"a 3-D cell takes a window (B, T, H, W, C), got {tuple(x.shape)}")
+        return next(iter(self.children()))(x)
 
 
 class YOLODetectionBlockT(nn.Module):
     """5-conv FPN block + 3x3 tip on NHWC input (yolo3_temporal.py:95-117);
-    returns (route, tip)."""
+    returns (route, tip), or with `with_tip=False` (the conv-RNN's block)
+    the route alone.  The 1x1 cells of a '3' or '21' block are (1, 1, 1)
+    3-D cells."""
 
-    def __init__(self, in_channels: int, channel: int, conv_type: str = "2",
+    def __init__(self, in_channels: int, channel: int, conv_type: str = "2", with_tip: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         if channel % 2:
             raise ValueError(f"channel must be even, got {channel}")
-        specs = [(in_channels, channel, 1), (channel, 2 * channel, 3),
-                 (2 * channel, channel, 1), (channel, 2 * channel, 3),
-                 (2 * channel, channel, 1), (channel, 2 * channel, 3)]
-        for n, (cin, cout, kernel) in enumerate(specs):
-            self.add_module(f"_TCell_{n}", _TCell(cin, cout, kernel, conv_type, dtype=dtype))
+        one = "3" if conv_type in ("3", "21") else "2"
+        specs = [(in_channels, channel, 1, one), (channel, 2 * channel, 3, conv_type),
+                 (2 * channel, channel, 1, one), (channel, 2 * channel, 3, conv_type),
+                 (2 * channel, channel, 1, one)]
+        if with_tip:
+            specs.append((channel, 2 * channel, 3, conv_type))
+        self.with_tip = with_tip
+        for n, (cin, cout, kernel, ctype) in enumerate(specs):
+            self.add_module(f"_TCell_{n}", _TCell(cin, cout, kernel, ctype, dtype=dtype))
 
     def forward(self, x: torch.Tensor):
         cells = list(self.children())
-        for cell in cells[:-1]:
+        for cell in cells[:5]:
             x = cell(x)
-        return x, cells[-1](x)
+        return (x, cells[5](x)) if self.with_tip else x
+
+
+class YOLOOutputRNN(nn.Module):
+    """The rnn_pos='out' head (yolo3_temporal.py:120-137): a 1x1
+    bidirectional conv-GRU (`prediction`) over the window's tips (B, k, H,
+    W, C), the window pooled by `k_join_type` (max when None), then the
+    anchor decode of `YOLOOutput`."""
+
+    def __init__(self, in_channels: int, num_classes: int, anchors, stride: int, k_join_type: Optional[str] = "max",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_classes, self.stride = num_classes, stride
+        self.prediction = ConvRNN(in_channels, len(anchors) * (5 + num_classes), kernel=(1, 1), dtype=dtype)
+        self.pool = TemporalPooling(type=k_join_type or "max")
+        self.register_buffer("anchors", torch.tensor(anchors, dtype=torch.float32), persistent=False)
+
+    def forward(self, tip: torch.Tensor):
+        pred = self.pool(self.prediction(tip))
+        return decode_predictions(pred.permute(0, 3, 1, 2), self.anchors, self.stride, self.num_classes,
+                                  self.training)
 
 
 class YOLOOutputConvT(YOLOOutput):
@@ -131,18 +181,36 @@ class YOLOOutputConvT(YOLOOutput):
         return super().forward(tip.to(self.prediction.dtype).permute(0, 3, 1, 2))
 
 
-def _validate(k_join_type, k_join_pos, rnn_pos, corr_pos, corr_d):
-    # the JAX package's config asserts (yolo3_temporal.py:205-234)
+def _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, corr_d):
+    # the JAX package's config asserts (yolo3_temporal.py:205-234), and the
+    # configurations whose JAX forward is at fault (ROADMAP.md Queue 3)
     for name, value, allowed in (
         ("rnn_pos", rnn_pos, (None, "late", "out")),
         ("k_join_type", k_join_type, (None, "max", "mean", "cat")),
         ("k_join_pos", k_join_pos, (None, "early", "late")),
+        ("block_conv_type", block_conv_type, ("2", "3", "21")),
         ("corr_pos", corr_pos, (None, "early", "late")),
     ):
         if value not in allowed:
             raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
     if corr_pos is not None and not corr_d:
         raise ValueError("corr_pos requires corr_d > 0")
+    if block_conv_type != "2":
+        if not (k or 1) > 1:
+            raise ValueError("3D/2+1D blocks need k > 1")
+        if k_join_pos != "late" or k_join_type is None:
+            raise ValueError("3D/2+1D blocks join late: k_join_pos='late' and a k_join_type")
+        if corr_pos == "early":
+            raise ValueError("3D/2+1D blocks with corr_pos='early' would take the correlation's 4-D routes (the JAX "
+                             "package's 3-D convs then mix the images of a batch); not built")
+    if rnn_pos is not None:
+        if not (k or 1) > 1:
+            raise ValueError("the conv-RNN scans a window: k > 1")
+        if rnn_pos == "late" and k_join_pos != "late":
+            raise ValueError("rnn_pos='late' needs k_join_pos='late'")
+        if corr_pos == "early":
+            raise ValueError("the conv-RNN with corr_pos='early' would scan the correlation's 4-D routes (the JAX "
+                             "package reads their rows as time and fails); not built")
 
 
 class YOLOv3T(nn.Module):
@@ -153,7 +221,9 @@ class YOLOv3T(nn.Module):
     `feed="tips"` the three (B, k, H/s, W/s, C) windows of pre-join tips,
     deep first.  The joins and the correlation follow the JAX package's
     precedence: an early join pre-empts an early correlation, a late join a
-    late one, and once the routes are joined the late ones do not run.  The
+    late one, and once the routes are joined the late ones do not run; with
+    the output conv-RNN (`rnn_pos="out"`) no join or correlation runs.
+    `fpn` gives the tips, after the tip conv-RNN for `rnn_pos="late"`.  The
     forward is `outputs(fpn(window_routes(frame_routes(x))))`; `head` is
     `outputs(fpn(.))`."""
 
@@ -177,23 +247,20 @@ class YOLOv3T(nn.Module):
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        _validate(k_join_type, k_join_pos, rnn_pos, corr_pos, corr_d)
+        _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, corr_d)
         if quant:
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
-        if rnn_pos is not None:
-            raise NotImplementedError(f"the conv-RNN (rnn_pos): {_LATER} 5")
-        if block_conv_type != "2":
-            raise NotImplementedError(f"3D and 2+1D blocks: {_LATER} 6")
         if backbone is not None:
             raise NotImplementedError(f"custom and two-stream backbones: {_LATER} 7")
         if feed not in (None, "tips"):
             raise ValueError(f"YOLOv3T's feed must be None or 'tips', got {feed!r}")
-        if feed == "tips" and corr_pos is not None:
-            raise ValueError("feed='tips' needs a frame-pure per-frame FPN: no correlation")
-        if feed == "tips" and not (k_join_pos == "late" and k_join_type is not None):
-            raise ValueError("feed='tips' covers plain late joins")
+        if feed == "tips" and (corr_pos is not None or block_conv_type != "2"):
+            raise ValueError("feed='tips' needs a frame-pure per-frame FPN: 2D blocks, no correlation")
+        if feed == "tips" and not (rnn_pos == "out" or (rnn_pos is None and k_join_pos == "late"
+                                                         and k_join_type is not None)):
+            raise ValueError("feed='tips' covers plain late joins and rnn_pos='out'")
         self.k = k or 1
-        self.k_join_type, self.k_join_pos = k_join_type, k_join_pos
+        self.k_join_type, self.k_join_pos, self.rnn_pos = k_join_type, k_join_pos, rnn_pos
         self.corr_pos, self.block_conv_type, self.feed = corr_pos, block_conv_type, feed
         self.agnostic = agnostic
         temporal = self.k > 1
@@ -203,10 +270,11 @@ class YOLOv3T(nn.Module):
             self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
             self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
 
-        # which join and correlation run where (yolo3_temporal.py:306-345)
-        self.early_join = temporal and k_join_pos == "early"
+        # which join and correlation run where (yolo3_temporal.py:306-345):
+        # the output conv-RNN takes the window's tips unjoined
+        self.early_join = temporal and k_join_pos == "early" and rnn_pos != "out"
         self.early_corr = temporal and not self.early_join and corr_pos == "early"
-        per_frame = temporal and not (self.early_join or self.early_corr)
+        per_frame = temporal and not (self.early_join or self.early_corr) and rnn_pos != "out"
         self.late_join = per_frame and k_join_pos == "late" and k_join_type is not None
         self.late_corr = per_frame and not self.late_join and corr_pos == "late"
         self.corr = (
@@ -230,15 +298,17 @@ class YOLOv3T(nn.Module):
         cin = route_channels[-1]
         for i in range(3):
             if feed is None:
-                self.add_module(
-                    f"block{i}", YOLODetectionBlockT(cin, channels[i], block_conv_type, dtype=dtype)
-                )
+                self.add_module(f"block{i}", YOLODetectionBlockT(
+                    cin, channels[i], block_conv_type, with_tip=rnn_pos != "late", dtype=dtype))
+                if rnn_pos == "late":
+                    self.add_module(f"tip_rnn{i}", ConvRNN(channels[i], 2 * channels[i], kernel=(3, 3), dtype=dtype))
             pairs = _anchor_pairs(anchors_rev[i])
-            tip = after(2 * channels[i], self.late_join, self.late_corr)
-            self.add_module(
-                f"output{i}",
-                YOLOOutputConvT(tip, num_classes, pairs, strides_rev[i], dtype=dtype),
-            )
+            if rnn_pos == "out":
+                head = YOLOOutputRNN(2 * channels[i], num_classes, pairs, strides_rev[i], k_join_type, dtype=dtype)
+            else:
+                tip = after(2 * channels[i], self.late_join, self.late_corr)
+                head = YOLOOutputConvT(tip, num_classes, pairs, strides_rev[i], dtype=dtype)
+            self.add_module(f"output{i}", head)
             if i < 2:
                 if feed is None:
                     self.add_module(
@@ -286,7 +356,11 @@ class YOLOv3T(nn.Module):
         tips = []
         y = routes[-1]
         for i in range(3):
-            y, tip = getattr(self, f"block{i}")(y)
+            if self.rnn_pos == "late":
+                y = getattr(self, f"block{i}")(y)
+                tip = getattr(self, f"tip_rnn{i}")(y)
+            else:
+                y, tip = getattr(self, f"block{i}")(y)
             tips.append(tip)
             if i < 2:
                 y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
@@ -332,7 +406,7 @@ def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class YOLOv3Temporal(nn.Module):
-    """The t=5 temporal model (yolo3_temporal.py:378-549) with `conv=2`.
+    """The t=5 temporal model (yolo3_temporal.py:378-549).
 
     Input (B, t, H, W, 3) NHWC windows ((B, H, W, 3) for t = 1); with
     `feed="stage1"` (the pyramid and the funnel) the (B, t, H/8, W/8, 256)
@@ -349,8 +423,10 @@ class YOLOv3Temporal(nn.Module):
     fused with (1,3,3)/(1,2,2) then (3,1,1) 3-D cells (`convs{1,2}_s/_t`),
     single-frame routes and outputs (B, N, ...).  Submodules carry the flax
     names (`stage1-3`, `corr`, `convs*`, `block{i}`, `output{i}`,
-    `transition{i}`).  In train mode BatchNorm takes its statistics over
-    the frames folded into the batch, as `time_distributed` does in JAX."""
+    `transition{i}`).  `conv` 3 or 21 (t_out only) runs the detection
+    blocks over the window (3-D or 2+1D cells), the transitions per frame.
+    In train mode BatchNorm takes its statistics over the frames folded
+    into the batch, as `time_distributed` does in JAX."""
 
     def __init__(
         self,
@@ -372,8 +448,12 @@ class YOLOv3Temporal(nn.Module):
             raise ValueError(f"YOLOv3Temporal takes t=1 or t=5 (yolo3_temporal.py:400), got {t}")
         if quant:
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
-        if conv != 2:
-            raise NotImplementedError(f"YOLOv3Temporal's 3D and 2+1D blocks (conv={conv}): {_LATER} 6")
+        if conv not in (2, 3, 21):
+            raise ValueError(f"YOLOv3Temporal's conv must be 2, 3 or 21, got {conv}")
+        if conv != 2 and not (t > 1 and t_out):
+            raise ValueError(f"YOLOv3Temporal's 3D and 2+1D blocks (conv={conv}) take per-frame routes (t_out, t=5): "
+                             "the funnel's and one frame's routes are 4-D (the JAX package's 3-D convs then mix the "
+                             "images of a batch); not built")
         # the JAX package's feed asserts (yolo3_temporal.py:420-427)
         if feed not in (None, "stage1", "routes"):
             raise ValueError(f"YOLOv3Temporal's feed must be None, 'stage1' or 'routes', got {feed!r}")
@@ -407,7 +487,7 @@ class YOLOv3Temporal(nn.Module):
         strides_rev = list(strides)[::-1]
         cin = route_channels[-1]
         for i in range(3):
-            self.add_module(f"block{i}", YOLODetectionBlockT(cin, channels[i], "2", dtype=dtype))
+            self.add_module(f"block{i}", YOLODetectionBlockT(cin, channels[i], str(conv), dtype=dtype))
             self.add_module(f"output{i}", YOLOOutputConvT(2 * channels[i], num_classes, _anchor_pairs(anchors_rev[i]),
                                                           strides_rev[i], dtype=dtype))
             if i < 2:

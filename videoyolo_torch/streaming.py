@@ -9,12 +9,14 @@ frame, keeps its outputs for the last k frames in buffers on the device,
 and runs the rest of the network (the part that mixes the window), then the
 NMS (K1 on the card), on the buffers.  Where the split falls:
 
-* **tips** (YOLOv3T with a plain late join, no correlation): the whole
-  per-frame FPN is frame-pure, so the buffers hold the three pre-join tips
-  (`YOLOv3T.fpn` on `frame_routes`) and the window's work is the join and
-  the output convs (`YOLOv3T.outputs`);
+* **tips** (YOLOv3T with 2D blocks and no correlation, with a plain late
+  join or the output conv-RNN): the whole per-frame FPN is frame-pure, so
+  the buffers hold the three pre-join tips (`YOLOv3T.fpn` on
+  `frame_routes`) and the window's work is the join and the output convs,
+  or the output GRUs over the window of tips (`YOLOv3T.outputs`);
 * **routes** (every other YOLOv3T: early joins, the correlation early or
-  late; and YOLOv3Temporal's plain t_out path): the buffers hold the three
+  late, the tip conv-RNN, 3D and 2+1D blocks; and YOLOv3Temporal's plain
+  t_out path, with any blocks): the buffers hold the three
   per-frame routes and the window's work is the early join or correlation
   (K2 on the card), the FPN and the outputs;
 * **stage1** (YOLOv3Temporal's correlation pyramid and funnel): the only
@@ -64,16 +66,16 @@ _TIP_NAMES = _STAGE_NAMES + ("block0", "block1", "block2", "transition0", "trans
 def _tip_split_ok(model) -> bool:
     """The deep (tip) split is legal when the whole per-frame FPN is
     frame-pure: YOLOv3T with 2D blocks, no correlation, the built-in
-    backbone, and time first mixed at the tips by a plain late join (the
-    JAX package's predicate; its conv-RNN and int8 cases do not build in
-    the port)."""
-    return (
-        type(model) is YOLOv3T
-        and model.corr_pos is None
-        and model.block_conv_type == "2"
-        and model.k_join_pos == "late"
-        and model.k_join_type is not None
-    )
+    backbone, and time first mixed at the tips, by a plain late join or by
+    the output conv-RNN (`rnn_pos="out"`: the blocks and tips run per frame
+    and only the 1x1 output GRU scans the window).  `rnn_pos="late"` takes
+    the route split: its tip GRU scans the window of block routes.  The JAX
+    package's predicate (its int8 cases do not build in the port)."""
+    if not (type(model) is YOLOv3T and model.corr_pos is None and model.block_conv_type == "2"):
+        return False
+    if model.rnn_pos == "out":
+        return True
+    return model.rnn_pos is None and model.k_join_pos == "late" and model.k_join_type is not None
 
 
 def _embed_names(model) -> Tuple[str, ...]:

@@ -75,8 +75,8 @@ pixels, as the JAX package does (ROADMAP.md Queue 3).
 `--window k[,step]` with k > 1 (vid or yt, as the JAX CLI asserts) trains
 YOLOv3T on windows of k frames, every step-th, around each train frame
 (of a VID video or a YouTube-BB clip), labelled by the key frame: the temporal flags `--k_join_type`,
-`--k_join_pos`, `--block_conv_type` ('2'), `--corr_pos` and `--corr_d` (0:
-the model's default) are the JAX CLI's.  Each window's plan is drawn once
+`--k_join_pos`, `--block_conv_type` (2, 3 or 21), `--rnn_pos` (late or out),
+`--corr_pos` and `--corr_d` (0: the model's default) are the JAX CLI's.  Each window's plan is drawn once
 from the key frame and applied to its k frames in the per-sample route
 (one colour map a window); validation takes the windows through the JAX
 CLI's Python route (each frame decoded, resized with interp 9 and
@@ -95,8 +95,8 @@ or `--resume`.
 
 The log line `Speed: %.3f samples/sec` is the JAX CLI's (a rank's samples).
 The run is on the card unless `--device cpu` is given.  Paths this slice
-does not port raise NotImplementedError naming their ROADMAP.md item: 3D and
-2+1D blocks, `--features_dir` and `--trained_on`.
+does not port raise NotImplementedError naming their ROADMAP.md item:
+`--features_dir` and `--trained_on`.
 """
 from __future__ import annotations
 
@@ -211,7 +211,8 @@ def parse_args(argv=None):
     p.add_argument("--window", type=_csv, default=["1", "1"], help="temporal window size and stride (vid, yt)")
     p.add_argument("--k_join_type", default=None, help="way to fuse k: max, mean, cat")
     p.add_argument("--k_join_pos", default=None, help="position of the k fuse: early or late")
-    p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2 (3 and 21: item 6)")
+    p.add_argument("--block_conv_type", default="2", help="conv type of the YOLO blocks: 2, 3 or 21")
+    p.add_argument("--rnn_pos", default=None, help="position of RNN: late or out")
     p.add_argument("--corr_pos", default=None, help="position of the correlation features: early or late")
     p.add_argument("--corr_d", type=int, default=0, help="the d of the correlation; 0: the model's default")
     p.add_argument("--temp", action="store_true", help="the t=5 temporal model (YOLOv3Temporal)")
@@ -231,12 +232,21 @@ def check_ported(args):
         raise ValueError("window > 1 requires one video dataset, vid or yt (train_yolov3.py:775-776)")
     if args.mult_out and any(n != "vid" for n in args.dataset + args.dataset_val):
         raise ValueError("--mult_out labels each frame of a window, which only the vid dataset gives")
-    if args.block_conv_type != "2":
-        raise NotImplementedError("3D and 2+1D blocks (--block_conv_type): see ROADMAP.md Queue 1 item 6")
     if args.features_dir:
         raise NotImplementedError("--features_dir (the head-only model): see ROADMAP.md Queue 1 item 13")
     if args.trained_on:
         raise NotImplementedError("--trained_on (class surgery): see ROADMAP.md Queue 1 item 12")
+
+
+def temporal_kwargs(args) -> dict:
+    """The temporal flags as the factory's keywords (none for the 2D
+    model), as the JAX CLI passes them."""
+    k = window(args)[0]
+    if k <= 1 and not (args.temp or args.mult_out):
+        return {}
+    return dict(k=k if k > 1 else None, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
+                block_conv_type=args.block_conv_type, rnn_pos=args.rnn_pos, corr_pos=args.corr_pos,
+                corr_d=args.corr_d or None, temporal=args.temp, t_out=args.mult_out)
 
 
 def window(args):
@@ -578,12 +588,8 @@ def run(args, device):
             raise RuntimeError(f"experiment dir {exp_dir} has checkpoints; pass --resume or a new --save_prefix")
     os.makedirs(exp_dir, exist_ok=True)
 
-    temporal = {} if k <= 1 and not (args.temp or args.mult_out) else dict(
-        k=k if k > 1 else None, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
-        block_conv_type=args.block_conv_type, corr_pos=args.corr_pos, corr_d=args.corr_d or None,
-        temporal=args.temp, t_out=args.mult_out)
     model = yolo3_darknet53(list(train_dataset.classes), dtype=DTYPES[args.dtype], remat=args.remat,
-                            s2d_stem=args.s2d_stem, **temporal)
+                            s2d_stem=args.s2d_stem, **temporal_kwargs(args))
     init_weights(model, torch.Generator().manual_seed(args.seed))
     restored, start_epoch = resume_params(args.resume, args.start_epoch, exp_dir, variables_of(model))
     if restored is not None:
