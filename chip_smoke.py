@@ -272,7 +272,27 @@ Phases; any failure exits non-zero:
      snippets), then the detect
      twin on its checkpoint, raw outputs and the first batch's detections
      bit-equal to the trained model's; a `{"slice13_rnn_3d": ...}` line and
-     `launches_slice13` in the kernels line.
+     `launches_slice13` in the kernels line;
+ 18. slice 14, the 3D / 2+1D and hierarchical DarkNet backbones
+     (models/darknet3d.py, h_darknet.py, inflate.py; the factory's
+     new_model), 416 px, bf16, 30 VID classes: (a) B=16 windows through the
+     Detector for Darknet3D (2,3,3,2,2,2) and (2,21,21,2,2,2) with the
+     funnel at k=5 and HDarknet (3,3,1,1,1) with the max and the conv merge
+     at t=9 (the merges' kernels drawn from the seed): K1 once a request and
+     bit-equal to the plain NMS on the model's candidates, ms and windows/s
+     (median of 10 after 3 warm, CUDA events), peak memory, one profiled
+     request with the depthwise temporal convs' device time; (b) each model
+     in float32 at 128 px, card vs CPU within rtol=atol=1e-3; (c) a float32
+     train step on B=2 windows at 128 px card vs CPU (TRAIN_TOL) and the
+     B=8-window bf16 step (median of 10 after 3 warm, peak memory, a
+     profiled step) of the 3-D Darknet3D and the max HDarknet; (d) the
+     train twin three steps with --new_model --conv_types 2,3,3,2,2,2
+     --window 5,1 and --pretrained_base_path of a written darknet53
+     `.params` (the inflate branch), and with --hier 3,3,1,1,1 --window 9,1
+     on a VID tree, the detect twin on each checkpoint (raw outputs and the
+     first batch's detections bit-equal to the trained model's), and
+     `--stream --new_model` refused; a `{"slice14_backbones": ...}` line and
+     `launches_slice14` in the kernels line.
 A `{"phase_end_s": ...}` line gives each phase's end in seconds from the
 start.  The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -2572,13 +2592,13 @@ def check_corr_backward(dev):
     return max_err
 
 
-def window_batch(rs, b, size, device):
-    """`train_batch` for windows: (B, 3, S, S, 3) uint8 windows of
+def window_batch(rs, b, size, device, k=WINDOW):
+    """`train_batch` for windows: (B, k, S, S, 3) uint8 windows of
     neighbouring frames of one clip, one normalize-only colour map a
     window, gt row 0 [10, 10, 100, 100] class 1."""
-    clip = rs.randint(0, 255, (b + WINDOW - 1, size, size, 3)).astype(np.uint8)
+    clip = rs.randint(0, 255, (b + k - 1, size, size, 3)).astype(np.uint8)
     batch = train_batch(rs, b, size, "cpu")
-    batch["image"] = torch.from_numpy(np.stack([clip[i:i + WINDOW] for i in range(b)]))
+    batch["image"] = torch.from_numpy(np.stack([clip[i:i + k] for i in range(b)]))
     return {k: v.to(device) for k, v in batch.items()}
 
 
@@ -4277,7 +4297,9 @@ S13_TWIN_VAL_SNIPPETS = 2  # (e): the first two of phase 12's val snippets
 # k_join_type "max" makes this the tip GRU with the late max join
 S13_TWIN_FLAGS = ["--window", f"{WINDOW},1", "--rnn_pos", "late", "--k_join_pos", "late", "--corr_pos", "late",
                   "--corr_d", "4", "--every", str(S13_TWIN_EVERY)]
-S13_SCOPES = {"rnn_gates": ("ConvGRUCell", "ConvLSTMCell"), "rnn_average": ("ConvRNN",)}
+# the named ranges of phase 17's profiles: {scope: [(models.layers class, method)]}
+S13_SCOPES = {"rnn_gates": [("ConvGRUCell", "gates"), ("ConvLSTMCell", "gates")],
+              "rnn_average": [("ConvRNN", "average")]}
 
 
 def s13_model(name, dtype=torch.bfloat16, seed=0) -> YOLOv3T:
@@ -4306,24 +4328,32 @@ def s13_windows(gen, b, size, dev):
 
 
 def s13_profile(label, fn, n, card):
-    """n profiled calls of fn() with the conv-RNN's gate arithmetic
-    (`gates`) and its two directions' mean (`average`) in named ranges:
+    """`scoped_profile` with the conv-RNN's gate arithmetic (`gates`) and
+    its two directions' mean (`average`) in named ranges."""
+    return scoped_profile(label, fn, n, card, S13_SCOPES)
+
+
+def scoped_profile(label, fn, n, card, scopes, when=None):
+    """n profiled calls of fn() with the `models.layers` methods of `scopes`
+    in named ranges (only on the instances `when` holds for, where given):
     wall, device busy and idle share a call, device ops, and each range's
-    device time a call (the kernels its ops launched) and share of the
-    busy time."""
+    device time a call (the kernels its ops launched) and share of the busy
+    time."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from videoyolo_torch.models import layers
 
     saved = []
-    for scope, names in S13_SCOPES.items():
-        for cls in (getattr(layers, n_) for n_ in names):
-            attr = "average" if cls is layers.ConvRNN else "gates"
+    for scope, targets in scopes.items():
+        for cls_name, attr in targets:
+            cls = getattr(layers, cls_name)
             raw = cls.__dict__[attr]
             static = isinstance(raw, staticmethod)
             inner = raw.__func__ if static else raw
 
-            def wrapped(*a, _f=inner, _s=scope, **k):
+            def wrapped(*a, _f=inner, _s=scope, _static=static, **k):
+                if when is not None and not _static and not when(a[0]):
+                    return _f(*a, **k)
                 with record_function(_s):
                     return _f(*a, **k)
 
@@ -4342,22 +4372,21 @@ def s13_profile(label, fn, n, card):
         for cls, attr, raw in saved:
             setattr(cls, attr, raw)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in S13_SCOPES]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in scopes]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     if busy_ms == 0:
         print(f"profile {label}: the profiler recorded no device time; busy share not measured")
         return {}
     scoped = {s: sum(e.device_time_total for e in prof.events()
                      if e.name == s and e.device_type == torch.autograd.DeviceType.CPU) / 1e3 / n
-              for s in S13_SCOPES}
+              for s in scopes}
     out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
            "ops": sum(e.count for e in kernels) // n,
            **{f"{s}_ms": v if v else None for s, v in scoped.items()},
            **{f"{s}_share": v / busy_ms if v else None for s, v in scoped.items()}}
     print(f"profile {label} x{n} on {card} (profiler on): wall {wall_ms:.3f} ms a call, device busy {busy_ms:.3f} ms, "
-          f"idle share {out['idle_share']:.3f}, {out['ops']} device ops; the GRU gates "
-          f"{out['rnn_gates_ms']} ms ({out['rnn_gates_share']} of busy), the directions' mean "
-          f"{out['rnn_average_ms']} ms ({out['rnn_average_share']})")
+          f"idle share {out['idle_share']:.3f}, {out['ops']} device ops; "
+          + ", ".join(f"{s} {out[f'{s}_ms']} ms ({out[f'{s}_share']} of busy)" for s in scopes))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms a call  {e.count // n:4d}x  {e.key[:90]}")
     return out
@@ -4657,6 +4686,292 @@ def data_slice13(dev, card):
     return figures, k1["total"], k2["total"]
 
 
+# phase 18: slice 14, the 3D / 2+1D and hierarchical DarkNet backbones
+# (videoyolo_torch/models/darknet3d.py, h_darknet.py, inflate.py; the
+# factory's new_model) through the factory, both twins and the train step
+# ---------------------------------------------------------------------------
+
+S14_CLASSES = 30  # ImageNet-VID's
+S14_MODELS = {  # name: (the factory's new_model keywords, frames a window)
+    "d3d_2_3_3": (dict(k=5, conv_types=(2, 3, 3, 2, 2, 2)), 5),
+    "d3d_2_21_21_funnel": (dict(k=5, conv_types=(2, 21, 21, 2, 2, 2), funnel_time=True), 5),
+    "hdk_3_3_max": (dict(k=9, hierarchical=(3, 3, 1, 1, 1), h_join_type="max"), 9),
+    "hdk_3_3_conv": (dict(k=9, hierarchical=(3, 3, 1, 1, 1), h_join_type="conv"), 9),
+}
+S14_BATCH = 16
+S14_WARM, S14_TIMED = 3, 10
+S14_F32_SIZE = 128
+S14_TRAIN = ("d3d_2_3_3", "hdk_3_3_max")  # (c); from its zero init the conv merge overflows (ROADMAP.md Queue 3)
+S14_TRAIN_WINDOWS = 8
+S14_F32_WINDOWS = 2
+S14_TWIN_EVERY = 8  # (d): 24 train windows (3 steps at B=8), 8 val windows (one batch)
+S14_TWINS = {  # (d): the flags as a user of the JAX CLI passes them; the Darknet3D twin inflates a written base
+    "d3d": ["--window", "5,1", "--new_model", "--conv_types", "2,3,3,2,2,2"],
+    "hdk": ["--window", "9,1", "--new_model", "--hier", "3,3,1,1,1", "--h_join_type", "max", "--nopretrained_cnn"],
+}
+S14_SCOPES = {"depthwise_temporal": [("Conv3d", "forward")]}  # the Conv3d calls with groups > 1
+
+
+def s14_model(name, dtype=torch.bfloat16, seed=0):
+    """The phase's model `name` from the factory and a seeded init; the
+    conv merges' kernels are drawn too (N(0, 1/3)): from their zero init
+    every feature after a merge is zero, as a trained model's is not."""
+    model = build_model(YoloConfig(num_classes=S14_CLASSES, new_model=True, dtype=dtype, **S14_MODELS[name][0]))
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(model, gen)
+    with torch.no_grad():
+        for n_, p in model.named_parameters():
+            if ".conv1d_" in n_ and n_.endswith("Conv_0.weight"):
+                p.copy_(torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5)
+    return model
+
+
+class S14Detector(Detector):
+    """`Detector` (normalise, forward, top-k, K1, clip) over `s14_model`."""
+
+    def __init__(self, name, dtype, size, device, seed=0):
+        self.name = name
+        kw, _ = S14_MODELS[name]
+        super().__init__(YoloConfig(num_classes=S14_CLASSES, new_model=True, **kw), dtype=dtype, data_shape=size,
+                         device=device, seed=seed)
+
+    def _float_model(self, cfg, variables, seed):
+        return s14_model(self.name, cfg.dtype, seed)
+
+
+def s14_windows(gen, name, b, size, dev):
+    return torch.randint(0, 256, (b, S14_MODELS[name][1], size, size, 3), generator=gen, dtype=torch.uint8,
+                         device=dev)
+
+
+def s14_serve(name, dev, card, gen):
+    """(a): B=16 windows at 416 px bf16 through the Detector: K1 once a
+    request and bit-equal to the plain NMS on the model's candidates, ms and
+    windows/s (median of 10 after 3 warm, CUDA events), peak memory, one
+    profiled request with the depthwise temporal convs' device time.
+    Returns (figures, K1 launches)."""
+    t0 = time.perf_counter()
+    det = S14Detector(name, torch.bfloat16, SIZE, "cuda")
+    t = S14_MODELS[name][1]
+    figures = dict(config=S14_MODELS[name][0], windows=S14_BATCH, frames=t, build_s=time.perf_counter() - t0)
+    x = s14_windows(gen, name, S14_BATCH, SIZE, dev)
+    nms_greedy.launches = 0
+    outs = det(x)
+    torch.cuda.synchronize()
+    k1 = nms_greedy.launches
+    check(k1 == 1, f"slice 14 {name}: K1 launches a request {k1}, expected 1")
+    check_detections(f"slice 14 {name}", [outs], [S14_BATCH], classes=S14_CLASSES)
+    with torch.inference_mode():
+        boxes, scores = det.model(det._normalized(x))
+        cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+        got = nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+        want = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    # (the comparison with the plain version is not counted)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), f"slice 14 {name}: K1 on its candidates differs from the "
+          "plain NMS")
+    figures["k1_equal_plain"] = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_greedy.launches = 0
+    ms = statistics.median(cuda_time_ms(lambda: det(x), iters=S14_TIMED, warmup=S14_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    prof = scoped_profile(f"slice 14 {name} B={S14_BATCH} windows", lambda: det(x), 1, card, S14_SCOPES,
+                          when=lambda conv: conv.groups > 1)
+    n_req = S14_TIMED + S14_WARM + 2
+    check(nms_greedy.launches == n_req, f"slice 14 {name}: K1 launches {nms_greedy.launches} over {n_req} requests")
+    k1 += nms_greedy.launches
+    figures.update(ms=ms, windows_s=S14_BATCH / ms * 1e3, frames_s=S14_BATCH * t / ms * 1e3, peak_gib=peak / 2**30,
+                   profile=prof, idle_share_events=max(0.0, 1 - prof["busy_ms"] / ms) if prof else None)
+    print(f"slice 14 {name} B={S14_BATCH} windows of {t} at {SIZE} px bf16 ({S14_CLASSES} classes) on {card}: "
+          f"{figures['windows_s']:.1f} windows/s, {figures['frames_s']:.1f} frames/s ({ms:.3f} ms a request, median "
+          f"of {S14_TIMED} after {S14_WARM} warm), peak memory {peak / 2**30:.2f} GiB; K1 1 a request, bit-equal to "
+          f"the plain NMS")
+    del det, x
+    torch.cuda.empty_cache()
+    return figures, k1
+
+
+def s14_f32(dev, card, gen):
+    """(b): each model in float32 at 128 px on one window, its raw outputs
+    on the card against the CPU's from the same seed (rtol=atol=1e-3)."""
+    s, out = S14_F32_SIZE, {}
+    for name in S14_MODELS:
+        x = s14_windows(gen, name, 1, s, dev)
+        det = S14Detector(name, torch.float32, s, "cuda", seed=1)
+        cpu = copy.deepcopy(det.model).cpu()
+        with torch.inference_mode():
+            xn = det._normalized(x)
+            raw = [[t.cpu() for t in det.model(xn)], list(cpu(xn.cpu()))]
+        errs = {n_: float((a - r).abs().max()) for n_, a, r in zip(("boxes", "scores"), *raw)}
+        check(all(bool(torch.allclose(a, r, rtol=1e-3, atol=1e-3)) for a, r in zip(*raw)),
+              f"slice 14 {name} float32 at {s} px, card vs CPU: max abs errors {errs}")
+        out[name] = dict(card_vs_cpu_max_abs=errs)
+        print(f"slice 14 {name} float32 at {s} px, card vs CPU: max abs errors {errs} (allclose rtol=atol=1e-3)")
+        del det, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def s14_train(name, dev, card):
+    """(c): one float32 step on B=2 windows at 128 px card vs CPU
+    (TRAIN_TOL), then the B=8-window 416-px bf16 step (median of 10 after 3
+    warm), its peak memory and one profiled step with the depthwise
+    temporal convs' device time."""
+    t = S14_MODELS[name][1]
+    figures = {"card_vs_cpu": check_train_card_vs_cpu(
+        f"slice 14 {name}", s14_model(name, dtype=None),
+        lambda device: window_batch(np.random.RandomState(1), S14_F32_WINDOWS, S14_F32_SIZE, device, k=t),
+        S14_CLASSES, f"{S14_F32_SIZE} px, B={S14_F32_WINDOWS} windows of {t}")}
+    torch.cuda.empty_cache()
+    model = s14_model(name).to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+    step = make_train_step(model, num_classes=S14_CLASSES)
+    batch = window_batch(np.random.RandomState(0), S14_TRAIN_WINDOWS, SIZE, dev, k=t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=S14_TIMED, warmup=S14_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    prof = scoped_profile(f"slice 14 {name} train B={S14_TRAIN_WINDOWS} windows", lambda: step(state, batch), 1,
+                          card, S14_SCOPES, when=lambda conv: conv.groups > 1)
+    check(all(np.isfinite(v) for v in losses.values()), f"slice 14 {name} train step losses not finite: {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"slice 14 {name}: parameters not finite after {S14_TIMED + S14_WARM + 3} steps")
+    figures.update(ms=ms, windows_s=S14_TRAIN_WINDOWS / ms * 1e3, frames_s=S14_TRAIN_WINDOWS * t / ms * 1e3,
+                   peak_gib=peak / 2**30, profile=prof,
+                   idle_share_events=max(0.0, 1 - prof["busy_ms"] / ms) if prof else None, losses=losses)
+    print(f"slice 14 {name} train step B={S14_TRAIN_WINDOWS} windows of {t} at {SIZE} px bf16 on {card}: "
+          f"{figures['windows_s']:.1f} windows/s, {figures['frames_s']:.1f} frames/s ({ms:.3f} ms a step, median of "
+          f"{S14_TIMED} after {S14_WARM} warm), peak memory {peak / 2**30:.2f} GiB; losses {losses}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return figures
+
+
+def s14_twins(dev, card):
+    """(d): on a VID tree (phase 12's train snippets, two val snippets) the
+    train twin three steps with each backbone (B=8, 416 px, bf16; the
+    Darknet3D one with --pretrained_base_path, through the inflate branch),
+    the detect twin on each checkpoint (its raw outputs and the first
+    batch's detections bit-equal to the trained model's), and `--stream
+    --new_model` refused.  Returns (figures, K1 launches)."""
+    workers = os.cpu_count() or 1
+    figures, k1 = {}, 0
+    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
+        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+        base = f"{tmp}/darknet53.params"
+        write_darknet53_params(base, seed=14)
+        vid = f"{tmp}/ImageNetVID/ILSVRC"
+        for twin, extra in S14_TWINS.items():
+            if "--nopretrained_cnn" not in extra:
+                extra = extra + ["--pretrained_base_path", base]
+            window = (int(extra[1].split(",")[0]), 1)
+            val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S14_TWIN_EVERY, window=window,
+                                       inference=True)
+            train = ImageNetVidDetection(root=vid, splits=[(2017, "train")], every=S14_TWIN_EVERY, window=window)
+            flags = ["--dataset", "vid", "--dataset_root", tmp, "--data_shape", str(SIZE), "--dtype", "bf16",
+                     "--num_workers", str(workers), "--batch_size", str(S14_TRAIN_WINDOWS), "--every",
+                     str(S14_TWIN_EVERY)] + extra
+            exp = f"{tmp}/exp_{twin}"
+            nms_greedy.launches = 0
+            speed.clear()
+            t0 = time.perf_counter()
+            model, stats = train_yolov3.main(flags + ["--no_random_shape", "--epochs", "1", "--save_prefix", "0000",
+                                                      "--experiment_root", exp, "--save_interval", "1",
+                                                      "--log_interval", "1"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_steps, n_val = len(train) // S14_TRAIN_WINDOWS, -(-len(val) // S14_TRAIN_WINDOWS)
+            check(type(model) is YOLOv3T and model.has_backbone, f"slice 14 {twin} train twin: not the new_model")
+            check(nms_greedy.launches == n_val, f"slice 14 {twin} train twin: K1 launches {nms_greedy.launches}, "
+                  f"expected {n_val}")
+            check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+                  f"slice 14 {twin} train twin: parameters not finite")
+            k1 += nms_greedy.launches
+            ep = stats["epochs"][0]
+            fig = {"flags": extra, "steps": len(ep["steps"]), "samples_s": ep["samples_s"], "seconds": secs,
+                   "val": stats["val"], "logged": list(speed)}
+            print(f"slice 14 train twin ({' '.join(extra)}, bf16, B={S14_TRAIN_WINDOWS}, {SIZE} px, {n_steps} steps, "
+                  f"{len(val)} val windows) on {card}: {ep['samples_s']:.1f} windows/s over the epoch, {secs:.2f} s "
+                  f"with the model's build; K1 {n_val}")
+            ckpt = f"{exp}/0000/yolo3_darknet53_vid_0000.params"
+            check(os.path.exists(ckpt), f"the slice 14 {twin} train twin wrote no checkpoint {ckpt}")
+
+            nms_greedy.launches = 0
+            t0 = time.perf_counter()
+            dflags = [f for f in flags if f not in ("--nopretrained_cnn",)]
+            if "--pretrained_base_path" in dflags:
+                i = dflags.index("--pretrained_base_path")
+                dflags = dflags[:i] + dflags[i + 2:]
+            preds = detect.main(dflags + ["--model_path", ckpt, "--save_dir", f"{tmp}/res", "--save_prefix", twin,
+                                          "--metrics", "voc"])
+            torch.cuda.synchronize()
+            dsecs = time.perf_counter() - t0
+            check(nms_greedy.launches == n_val, f"slice 14 {twin} detect twin: K1 launches {nms_greedy.launches}")
+            k1 += nms_greedy.launches
+            args = detect.parse_args(dflags)
+            cfg = detect.dataset_config(args, S14_CLASSES)
+            twin_det = Detector(cfg, detect.load_model_variables(ckpt, cfg), dtype=torch.bfloat16, data_shape=SIZE)
+            tf = YOLO3VideoInferenceTransform(SIZE, SIZE)
+            idxs = range(min(S14_TRAIN_WINDOWS, len(val)))
+            images = torch.from_numpy(np.stack([
+                tf(np.stack([native.decode(p) for p in val.window_paths(i)]), val.label_and_size(i)[0])[0]
+                for i in idxs])).to(dev)
+            model.eval()
+            with torch.inference_mode():
+                raw_twin, raw_trained = twin_det.model(twin_det._normalized(images)), model(images)
+            check(all(torch.equal(a, b) for a, b in zip(raw_twin, raw_trained)),
+                  f"slice 14 {twin}: the raw outputs of the checkpoint's model differ from the trained model's")
+            nms_greedy.launches = 0
+            ids, sc, bb = (a.cpu().numpy() for a in make_eval_step(model)(images))
+            k1 += nms_greedy.launches
+            ref = {}
+            for n, i in enumerate(idxs):
+                collect_boxes(ref, val.sample_path(i), ids[n], sc[n], np.clip(bb[n], 0, SIZE), SIZE)
+            check(all(preds.get(val.sample_path(i), []) == ref.get(val.sample_path(i), []) for i in idxs),
+                  f"slice 14 {twin}: the detect twin's detections from the checkpoint differ from the trained model's")
+            try:
+                detect.main(dflags + ["--stream", "--save_dir", f"{tmp}/res", "--save_prefix", f"{twin}_stream"])
+                refused = False
+            except ValueError as e:
+                refused = "built-in per-frame backbone" in str(e)
+            check(refused, f"slice 14 {twin}: the detect twin's --stream --new_model was not refused")
+            fig["detect_twin"] = {"windows": len(val), "seconds": dsecs,
+                                  "detections": sum(map(len, preds.values())),
+                                  "voc": open(f"{tmp}/res/{twin}/voc.txt").read().splitlines()[-1]}
+            figures[twin] = fig
+            print(f"slice 14 detect twin from the {twin} checkpoint (B={S14_TRAIN_WINDOWS}, {len(val)} windows, "
+                  f"{dsecs:.2f} s, model load included) on {card}: raw outputs and the first batch's "
+                  f"{sum(map(len, ref.values()))} detections equal the trained model's bit for bit; --stream refused")
+            del model, twin_det, images
+            torch.cuda.empty_cache()
+    return figures, k1
+
+
+def data_slice14(dev, card):
+    """Phase 18.  Returns (the phase's figures, K1's launches on its
+    paths)."""
+    figures, k1, seconds = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    t0 = time.perf_counter()
+    for name in S14_MODELS:
+        figures[name], k1[name] = s14_serve(name, dev, card, gen)
+    seconds["a"] = time.perf_counter() - t0
+    figures["f32"] = s14_f32(dev, card, gen)
+    seconds["b"] = time.perf_counter() - t0
+    for name in S14_TRAIN:
+        figures[name]["train_step"] = s14_train(name, dev, card)
+    seconds["c"] = time.perf_counter() - t0
+    figures["twins"], k1["twins"] = s14_twins(dev, card)
+    seconds["d"] = time.perf_counter() - t0
+    figures["seconds_from_start"] = seconds
+    print(f"slice 14 parts' ends, seconds from the phase's start: {seconds}")
+    k1["total"] = sum(k1.values())
+    figures["k1"] = k1
+    print(f"slice 14 launches: K1 {k1}")
+    return figures, k1["total"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -4763,6 +5078,11 @@ def main() -> int:
     s13_figures, k1_slice13, k2_slice13 = data_slice13(dev, card)
     phase_s["17"] = time.perf_counter() - t_start
 
+    # 18. slice 14: the 3D / 2+1D and hierarchical DarkNet backbones through the factory and both twins
+    torch.cuda.empty_cache()
+    s14_figures, k1_slice14 = data_slice14(dev, card)
+    phase_s["18"] = time.perf_counter() - t_start
+
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
         plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
@@ -4797,6 +5117,7 @@ def main() -> int:
             "launches_slice11": k1_slice11,
             "launches_slice12": k1_slice12,
             "launches_slice13": k1_slice13,
+            "launches_slice14": k1_slice14,
         },
         {
             "name": "cost_volume",
@@ -4895,6 +5216,7 @@ def main() -> int:
     print(json.dumps({"slice11_dp": dp_figures}))
     print(json.dumps({"slice12_stream": stream_figures}))
     print(json.dumps({"slice13_rnn_3d": s13_figures}))
+    print(json.dumps({"slice14_backbones": s14_figures}))
     print(json.dumps({"phase_end_s": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

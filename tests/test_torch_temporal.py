@@ -287,9 +287,14 @@ def test_factory_raises_on_unported_axes():
             build_model(YoloConfig(num_classes=2, k=3, corr_pos="early", corr_d=2, **cfg))
     with pytest.raises(NotImplementedError, match="item 7"):
         YOLOv3T(num_classes=2, k=3, backbone=torch.nn.Identity())
-    for cfg in (YoloConfig(num_classes=2, new_model=True), YoloConfig(num_classes=2, k=3, motion_stream="flownet")):
-        with pytest.raises(NotImplementedError, match="items 7 and 12"):
-            build_model(cfg)
+    # the new_model family (Darknet3D, HDarknet) builds (tests/test_torch_backbones.py);
+    # the two-stream backbones still raise
+    with torch.device("meta"):
+        for cfg in (YoloConfig(num_classes=2, new_model=True),
+                    YoloConfig(num_classes=2, new_model=True, hierarchical=(3, 3, 1, 1, 1), h_join_type="conv")):
+            assert isinstance(build_model(cfg), YOLOv3T) and build_model(cfg).has_backbone
+    with pytest.raises(NotImplementedError, match="items 7 and 12"):
+        build_model(YoloConfig(num_classes=2, k=3, motion_stream="flownet"))
     with pytest.raises(NotImplementedError, match="item 9a"):
         YOLOv3T(num_classes=2, k=3, quant=True)
     # the streaming split is ported (tests/test_torch_streaming.py): feed="tips"

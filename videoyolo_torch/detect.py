@@ -92,7 +92,13 @@ late).  It takes any `--window` model (YOLOv3T's flags, or `--temp` /
 its own offset's detections: the last for trail, the middle for center),
 on vid, yt or ad-hoc JPEG inputs; the cache is the flat `pred/` of one
 file a frame.  It refuses `--skip_existing` (the buffers need consecutive
-frames) and `--quantize` (item 9a).
+frames), `--quantize` (item 9a) and `--new_model`.
+`--new_model` (detect_yolo3.py:45-47, 290-298) builds YOLOv3T over a
+backbone that returns the routes itself: `Darknet3D` with `--conv_types`
+(2, 3 or 21 for the stem and each of the five stages) on windows of
+`--window` k frames, or, with `--hier` (e.g. 3,3,1,1,1 on `--window 9,1`),
+`HDarknet`, merging groups of 3 frames by `--h_join_type` max or conv; one
+set of detections a window, the key frame's.
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -106,6 +112,8 @@ Without `--dataset`, the seeded synthetic mode:
         --window 5,1 --temp --mult_out --corr_pos early --corr_d 4   # YOLOv3Temporal windows
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
         --window 3,1 --k_join_type max --k_join_pos late --stream   # 32 streams of a clip
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
+        --window 5,1 --new_model --conv_types 2,3,3,2,2,2   # Darknet3D (--hier 3,3,1,1,1 --window 9,1: HDarknet)
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
 
 The model takes seeded random weights.  Each request is a batch of uint8
@@ -183,6 +191,11 @@ def parse_args(argv=None):
     p.add_argument("--temp", action="store_true", help="the t=5 temporal model (YOLOv3Temporal)")
     p.add_argument("--mult_out", action="store_true", help="one output a frame of the window (t_out)")
     p.add_argument("--offset", type=int, default=0, help="with --mult_out, the window offset to evaluate: -2..2")
+    p.add_argument("--new_model", action="store_true",
+                   help="YOLOv3T over a backbone that returns the routes: Darknet3D, or HDarknet with --hier")
+    p.add_argument("--conv_types", default="2,2,2,2,2,2", help="Darknet3D's conv types: the stem and 5 stages")
+    p.add_argument("--hier", default="1,1,1,1,1", help="HDarknet's merge windows a level")
+    p.add_argument("--h_join_type", default=None, help="HDarknet's merge: max or conv")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
                    help="int8 serving: the fused int8-end-to-end YOLOv3")
     p.add_argument("--stream", action="store_true",
@@ -221,9 +234,21 @@ def _requests(rs, num, b, s, k, stride):
         yield np.stack([clip[i : i + span : stride] for i in range(b)])
 
 
+def backbone_kwargs(args) -> dict:
+    """--new_model's backbone flags as the factory's keywords (none
+    without it), as detect_yolo3.py passes them."""
+    if not args.new_model:
+        return {}
+    return dict(new_model=True, conv_types=tuple(int(c) for c in args.conv_types.split(",")),
+                hierarchical=tuple(int(h) for h in args.hier.split(",")), h_join_type=args.h_join_type)
+
+
 def check_stream_args(args, window) -> None:
     """detect_yolo3.py's --stream asserts (:960-968, 1008-1011), and the int8
     stream deferred."""
+    if args.new_model:
+        raise ValueError("--stream needs the built-in per-frame backbone: --new_model's Darknet3D and HDarknet own "
+                         "their time mixing (the JAX package's stream asserts so)")
     if window[0] <= 1:
         raise ValueError("--stream needs a temporal window (--window k,1)")
     if window[1] != 1:
@@ -251,7 +276,7 @@ def main(argv=None):
         k=k if temporal else None,
         k_join_type=args.k_join_type, k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type,
         rnn_pos=args.rnn_pos, corr_pos=args.corr_pos, corr_d=args.corr_d if args.corr_pos else None,
-        temporal=args.temp, t_out=args.mult_out,
+        temporal=args.temp, t_out=args.mult_out, **backbone_kwargs(args),
     )
     if args.quantize and args.quantize != "int8":
         raise NotImplementedError(f"--quantize {args.quantize} is deferred, see ROADMAP.md Queue 1 item 9a")
@@ -657,15 +682,17 @@ def detect_stream(stream: StreamingDetector, dataset, loader, shape: int, anchor
 
 def dataset_config(args, num_classes: int) -> YoloConfig:
     """The dataset path's model (detect_yolo3.py:270-301): YOLOv3 with the
-    standard stem, YOLOv3T with the temporal flags under --window k > 1, or
-    YOLOv3Temporal with --temp or --mult_out."""
+    standard stem, YOLOv3T with the temporal flags under --window k > 1,
+    YOLOv3Temporal with --temp or --mult_out, or YOLOv3T over Darknet3D or
+    HDarknet with --new_model."""
     k = int(args.window.split(",")[0])
-    if k <= 1 and not (args.temp or args.mult_out):
+    if k <= 1 and not (args.temp or args.mult_out or args.new_model):
         return YoloConfig(num_classes=num_classes)
     return YoloConfig(num_classes=num_classes, k=k if k > 1 else None, k_join_type=args.k_join_type,
                       k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type, rnn_pos=args.rnn_pos,
                       corr_pos=args.corr_pos,
-                      corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out)
+                      corr_d=args.corr_d if args.corr_pos else None, temporal=args.temp, t_out=args.mult_out,
+                      **backbone_kwargs(args))
 
 
 def main_dataset(args):

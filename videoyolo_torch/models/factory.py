@@ -7,20 +7,25 @@ and `rnn_pos`, and with `temporal` or `t_out` the t=5 YOLOv3Temporal (t = k
 or 5, conv = block_conv_type, corr_d or 0).  Since k_join_type defaults to
 "max", a late join always pre-empts the late correlation here, as in the
 JAX factory: a YOLOv3T with corr_pos="late" and no join is built directly.
-The motion-stream and 3D-backbone branches raise and name the ROADMAP item
-that brings them.
+`new_model` builds YOLOv3T over a backbone that returns the routes itself:
+`HDarknet(hierarchical, h_join_type or "max")` with k = 1 when
+hierarchical[0] > 1, else `Darknet3D(conv_types, funnel_time)` with k = k or
+1, the temporal flags passed as they are (factory.py:104-135).  The
+motion-stream branch raises and names the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
+from .darknet3d import Darknet3D
+from .h_darknet import HDarknet
 from .yolo3 import YOLOv3
 from .yolo3_temporal import YOLOv3T, YOLOv3Temporal
 
-__all__ = ["YoloConfig", "build_model", "yolo3_darknet53", "yolo3_no_backbone"]
+__all__ = ["YoloConfig", "build_model", "yolo3_darknet53", "yolo3_3ddarknet", "yolo3_no_backbone"]
 
-_FAMILIES = "the other backbones come with a later slice, see ROADMAP.md Queue 1 items 7 and 12"
+_FAMILIES = "they come with a later slice, see ROADMAP.md Queue 1 items 7 and 12"
 
 
 @dataclass(frozen=True)
@@ -40,11 +45,15 @@ class YoloConfig:
     motion_stream: Optional[str] = None  # flownet | r21d
     agnostic: bool = False
     new_model: bool = False
+    hierarchical: Sequence[int] = (1, 1, 1, 1, 1)
+    h_join_type: Optional[str] = None  # max | conv
     temporal: bool = False
     t_out: bool = False
     remat: bool = False
     s2d_stem: bool = False
     pad_stem: bool = False  # zero-pad the RGB input to 4 channels
+    conv_types: Sequence[int] = (2, 2, 2, 2, 2, 2)
+    funnel_time: bool = False
     dtype: object = None
 
 
@@ -59,7 +68,17 @@ def build_model(cfg: YoloConfig):
             t_out=cfg.t_out, agnostic=cfg.agnostic, dtype=cfg.dtype,
         )
     if cfg.new_model:
-        raise NotImplementedError(f"3D and hierarchical darknets: {_FAMILIES}")
+        if cfg.hierarchical[0] > 1:
+            backbone = HDarknet(windows=tuple(cfg.hierarchical), merge_type=cfg.h_join_type or "max", dtype=cfg.dtype)
+            k = 1
+        else:
+            backbone = Darknet3D(conv_types=tuple(cfg.conv_types), funnel_time=cfg.funnel_time, dtype=cfg.dtype)
+            k = cfg.k or 1
+        return YOLOv3T(
+            num_classes=cfg.num_classes, k=k, k_join_type=cfg.k_join_type, k_join_pos=cfg.k_join_pos,
+            block_conv_type=cfg.block_conv_type, rnn_pos=cfg.rnn_pos, corr_pos=cfg.corr_pos, corr_d=cfg.corr_d,
+            backbone=backbone, agnostic=cfg.agnostic, dtype=cfg.dtype,
+        )
     if cfg.k is not None and cfg.k > 1:
         return YOLOv3T(
             num_classes=cfg.num_classes,
@@ -83,6 +102,13 @@ def yolo3_darknet53(classes, dtype=None, **kwargs) -> YOLOv3:
     """`classes` may be a list of names or an int count."""
     num = classes if isinstance(classes, int) else len(classes)
     return build_model(YoloConfig(num_classes=num, dtype=dtype, **kwargs))
+
+
+def yolo3_3ddarknet(classes, conv_types=(2, 2, 2, 2, 2, 2), agnostic=False, dtype=None, **kwargs) -> YOLOv3T:
+    """The 3-D darknet detector (factory.py:138-145)."""
+    num = classes if isinstance(classes, int) else len(classes)
+    return build_model(YoloConfig(num_classes=num, new_model=True, conv_types=tuple(conv_types), agnostic=agnostic,
+                                  dtype=dtype, **kwargs))
 
 
 def yolo3_no_backbone(classes, agnostic: bool = False, dtype=None) -> YOLOv3:

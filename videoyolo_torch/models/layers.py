@@ -28,6 +28,7 @@ upsample) are torch ops in the JAX package's order of operations.
 from __future__ import annotations
 
 from contextlib import contextmanager
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -741,6 +742,13 @@ class TemporalPooling(nn.Module):
         if self.type == "max":
             return windows.amax(dim=-1)
         return windows.sum(dim=-1) / window
+
+
+def nhwc(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """An NCHW module or function on an NHWC tensor, per frame when 5-D."""
+    if x.dim() == 5:
+        return time_distributed(partial(nhwc, fn), x)
+    return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def time_distributed(module_call: Callable, x: torch.Tensor, *args, **kwargs):

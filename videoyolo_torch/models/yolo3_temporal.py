@@ -47,15 +47,21 @@ window of tips, pooled over time.  The 3D and 2+1D blocks
 detection blocks over the window, (k, k, k) or (1, k, k) then (k, 1, 1)
 cells; the transitions stay per frame.
 
+With a `backbone` (`Darknet3D` or `HDarknet`, the factory's `new_model`),
+YOLOv3T takes the backbone's three 4-D routes in place of the Darknet-53
+stages, and its FPN and heads run in 2D on them, as the JAX package's do:
+no join or correlation runs, whatever the flags.
+
 The configurations whose JAX forward is at fault raise ValueError (ROADMAP.md
-Queue 3): the conv-RNN or 3-D blocks after an early correlation, and the
-3-D funnel.  Not ported yet (NotImplementedError naming the ROADMAP.md
-item): custom backbones (item 7) and int8 cells (item 9a).
+Queue 3): the conv-RNN or 3-D blocks after an early correlation or on a
+backbone's 4-D routes, and the 3-D funnel.  Not ported yet
+(NotImplementedError naming the ROADMAP.md item): the two-stream and other
+backbones (item 7) and int8 cells (item 9a).
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
@@ -63,8 +69,10 @@ from torch import nn
 from ..ops.anchors import DEFAULT_ANCHORS, DEFAULT_STRIDES
 from ..ops.correlation import num_corr_channels
 from .darknet import DARKNET53_CHANNELS, Darknet53Stage1, DarknetStage
+from .darknet3d import Darknet3D
+from .h_darknet import HDarknet
 from .layers import (
-    Conv21D, ConvBNLeaky, ConvBNLeaky3D, ConvRNN, Corr, TemporalPooling, time_distributed, upsample2x,
+    Conv21D, ConvBNLeaky, ConvBNLeaky3D, ConvRNN, Corr, TemporalPooling, nhwc, time_distributed, upsample2x,
 )
 from .yolo3 import FPN_CHANNELS, YOLOOutput, decode_predictions
 
@@ -81,13 +89,6 @@ def _fold_time_into_channels(x: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) -> (B, H, W, T*C), channel t*C + c (the 'cat' join)."""
     b, t, h, w, c = x.shape
     return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
-
-
-def _nhwc(fn: Callable, x: torch.Tensor) -> torch.Tensor:
-    """An NCHW module or function on an NHWC tensor, per frame when 5-D."""
-    if x.dim() == 5:
-        return time_distributed(partial(_nhwc, fn), x)
-    return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class _TCell(nn.Module):
@@ -112,7 +113,7 @@ class _TCell(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv_type == "2":
-            return _nhwc(self.ConvBNLeaky_0, x.to(self.dtype))
+            return nhwc(self.ConvBNLeaky_0, x.to(self.dtype))
         if x.dim() != 5:
             raise ValueError(f"a 3-D cell takes a window (B, T, H, W, C), got {tuple(x.shape)}")
         return next(iter(self.children()))(x)
@@ -215,7 +216,8 @@ def _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, co
 
 class YOLOv3T(nn.Module):
     """k-frame temporal YOLOv3 (yolo3_temporal.py:166-375) with the built-in
-    Darknet-53 stages.
+    Darknet-53 stages, or over a `backbone` (`Darknet3D`, `HDarknet`) that
+    returns the three routes itself from its window.
 
     Input (B, k, H, W, 3) NHWC for k > 1 ((B, H, W, 3) for k = 1), or with
     `feed="tips"` the three (B, k, H/s, W/s, C) windows of pre-join tips,
@@ -250,8 +252,11 @@ class YOLOv3T(nn.Module):
         _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, corr_d)
         if quant:
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
-        if backbone is not None:
-            raise NotImplementedError(f"custom and two-stream backbones: {_LATER} 7")
+        if backbone is not None and not isinstance(backbone, (Darknet3D, HDarknet)):
+            raise NotImplementedError(f"two-stream and other backbones than Darknet3D and HDarknet: {_LATER} 7")
+        if backbone is not None and (rnn_pos is not None or block_conv_type != "2"):
+            raise ValueError("the conv-RNN and 3-D blocks scan a window, and a backbone's routes are 4-D (the JAX "
+                             "package reads their batch or rows as time); not built")
         if feed not in (None, "tips"):
             raise ValueError(f"YOLOv3T's feed must be None or 'tips', got {feed!r}")
         if feed == "tips" and (corr_pos is not None or block_conv_type != "2"):
@@ -263,9 +268,13 @@ class YOLOv3T(nn.Module):
         self.k_join_type, self.k_join_pos, self.rnn_pos = k_join_type, k_join_pos, rnn_pos
         self.corr_pos, self.block_conv_type, self.feed = corr_pos, block_conv_type, feed
         self.agnostic = agnostic
-        temporal = self.k > 1
+        # a backbone's routes are 4-D: no join or correlation runs on them
+        temporal = self.k > 1 and backbone is None
 
-        if feed is None:
+        self.has_backbone = feed is None and backbone is not None
+        if self.has_backbone:
+            self.backbone = backbone
+        elif feed is None:
             self.stage1 = Darknet53Stage1(dtype=dtype)
             self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
             self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
@@ -330,11 +339,13 @@ class YOLOv3T(nn.Module):
     def frame_routes(self, x: torch.Tensor):
         """The Darknet-53 stages, per frame of a window: the three NHWC
         routes, (B, k, H/s, W/s, C) for s = 8, 16, 32 ((B, H/s, W/s, C) for
-        one frame)."""
+        one frame); with a backbone, its three 4-D routes."""
+        if self.has_backbone:
+            return list(self.backbone(x))
         temporal = self.k > 1 and x.dim() == 5
         routes = []
         y = x
-        for stage in (self.stage1, partial(_nhwc, self.stage2), partial(_nhwc, self.stage3)):
+        for stage in (self.stage1, partial(nhwc, self.stage2), partial(nhwc, self.stage3)):
             y = time_distributed(stage, y) if temporal else stage(y)
             routes.append(y)
         return routes
@@ -363,7 +374,7 @@ class YOLOv3T(nn.Module):
                 y, tip = getattr(self, f"block{i}")(y)
             tips.append(tip)
             if i < 2:
-                y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
+                y = nhwc(upsample2x, nhwc(getattr(self, f"transition{i}"), y))
                 # a float32 correlation route meets the bf16 cells: cast it
                 # here, as the next conv would
                 y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
@@ -402,7 +413,7 @@ def _finish(level_outs, training: bool, agnostic: bool):
 def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A 2D cell on an NHWC map or window, its input cast to `dtype` (as
     flax's convs cast a float32 correlation route)."""
-    return _nhwc(cell, x.to(dtype))
+    return nhwc(cell, x.to(dtype))
 
 
 class YOLOv3Temporal(nn.Module):
@@ -498,8 +509,8 @@ class YOLOv3Temporal(nn.Module):
         """Stages 1-3, per frame of a window: the three NHWC routes of a
         frame (B, H/s, W/s, C), or of each frame of a window (B, t, ...)."""
         r1 = self.frame_stage1(x)
-        r2 = _nhwc(self.stage2, r1)
-        return [r1, r2, _nhwc(self.stage3, r2)]
+        r2 = nhwc(self.stage2, r1)
+        return [r1, r2, nhwc(self.stage3, r2)]
 
     def frame_stage1(self, x: torch.Tensor) -> torch.Tensor:
         """Stage 1 on a frame (B, H, W, 3), or per frame of a window."""
@@ -517,7 +528,7 @@ class YOLOv3Temporal(nn.Module):
         """The pyramid's or the funnel's routes from the window's stage-1
         features (B, t, H/8, W/8, 256): everything after stage 1 mixes the
         window."""
-        stage2, stage3 = partial(_nhwc, self.stage2), partial(_nhwc, self.stage3)
+        stage2, stage3 = partial(nhwc, self.stage2), partial(nhwc, self.stage3)
         if self.path == "pyramid":
             mid = y[:, self.t // 2]
             c = _cell(self.convs1, self.corr(y), self.dtype)
@@ -556,6 +567,6 @@ class YOLOv3Temporal(nn.Module):
             y, tip = getattr(self, f"block{i}")(y)
             level_outs.append(getattr(self, f"output{i}")(tip))
             if i < 2:
-                y = _nhwc(upsample2x, _nhwc(getattr(self, f"transition{i}"), y))
+                y = nhwc(upsample2x, nhwc(getattr(self, f"transition{i}"), y))
                 y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
         return _finish(level_outs, self.training, self.agnostic)

@@ -105,7 +105,7 @@ class Detector:
         if variables is None:
             init_weights(model, torch.Generator().manual_seed(seed))
             return model
-        if cfg.pad_stem and "backbone" in variables["params"]:
+        if cfg.pad_stem and not cfg.new_model and "backbone" in variables["params"]:
             stem = variables["params"]["backbone"]["conv0"]["Conv_0"]["kernel"]
             if np.shape(stem)[2] == 3:
                 variables = pad_stem_cin(variables, prefix="backbone")

@@ -113,6 +113,9 @@ def _check_streamable(model) -> None:
         return
     if type(model) is not YOLOv3T:
         raise ValueError("streaming covers the YOLOv3T and YOLOv3Temporal families (built-in darknet53 backbone)")
+    if model.has_backbone:
+        raise ValueError("streaming needs the built-in per-frame backbone (a custom temporal backbone such as "
+                         "Darknet3D or HDarknet owns its time mixing), as in the JAX package")
     if model.feed is not None:
         raise ValueError("the model is already a streaming head (feed)")
     if not model.k > 1:

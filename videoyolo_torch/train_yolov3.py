@@ -13,6 +13,10 @@ on any of them combined through the WordNet class tree.
         --corr_pos early --corr_d 4 --nopretrained_cnn --batch_size 16 ...   # YOLOv3T on windows
     python -m videoyolo_torch.train_yolov3 --dataset vid --window 5,1 --temp --mult_out \
         --corr_pos early --corr_d 4 --nopretrained_cnn --batch_size 8 ...   # YOLOv3Temporal, t_out
+    python -m videoyolo_torch.train_yolov3 --dataset vid --window 5,1 --new_model \
+        --conv_types 2,3,3,2,2,2 --pretrained_base_path darknet53.params ...   # Darknet3D, inflated
+    python -m videoyolo_torch.train_yolov3 --dataset vid --window 9,1 --new_model --hier 3,3,1,1,1 \
+        --h_join_type max ...   # HDarknet
     python -m videoyolo_torch.train_yolov3 --dataset comb ...   # voc,coco,det,vid on the class tree
     python -m videoyolo_torch.train_yolov3 --dataset voc,coco,det,vid,yt ...   # any list, the same way
 
@@ -93,6 +97,17 @@ Like the JAX CLI, `--pretrained_cnn` does not load into YOLOv3T or
 YOLOv3Temporal (neither has a `backbone` scope): pass `--nopretrained_cnn`
 or `--resume`.
 
+`--new_model` trains YOLOv3T over a backbone that returns the routes
+itself, as the JAX CLI builds it: `Darknet3D` with `--conv_types` (the
+stem's and the five stages' conv types, 2, 3 or 21) on windows of
+`--window` k frames, or with `--hier` (e.g. 3,3,1,1,1 on `--window 9,1`)
+`HDarknet`, merging groups of 3 frames by `--h_join_type` max or conv.
+`--pretrained_cnn` inflates the ImageNet Darknet-53 into Darknet3D's 3-D
+and 2+1D stages and loads it as it is into HDarknet; it refuses Darknet3D
+with every conv type 2, where the JAX CLI's load fails (ROADMAP.md Queue 3).
+From their zero init the conv merges overflow the first step's gradient,
+in both packages (Queue 3): train `--h_join_type conv` from a checkpoint.
+
 The log line `Speed: %.3f samples/sec` is the JAX CLI's (a rank's samples).
 The run is on the card unless `--device cpu` is given.  Paths this slice
 does not port raise NotImplementedError naming their ROADMAP.md item:
@@ -131,7 +146,9 @@ from .device import resolve_device
 from .metrics.mscoco import COCODetectionMetric
 from .metrics.pascalvoc import VOCMApMetric, VOCMApMetricTemporal
 from .models.darknet import Darknet53
+from .models.darknet3d import Darknet3D
 from .models.factory import yolo3_darknet53
+from .models.inflate import inflate_darknet53_to_3d
 from .models.layers import init_weights
 from .models.s2d import refold_stem_s2d
 from .parallel import mesh
@@ -217,6 +234,11 @@ def parse_args(argv=None):
     p.add_argument("--corr_d", type=int, default=0, help="the d of the correlation; 0: the model's default")
     p.add_argument("--temp", action="store_true", help="the t=5 temporal model (YOLOv3Temporal)")
     p.add_argument("--mult_out", action="store_true", help="one output a frame of the window (t_out)")
+    p.add_argument("--new_model", action="store_true",
+                   help="YOLOv3T over a backbone that returns the routes: Darknet3D, or HDarknet with --hier")
+    p.add_argument("--conv_types", type=_csv, default=["2"] * 6, help="Darknet3D's conv types: the stem and 5 stages")
+    p.add_argument("--hier", type=_csv, default=["1"] * 5, help="HDarknet's merge windows a level")
+    p.add_argument("--h_join_type", default=None, help="HDarknet's merge: max or conv")
     # paths this slice does not port
     p.add_argument("--features_dir", default=None)
     p.add_argument("--trained_on", default="")
@@ -240,13 +262,23 @@ def check_ported(args):
 
 def temporal_kwargs(args) -> dict:
     """The temporal flags as the factory's keywords (none for the 2D
-    model), as the JAX CLI passes them."""
+    model), as the JAX CLI passes them, with the backbone's under
+    --new_model."""
     k = window(args)[0]
-    if k <= 1 and not (args.temp or args.mult_out):
+    if k <= 1 and not (args.temp or args.mult_out or args.new_model):
         return {}
     return dict(k=k if k > 1 else None, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
                 block_conv_type=args.block_conv_type, rnn_pos=args.rnn_pos, corr_pos=args.corr_pos,
-                corr_d=args.corr_d or None, temporal=args.temp, t_out=args.mult_out)
+                corr_d=args.corr_d or None, temporal=args.temp, t_out=args.mult_out, **backbone_kwargs(args))
+
+
+def backbone_kwargs(args) -> dict:
+    """--new_model's backbone flags as the factory's keywords (none
+    without it)."""
+    if not args.new_model:
+        return {}
+    return dict(new_model=True, conv_types=tuple(int(c) for c in args.conv_types),
+                hierarchical=tuple(int(h) for h in args.hier), h_join_type=args.h_join_type)
 
 
 def window(args):
@@ -391,8 +423,12 @@ def _find_pretrained_base(args):
 
 
 def _load_pretrained_base(args, model):
-    """Load ImageNet darknet53 weights into the model's base (refolded for
-    the s2d stem); raises when none are found."""
+    """Load ImageNet darknet53 weights into the model's base: refolded for
+    the s2d stem, inflated for Darknet3D's 3-D and 2+1D stages (a 3-D
+    kernel the 2D one repeated over time / its extent, a 2+1D cell's
+    spatial kernel the 2D one and its temporal kernel 1/3, BN across), as
+    they are into HDarknet (Darknet-53's tree); raises when none are
+    found."""
     path = _find_pretrained_base(args)
     if path is None:
         raise RuntimeError(
@@ -406,10 +442,27 @@ def _load_pretrained_base(args, model):
             "--pretrained_cnn is not wired for models without a 'backbone' scope (YOLOv3T and YOLOv3Temporal "
             "build their stages inline); pass --nopretrained_cnn or warm-start via --resume."
         )
-    if args.s2d_stem:
-        # load into a standard Darknet53 tree, refold its stem, install it
+    conv_types = tuple(int(c) for c in args.conv_types) if args.new_model else (2,) * 6
+    darknet3d = isinstance(getattr(model, "backbone", None), Darknet3D)
+    if darknet3d and all(c == 2 for c in conv_types):
+        # the JAX CLI loads Darknet-53's paths into Darknet3D's tree here and
+        # fails on its names (ROADMAP.md Queue 3)
+        raise RuntimeError(
+            "--pretrained_cnn with --new_model and every conv type 2: Darknet3D's tree (stem, down{i}, "
+            "stage{i}_block{j}) is not Darknet-53's, so the JAX CLI's load fails on it; pass --nopretrained_cnn, "
+            "a conv type 3 or 21 (the inflate branch), or --hier (HDarknet holds Darknet-53's tree).")
+    if not darknet3d and any(c != 2 for c in conv_types):
+        raise RuntimeError("--conv_types other than 2 inflate into Darknet3D only; with --hier the factory builds "
+                           "HDarknet, whose tree is Darknet-53's, and the JAX CLI's inflate fails on it")
+    if args.s2d_stem or darknet3d:
+        # load into a standard Darknet53 tree, then refold its stem (s2d) or
+        # inflate it to 3-D / 2+1D (train_yolov3.py:728-763), and install it
         base = load_gluon_darknet53(variables_of(Darknet53()), path, prefix="")
-        base = refold_stem_s2d(base)
+        if args.s2d_stem:
+            base = refold_stem_s2d(base)
+        else:
+            base = inflate_darknet53_to_3d(base, {"params": variables["params"]["backbone"],
+                                                  "batch_stats": variables["batch_stats"]["backbone"]})
         variables["params"]["backbone"] = base["params"]
         variables["batch_stats"]["backbone"] = base["batch_stats"]
     else:
