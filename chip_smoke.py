@@ -292,7 +292,33 @@ Phases; any failure exits non-zero:
      on a VID tree, the detect twin on each checkpoint (raw outputs and the
      first batch's detections bit-equal to the trained model's), and
      `--stream --new_model` refused; a `{"slice14_backbones": ...}` line and
-     `launches_slice14` in the kernels line.
+     `launches_slice14` in the kernels line;
+ 19. slice 15, the two-stream FlowNet family (models/flownet.py,
+     ts_darknet.py, flownet_utils.py; the factory's motion_stream), 384 px
+     (FlowNetS takes multiples of 64), 30 VID classes: (a) B=16 windows of 3
+     in bf16 through the Detector for the ungated model and the "add" and
+     "mul" gates: K1 once a request and bit-equal to the plain NMS on the
+     model's candidates, no K2, ms and windows/s (median of 10 after 3
+     warm, CUDA events), peak memory, one profiled request with the FlowNet
+     stream's (`TwoStreamDarknet.motion`) and Darknet-53's (`appearance`)
+     device time and the profile's device time over the request's
+     CUDA-event time; (b) each model in float32 at 128 px, card vs CPU
+     within rtol=atol=1e-3; (c) K2 at FlowNetC's level, (16, 48, 48, 256)
+     and (1, 48, 48, 256) at d=20, stride2=2, within rtol=atol=1e-5 of the
+     plain version, its ms, bound and plain ms; FlowNetC's and FlowNetS's
+     float32 flows of written frames through `flownet_utils` card vs CPU
+     (1e-3), K2 one launch a FlowNetC call, `process_imagedir`'s `.flo`
+     files, `process_two_images` timed; (d) a float32 train step of the
+     "add" model on B=2 windows at 128 px card vs CPU (TRAIN_TOL) and its
+     B=8-window bf16 step (median of 10 after 3 warm, peak memory, a
+     profiled step); (e) the train twin three steps with --motion_stream
+     flownet --stream_gating add --window 3,1 --data_shape 384
+     --no_random_shape on a VID tree, the detect twin on its checkpoint
+     (raw outputs and the first batch's detections bit-equal to the trained
+     model's); (f) the twins' refusals (a data shape not a multiple of 64,
+     random shapes, --stream, --pretrained_cnn with --stream_gating); no
+     K2' or int8 launch in the phase; a `{"slice15_two_stream": ...}` line
+     and `launches_slice15` in every kernel's entry of the kernels line.
 A `{"phase_end_s": ...}` line gives each phase's end in seconds from the
 start.  The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -321,7 +347,7 @@ import numpy as np
 import torch
 
 from videoyolo_torch import detect, native, overfit, train_yolov3
-from videoyolo_torch.data.base import load_names
+from videoyolo_torch.data.base import load_names, read_image
 from videoyolo_torch.data.detectset import DetectSet
 from videoyolo_torch.data.imgnetdet import ImageNetDetection
 from videoyolo_torch.data.imgnetvid import ImageNetVidDetection
@@ -340,9 +366,12 @@ from videoyolo_torch.data.transforms import (
     to_normalized,
 )
 from videoyolo_torch.models.darknet import Darknet53
+from videoyolo_torch.models import flownet_utils
 from videoyolo_torch.models.factory import YoloConfig, build_model
+from videoyolo_torch.models.flownet import CORR_D, CORR_STRIDE2, FlowNetC, FlowNetS
 from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights, time_distributed
 from videoyolo_torch.models.yolo3 import YOLOv3, decode_predictions, postprocess, select_topk_candidates
+from videoyolo_torch.models.ts_darknet import TwoStreamDarknet
 from videoyolo_torch.models.yolo3_temporal import YOLOv3T
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
 from videoyolo_torch.ops.correlation import correlation, correlation_plain, num_corr_channels, patch_correlation
@@ -4334,8 +4363,9 @@ def s13_profile(label, fn, n, card):
 
 
 def scoped_profile(label, fn, n, card, scopes, when=None):
-    """n profiled calls of fn() with the `models.layers` methods of `scopes`
-    in named ranges (only on the instances `when` holds for, where given):
+    """n profiled calls of fn() with the methods of `scopes` (a class of
+    `models.layers` by name, or a class) in named ranges (only on the
+    instances `when` holds for, where given):
     wall, device busy and idle share a call, device ops, and each range's
     device time a call (the kernels its ops launched) and share of the busy
     time."""
@@ -4346,7 +4376,7 @@ def scoped_profile(label, fn, n, card, scopes, when=None):
     saved = []
     for scope, targets in scopes.items():
         for cls_name, attr in targets:
-            cls = getattr(layers, cls_name)
+            cls = getattr(layers, cls_name) if isinstance(cls_name, str) else cls_name
             raw = cls.__dict__[attr]
             static = isinstance(raw, staticmethod)
             inner = raw.__func__ if static else raw
@@ -4972,6 +5002,402 @@ def data_slice14(dev, card):
     return figures, k1["total"]
 
 
+# ---------------------------------------------------------------------------
+# phase 19: slice 15, the two-stream FlowNet family (videoyolo_torch/models/
+# flownet.py, ts_darknet.py, flownet_utils.py; the factory's motion_stream)
+# through the factory and both twins, and FlowNetC's cost volume (K2 at d=20,
+# stride2=2 on its stride-8 level)
+# ---------------------------------------------------------------------------
+
+S15_CLASSES = 30  # the JAX package's profile of the model (tools/prof_temporal.py:123-131), as its size and batch
+S15_SIZE = 384  # a multiple of 64, as FlowNetS needs
+S15_MODELS = {"ungated": None, "add": "add", "mul": "mul"}  # name: the factory's add_type
+S15_BATCH = 16
+S15_WARM, S15_TIMED = 3, 10
+S15_F32_SIZE = 128
+S15_TRAIN_WINDOWS = 8
+S15_F32_WINDOWS = 2
+S15_K2 = (S15_BATCH, S15_SIZE // 8, S15_SIZE // 8, 256)  # FlowNetC's stride-8 level of a B=16 batch of pairs
+S15_FLOW_FRAMES = 3  # (c): frames of a translating scene, 400 x 400 (cropped to 384 x 384)
+S15_FLOW_TOL = dict(rtol=1e-3, atol=1e-3)
+S15_TWIN_EVERY = 8  # (e): 24 train windows (3 steps at B=8), 8 val windows (one batch)
+S15_TWIN = ["--window", f"{WINDOW},1", "--motion_stream", "flownet", "--stream_gating", "add", "--no_random_shape",
+            "--nopretrained_cnn"]  # (e): the train twin's flags; the detect twin's without the last two
+S15_SCOPES = {"flownet": [(TwoStreamDarknet, "motion")], "darknet": [(TwoStreamDarknet, "appearance")]}
+
+
+def s15_cfg(name, dtype=None):
+    return YoloConfig(num_classes=S15_CLASSES, k=WINDOW, motion_stream="flownet", add_type=S15_MODELS[name],
+                      dtype=dtype)
+
+
+def s15_windows(gen, b, size, dev):
+    return torch.randint(0, 256, (b, WINDOW, size, size, 3), generator=gen, dtype=torch.uint8, device=dev)
+
+
+def s15_serve(name, dev, card, gen):
+    """(a): B=16 windows of 3 at 384 px bf16 through the Detector: K1 once a
+    request and bit-equal to the plain NMS on the model's candidates, no K2
+    (the two-stream model's FlowNetS has no cost volume), ms and windows/s
+    (median of 10 after 3 warm, CUDA events), peak memory, one profiled
+    request with the FlowNet stream's and Darknet-53's device time apart and
+    the profile's device time over the request's CUDA-event time.  Returns
+    (figures, K1 launches)."""
+    t0 = time.perf_counter()
+    det = Detector(s15_cfg(name), dtype=torch.bfloat16, data_shape=S15_SIZE, device="cuda")
+    figures = dict(add_type=S15_MODELS[name], windows=S15_BATCH, build_s=time.perf_counter() - t0)
+    x = s15_windows(gen, S15_BATCH, S15_SIZE, dev)
+    nms_greedy.launches = cost_volume.launches = 0
+    outs = det(x)
+    torch.cuda.synchronize()
+    k1 = nms_greedy.launches
+    check(k1 == 1 and cost_volume.launches == 0,
+          f"slice 15 {name}: K1 {k1} and K2 {cost_volume.launches} launches a request, expected 1 and 0")
+    check_detections(f"slice 15 {name}", [outs], [S15_BATCH], classes=S15_CLASSES)
+    with torch.inference_mode():
+        boxes, scores = det.model(det._normalized(x))
+        cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+        got = nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+        want = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    # (the comparison with the plain version is not counted)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), f"slice 15 {name}: K1 on its candidates differs from the "
+          "plain NMS")
+    figures["k1_equal_plain"] = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_greedy.launches = 0
+    ms = statistics.median(cuda_time_ms(lambda: det(x), iters=S15_TIMED, warmup=S15_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    prof = scoped_profile(f"slice 15 {name} B={S15_BATCH} windows", lambda: det(x), 1, card, S15_SCOPES)
+    n_req = S15_TIMED + S15_WARM + 2
+    check(nms_greedy.launches == n_req, f"slice 15 {name}: K1 launches {nms_greedy.launches} over {n_req} requests")
+    k1 += nms_greedy.launches
+    coverage = prof["busy_ms"] / ms if prof else None
+    figures.update(ms=ms, windows_s=S15_BATCH / ms * 1e3, frames_s=S15_BATCH * WINDOW / ms * 1e3,
+                   peak_gib=peak / 2**30, profile=prof, profile_coverage=coverage,
+                   idle_share_events=max(0.0, 1 - coverage) if prof else None)
+    print(f"slice 15 {name} B={S15_BATCH} windows of {WINDOW} at {S15_SIZE} px bf16 ({S15_CLASSES} classes) on {card}: "
+          f"{figures['windows_s']:.1f} windows/s ({ms:.3f} ms a request, median of {S15_TIMED} after {S15_WARM} warm), "
+          f"peak memory {peak / 2**30:.2f} GiB; the profile's device time {coverage} of the request's CUDA-event time; "
+          "K1 1 a request, bit-equal to the plain NMS; K2 0")
+    del det, x
+    torch.cuda.empty_cache()
+    return figures, k1
+
+
+def s15_f32(dev, card, gen):
+    """(b): each model in float32 at 128 px on one window, its raw outputs
+    on the card against the CPU's from the same seed (rtol=atol=1e-3)."""
+    s, out = S15_F32_SIZE, {}
+    for name in S15_MODELS:
+        x = s15_windows(gen, 1, s, dev)
+        det = Detector(s15_cfg(name), dtype=torch.float32, data_shape=s, device="cuda", seed=1)
+        cpu = copy.deepcopy(det.model).cpu()
+        with torch.inference_mode():
+            xn = det._normalized(x)
+            raw = [[t.cpu() for t in det.model(xn)], list(cpu(xn.cpu()))]
+        errs = {n_: float((a - r).abs().max()) for n_, a, r in zip(("boxes", "scores"), *raw)}
+        check(all(bool(torch.allclose(a, r, rtol=1e-3, atol=1e-3)) for a, r in zip(*raw)),
+              f"slice 15 {name} float32 at {s} px, card vs CPU: max abs errors {errs}")
+        out[name] = dict(card_vs_cpu_max_abs=errs)
+        print(f"slice 15 {name} float32 at {s} px, card vs CPU: max abs errors {errs} (allclose rtol=atol=1e-3)")
+        del det, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def s15_k2_level(f1, f2, card):
+    """K2 at FlowNetC's d=20, stride2=2 on (f1, f2): within CORR_TOL of the
+    plain version; its ms (median of 50 launches, CUDA events), the plain
+    version's (median of 3), the bound and the plan."""
+    b, h, w, c = f1.shape
+    d, s2 = CORR_D, CORR_STRIDE2
+    out, ref = cost_volume(f1, f2, d, s2), correlation_plain(f1, f2, d, 1, 1, s2)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(out.shape == ref.shape == (b, h, w, num_corr_channels(d, s2)), f"K2 at FlowNetC's level: {tuple(out.shape)}")
+    check(bool(torch.allclose(out, ref, **CORR_TOL)), f"K2 at FlowNetC's level B={b}: max abs error {err}")
+    del out, ref
+    k_ms = median_ms(lambda: cost_volume(f1, f2, d, s2), 50)
+    p_ms = median_ms(lambda: correlation_plain(f1, f2, d, 1, 1, s2), 3, warmup=1)
+    t_bytes, t_ops = corr_times(b, h, w, c, d, s2)
+    b_ms, b_by = bound([(t_bytes, t_ops)])
+    pl = correlation_kernel.plan(b, h, w, c, d, s2, correlation_kernel.aligned(f1, f2))
+    fig = dict(shape=[b, h, w, c], d=d, stride2=s2, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes_ms=t_bytes, ops_ms=t_ops, max_abs_err=err,
+               plan=dict(r=pl.r, gx=pl.gx, gy=pl.gy, tile=list(pl.tile), threads=pl.threads, copy=pl.copy,
+                         ctas=pl.ctas, live=pl.live))
+    print(f"cost volume at FlowNetC's level B={b} {h}x{w}x{c} d={d} stride2={s2} on {card}: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: bytes {t_bytes:.4f}, operations {t_ops:.4f}); max abs "
+          f"error {err:.3g}, allclose; plan R={pl.r}, group {pl.gy}x{pl.gx}, {pl.threads} threads, {pl.ctas} CTAs")
+    return fig
+
+
+def s15_flow_frames(root):
+    """S15_FLOW_FRAMES JPEG frames of one scene translating by (3, 2)
+    pixels a frame, written under `root`; their paths."""
+    scene, _ = synth_image(15, 448, 448, 1)
+    paths = []
+    for t in range(S15_FLOW_FRAMES):
+        path = os.path.join(root, f"{t:06d}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(encode_jpeg(np.ascontiguousarray(scene[2 * t:2 * t + 400, 3 * t:3 * t + 400])))
+        paths.append(path)
+    return paths
+
+
+def s15_flownetc(dev, card):
+    """(c): K2 at FlowNetC's level of a 384-px B=16 batch and of one pair
+    (B=1), against its plain version (rtol=atol=1e-5), its ms, bound and
+    plain ms; FlowNetC's launches a call; `process_imagedir` over frames
+    the script writes (FlowNetC, float32, on the card: one `.flo` and one
+    K2 launch a pair) and each pair's flow from FlowNetC and FlowNetS on
+    the card against the CPU (1e-3); `process_two_images` timed at B=1.
+    Returns (figures, K2 launches on the path)."""
+    figures = {}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, h, w, c = S15_K2
+    pair = torch.randn(b, 2, h, w, c, generator=gen, device=dev)
+    figures["k2"] = s15_k2_level(pair[:, 0], pair[:, 1], card)
+    figures["k2_b1"] = s15_k2_level(pair[:1, 0], pair[:1, 1], card)
+    del pair
+    torch.cuda.empty_cache()
+    gen_cpu = torch.Generator().manual_seed(19)
+    nets = {}
+    for name, cls in (("flownetc", FlowNetC), ("flownets", FlowNetS)):
+        cpu = init_weights(cls(), gen_cpu).eval()
+        nets[name] = (copy.deepcopy(cpu).to(dev, memory_format=torch.channels_last), cpu)
+    k2 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = s15_flow_frames(tmp)
+        frames = [read_image(p) for p in paths]
+        cost_volume.launches = 0
+        flows = flownet_utils.process_imagedir(nets["flownetc"][0], tmp, device="cuda")
+        torch.cuda.synchronize()
+        k2 += cost_volume.launches
+        check(cost_volume.launches == len(paths) - 1 and len(flows) == len(paths) - 1,
+              f"slice 15 FlowNetC process_imagedir: {cost_volume.launches} K2 launches, {len(flows)} flows for "
+              f"{len(paths) - 1} pairs")
+        written = sorted(f for f in os.listdir(os.path.join(tmp, "flow")) if f.endswith(".flo"))
+        check(written == [f"{t:06d}.flo" for t in range(len(paths) - 1)], f"slice 15 process_imagedir wrote {written}")
+        check(all(np.array_equal(flownet_utils.read_flo(os.path.join(tmp, "flow", n_)), f)
+                  for n_, f in zip(written, flows)), "slice 15: a .flo differs from its flow")
+        errs = {}
+        for name, (card_net, cpu_net) in nets.items():
+            cost_volume.launches = 0
+            got = [flownet_utils.process_two_images(card_net, a, b_, device="cuda") for a, b_ in zip(frames, frames[1:])]
+            k2 += cost_volume.launches
+            check(cost_volume.launches == (len(frames) - 1 if name == "flownetc" else 0),
+                  f"slice 15 {name}: K2 launches {cost_volume.launches} over {len(frames) - 1} pairs")
+            ref = [flownet_utils.process_two_images(cpu_net, a, b_, device="cpu") for a, b_ in zip(frames, frames[1:])]
+            errs[name] = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+            scale = max(float(np.abs(r).max()) for r in ref)
+            check(all(np.allclose(g, r, **S15_FLOW_TOL) for g, r in zip(got, ref)),
+                  f"slice 15 {name} float32 flows, card vs CPU: max abs error {errs[name]} (flows to {scale})")
+            if name == "flownetc":
+                check(all(np.allclose(f, r, **S15_FLOW_TOL) for f, r in zip(flows, ref)),
+                      "slice 15: process_imagedir's flows on the card differ from the CPU's")
+            print(f"slice 15 {name} float32 flow of {len(frames) - 1} pairs at {got[0].shape[0] * 4} x "
+                  f"{got[0].shape[1] * 4} px, card vs CPU: max abs error {errs[name]:.3g} (flows to {scale:.3g}; "
+                  f"allclose {S15_FLOW_TOL})")
+        fc = nets["flownetc"][0]
+        t0 = time.perf_counter()
+        cost_volume.launches = 0
+        times = []
+        for i in range(3 + 10):
+            t1 = time.perf_counter()
+            flownet_utils.process_two_images(fc, frames[0], frames[1], device="cuda")
+            times.append((time.perf_counter() - t1) * 1e3)
+        k2 += cost_volume.launches
+        check(cost_volume.launches == 13, f"slice 15 process_two_images: K2 launches {cost_volume.launches} in 13 calls")
+    figures.update(flow_card_vs_cpu_max_abs=errs, process_two_images_ms=statistics.median(times[3:]),
+                   process_imagedir_pairs=len(flows))
+    print(f"slice 15 process_two_images (FlowNetC float32, one pair at 384 x 384, the host's crop and normalise, the "
+          f"copies and the flow back) on {card}: {figures['process_two_images_ms']:.3f} ms a call (median of 10 after "
+          f"3, host clock), K2 {figures['k2_b1']['ms']:.4f} ms of it; K2 one launch a FlowNetC call")
+    del nets, fc
+    torch.cuda.empty_cache()
+    return figures, k2
+
+
+def s15_train(dev, card):
+    """(d): one float32 step of the "add" model on B=2 windows at 128 px
+    card vs CPU (TRAIN_TOL), then its B=8-window 384-px bf16 step (median
+    of 10 after 3 warm), peak memory and one profiled step."""
+    figures = {"card_vs_cpu": check_train_card_vs_cpu(
+        "slice 15 add", build_model(s15_cfg("add")),
+        lambda device: window_batch(np.random.RandomState(1), S15_F32_WINDOWS, S15_F32_SIZE, device),
+        S15_CLASSES, f"{S15_F32_SIZE} px, B={S15_F32_WINDOWS} windows of {WINDOW}")}
+    torch.cuda.empty_cache()
+    model = init_weights(build_model(s15_cfg("add", torch.bfloat16)), torch.Generator().manual_seed(0))
+    model.to(dev, memory_format=torch.channels_last)
+    state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10))
+    step = make_train_step(model, num_classes=S15_CLASSES)
+    batch = window_batch(np.random.RandomState(0), S15_TRAIN_WINDOWS, S15_SIZE, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=S15_TIMED, warmup=S15_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    prof = scoped_profile(f"slice 15 add train B={S15_TRAIN_WINDOWS} windows", lambda: step(state, batch), 1, card,
+                          S15_SCOPES)
+    check(all(np.isfinite(v) for v in losses.values()), f"slice 15 add train step losses not finite: {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"slice 15 add: parameters not finite after {S15_TIMED + S15_WARM + 3} steps")
+    coverage = prof["busy_ms"] / ms if prof else None
+    figures.update(ms=ms, windows_s=S15_TRAIN_WINDOWS / ms * 1e3, peak_gib=peak / 2**30, profile=prof,
+                   profile_coverage=coverage, losses=losses)
+    print(f"slice 15 add train step B={S15_TRAIN_WINDOWS} windows of {WINDOW} at {S15_SIZE} px bf16 on {card}: "
+          f"{figures['windows_s']:.1f} windows/s ({ms:.3f} ms a step, median of {S15_TIMED} after {S15_WARM} warm), "
+          f"peak memory {peak / 2**30:.2f} GiB; the profile's device time {coverage} of the step's; losses {losses}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return figures
+
+
+def s15_twins(dev, card):
+    """(e): on a VID tree (phase 12's train snippets, two val snippets) the
+    train twin three steps with --motion_stream flownet --stream_gating add
+    --window 3,1 at 384 px (B=8, bf16, --no_random_shape, --nopretrained_cnn),
+    then the detect twin on its checkpoint: its raw outputs and the first
+    batch's detections bit-equal to the trained model's.  Returns (figures,
+    K1 launches)."""
+    workers = os.cpu_count() or 1
+    k1 = 0
+    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
+        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+        vid = f"{tmp}/ImageNetVID/ILSVRC"
+        window = (WINDOW, 1)
+        val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S15_TWIN_EVERY, window=window,
+                                   inference=True)
+        train = ImageNetVidDetection(root=vid, splits=[(2017, "train")], every=S15_TWIN_EVERY, window=window)
+        flags = ["--dataset", "vid", "--dataset_root", tmp, "--data_shape", str(S15_SIZE), "--dtype", "bf16",
+                 "--num_workers", str(workers), "--batch_size", str(S15_TRAIN_WINDOWS), "--every", str(S15_TWIN_EVERY)]
+        exp = f"{tmp}/exp"
+        nms_greedy.launches = 0
+        t0 = time.perf_counter()
+        model, stats = train_yolov3.main(flags + S15_TWIN + ["--epochs", "1", "--save_prefix", "0000",
+                                                             "--experiment_root", exp, "--save_interval", "1",
+                                                             "--log_interval", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_steps, n_val = len(train) // S15_TRAIN_WINDOWS, -(-len(val) // S15_TRAIN_WINDOWS)
+        check(isinstance(getattr(model, "backbone", None), TwoStreamDarknet) and model.backbone.add_type == "add",
+              "slice 15 train twin: not the gated two-stream model")
+        check(nms_greedy.launches == n_val, f"slice 15 train twin: K1 launches {nms_greedy.launches}, expected {n_val}")
+        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "slice 15 train twin: parameters not finite")
+        k1 += nms_greedy.launches
+        ep = stats["epochs"][0]
+        check(len(ep["steps"]) == n_steps, f"slice 15 train twin: {len(ep['steps'])} steps, expected {n_steps}")
+        figures = {"flags": S15_TWIN, "steps": len(ep["steps"]), "samples_s": ep["samples_s"], "seconds": secs,
+                   "val": stats["val"], "logged": list(speed)}
+        print(f"slice 15 train twin ({' '.join(S15_TWIN)}, bf16, B={S15_TRAIN_WINDOWS}, {S15_SIZE} px, {n_steps} steps, "
+              f"{len(val)} val windows) on {card}: {ep['samples_s']:.1f} windows/s over the epoch, {secs:.2f} s with the "
+              f"model's build; K1 {n_val}")
+        ckpt = f"{exp}/0000/yolo3_darknet53_vid_0000.params"
+        check(os.path.exists(ckpt), f"the slice 15 train twin wrote no checkpoint {ckpt}")
+
+        nms_greedy.launches = 0
+        t0 = time.perf_counter()
+        dflags = flags + S15_TWIN[:-2]
+        preds = detect.main(dflags + ["--model_path", ckpt, "--save_dir", f"{tmp}/res", "--save_prefix", "twin",
+                                      "--metrics", "voc"])
+        torch.cuda.synchronize()
+        dsecs = time.perf_counter() - t0
+        check(nms_greedy.launches == n_val, f"slice 15 detect twin: K1 launches {nms_greedy.launches}")
+        k1 += nms_greedy.launches
+        cfg = detect.dataset_config(detect.parse_args(dflags), S15_CLASSES)
+        twin_det = Detector(cfg, detect.load_model_variables(ckpt, cfg), dtype=torch.bfloat16, data_shape=S15_SIZE)
+        tf = YOLO3VideoInferenceTransform(S15_SIZE, S15_SIZE)
+        idxs = range(min(S15_TRAIN_WINDOWS, len(val)))
+        images = torch.from_numpy(np.stack([
+            tf(np.stack([native.decode(p) for p in val.window_paths(i)]), val.label_and_size(i)[0])[0]
+            for i in idxs])).to(dev)
+        model.eval()
+        with torch.inference_mode():
+            raw_twin, raw_trained = twin_det.model(twin_det._normalized(images)), model(images)
+        check(all(torch.equal(a, b) for a, b in zip(raw_twin, raw_trained)),
+              "slice 15: the raw outputs of the checkpoint's model differ from the trained model's")
+        nms_greedy.launches = 0
+        ids, sc, bb = (a.cpu().numpy() for a in make_eval_step(model)(images))
+        k1 += nms_greedy.launches
+        ref = {}
+        for n, i in enumerate(idxs):
+            collect_boxes(ref, val.sample_path(i), ids[n], sc[n], np.clip(bb[n], 0, S15_SIZE), S15_SIZE)
+        check(all(preds.get(val.sample_path(i), []) == ref.get(val.sample_path(i), []) for i in idxs),
+              "slice 15: the detect twin's detections from the checkpoint differ from the trained model's")
+        figures["detect_twin"] = {"windows": len(val), "seconds": dsecs, "detections": sum(map(len, preds.values())),
+                                  "voc": open(f"{tmp}/res/twin/voc.txt").read().splitlines()[-1]}
+        print(f"slice 15 detect twin from the checkpoint (B={S15_TRAIN_WINDOWS}, {len(val)} windows, {dsecs:.2f} s, "
+              f"model load included) on {card}: raw outputs and the first batch's {sum(map(len, ref.values()))} "
+              "detections equal the trained model's bit for bit")
+        del model, twin_det, images
+        torch.cuda.empty_cache()
+    return figures, k1
+
+
+def s15_refusals():
+    """(f): what the twins refuse with the flownet stream, each where the JAX
+    CLIs fail: a data shape that is not a multiple of 64 (detect and
+    train), the train twin's random shapes, `--stream`, and
+    `--pretrained_cnn` with `--stream_gating`."""
+    flow = ["--window", f"{WINDOW},1", "--motion_stream", "flownet"]
+    synthetic = ["--batch_size", "1", "--num_requests", "1", *flow]
+    train = ["--dataset", "vid", *flow]
+    with tempfile.NamedTemporaryFile(suffix=".params") as base:
+        args = train_yolov3.parse_args(train + ["--stream_gating", "add", "--pretrained_base_path", base.name])
+        with torch.device("meta"):
+            gated = train_yolov3.yolo3_darknet53(["a"] * S15_CLASSES, **train_yolov3.temporal_kwargs(args))
+        cases = {
+            "detect_data_shape_416": (ValueError, "divisible by 64", lambda: detect.main(synthetic)),
+            "detect_stream": (ValueError, "built-in per-frame backbone",
+                              lambda: detect.main(synthetic + ["--data_shape", str(S15_SIZE), "--stream"])),
+            "train_data_shape_416": (ValueError, "divisible by 64", lambda: train_yolov3.check_ported(
+                train_yolov3.parse_args(train + ["--no_random_shape"]))),
+            "train_random_shapes": (ValueError, "--no_random_shape", lambda: train_yolov3.check_ported(
+                train_yolov3.parse_args(train + ["--data_shape", str(S15_SIZE)]))),
+            "train_gated_pretrained_cnn": (RuntimeError, "--stream_gating",
+                                           lambda: train_yolov3._load_pretrained_base(args, gated)),
+        }
+        refused = {}
+        for name, (exc, text, fn) in cases.items():
+            try:
+                fn()
+                refused[name] = False
+            except exc as e:
+                refused[name] = text in str(e)
+            check(refused[name], f"slice 15: {name} was not refused")
+    print(f"slice 15 refusals: {sorted(refused)}")
+    return refused
+
+
+def data_slice15(dev, card):
+    """Phase 19.  Returns (the phase's figures, K1's launches on its paths,
+    K2's)."""
+    figures, k1, seconds = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    t0 = time.perf_counter()
+    for name in S15_MODELS:
+        figures[name], k1[name] = s15_serve(name, dev, card, gen)
+    seconds["a"] = time.perf_counter() - t0
+    figures["f32"] = s15_f32(dev, card, gen)
+    seconds["b"] = time.perf_counter() - t0
+    figures["flownetc"], k2 = s15_flownetc(dev, card)
+    seconds["c"] = time.perf_counter() - t0
+    figures["add"]["train_step"] = s15_train(dev, card)
+    seconds["d"] = time.perf_counter() - t0
+    figures["twins"], k1["twins"] = s15_twins(dev, card)
+    seconds["e"] = time.perf_counter() - t0
+    figures["refused"] = s15_refusals()
+    seconds["f"] = time.perf_counter() - t0
+    figures["seconds_from_start"] = seconds
+    print(f"slice 15 parts' ends, seconds from the phase's start: {seconds}")
+    k1["total"] = sum(k1.values())
+    figures["k1"], figures["k2_launches"] = k1, k2
+    print(f"slice 15 launches: K1 {k1}, K2 {k2}")
+    return figures, k1["total"], k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -5083,6 +5509,15 @@ def main() -> int:
     s14_figures, k1_slice14 = data_slice14(dev, card)
     phase_s["18"] = time.perf_counter() - t_start
 
+    # 19. slice 15: the two-stream FlowNet family through the factory and both twins, FlowNetC's K2
+    torch.cuda.empty_cache()
+    cost_volume_backward.launches = quant_downsample.launches = int8_conv.launches = 0
+    s15_figures, k1_slice15, k2_slice15 = data_slice15(dev, card)
+    off_path15 = dict(adjoint=cost_volume_backward.launches, k3=quant_downsample.launches,
+                      int8_conv=int8_conv.launches)
+    check(not any(off_path15.values()), f"phase 19 launched kernels off its path: {off_path15}")
+    phase_s["19"] = time.perf_counter() - t_start
+
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
         plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
@@ -5118,6 +5553,7 @@ def main() -> int:
             "launches_slice12": k1_slice12,
             "launches_slice13": k1_slice13,
             "launches_slice14": k1_slice14,
+            "launches_slice15": k1_slice15,
         },
         {
             "name": "cost_volume",
@@ -5150,6 +5586,9 @@ def main() -> int:
                                "launches, on the GRU's outputs",
                         "max_abs_err": s13_figures["rnn_late_corr"]["k2_max_abs_err"],
                         "shapes": s13_figures["rnn_late_corr"]["k2_shapes"]},
+            "launches_slice15": k2_slice15,
+            "slice15": {"per": "one FlowNetC call: 1 launch, d=20, stride2=2 (441 channels) on its stride-8 level",
+                        "b16": s15_figures["flownetc"]["k2"], "b1": s15_figures["flownetc"]["k2_b1"]},
         },
         {
             "name": "cost_volume_backward",
@@ -5177,6 +5616,7 @@ def main() -> int:
                        "train_step_launches": t5_figures["train_step"]["launches"]["adjoint"]},
             "launches_slice10": k2_slice10[1],
             "launches_slice13": k2_slice13[1],
+            "launches_slice15": off_path15["adjoint"],
         },
         {
             "name": "quant_downsample",
@@ -5191,6 +5631,7 @@ def main() -> int:
             "per": "one B=128 request: 4 launches",
             "route_launches": k3["route_launches"],
             "cells": k3["cells"],
+            "launches_slice15": off_path15["k3"],
         },
         {
             "name": "int8_conv",
@@ -5205,6 +5646,7 @@ def main() -> int:
             "cases": int8_cases + cells3,
             "per": "one B=128 request with ds_conv='pallas': 68 launches",
             **{k: conv[k] for k in ("ms_1x1", "int_mm_1x1_ms", "cells_1x1", "route_launches", "classes")},
+            "launches_slice15": off_path15["int8_conv"],
         },
     ]
     print(json.dumps({"slice4_training": train_figures}))
@@ -5217,6 +5659,7 @@ def main() -> int:
     print(json.dumps({"slice12_stream": stream_figures}))
     print(json.dumps({"slice13_rnn_3d": s13_figures}))
     print(json.dumps({"slice14_backbones": s14_figures}))
+    print(json.dumps({"slice15_two_stream": s15_figures}))
     print(json.dumps({"phase_end_s": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -287,14 +287,16 @@ def test_factory_raises_on_unported_axes():
             build_model(YoloConfig(num_classes=2, k=3, corr_pos="early", corr_d=2, **cfg))
     with pytest.raises(NotImplementedError, match="item 7"):
         YOLOv3T(num_classes=2, k=3, backbone=torch.nn.Identity())
-    # the new_model family (Darknet3D, HDarknet) builds (tests/test_torch_backbones.py);
-    # the two-stream backbones still raise
+    # the new_model family (Darknet3D, HDarknet) and the FlowNet two-stream
+    # model build (tests/test_torch_backbones.py, tests/test_torch_flownet.py);
+    # the R(2+1)D motion stream still raises
     with torch.device("meta"):
         for cfg in (YoloConfig(num_classes=2, new_model=True),
-                    YoloConfig(num_classes=2, new_model=True, hierarchical=(3, 3, 1, 1, 1), h_join_type="conv")):
+                    YoloConfig(num_classes=2, new_model=True, hierarchical=(3, 3, 1, 1, 1), h_join_type="conv"),
+                    YoloConfig(num_classes=2, k=3, motion_stream="flownet")):
             assert isinstance(build_model(cfg), YOLOv3T) and build_model(cfg).has_backbone
-    with pytest.raises(NotImplementedError, match="items 7 and 12"):
-        build_model(YoloConfig(num_classes=2, k=3, motion_stream="flownet"))
+    with pytest.raises(NotImplementedError, match=r"item 7's R\(2\+1\)D half"):
+        build_model(YoloConfig(num_classes=2, k=9, motion_stream="r21d"))
     with pytest.raises(NotImplementedError, match="item 9a"):
         YOLOv3T(num_classes=2, k=3, quant=True)
     # the streaming split is ported (tests/test_torch_streaming.py): feed="tips"

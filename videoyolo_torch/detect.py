@@ -99,6 +99,14 @@ backbone that returns the routes itself: `Darknet3D` with `--conv_types`
 `--window` k frames, or, with `--hier` (e.g. 3,3,1,1,1 on `--window 9,1`),
 `HDarknet`, merging groups of 3 frames by `--h_join_type` max or conv; one
 set of detections a window, the key frame's.
+`--motion_stream flownet` (detect_yolo3.py:43-44, 290-291) builds the
+two-stream YOLOv3T on windows of `--window 3,1`: the middle frame through
+Darknet-53, the outer two through FlowNetS, optionally gating Darknet-53
+(`--stream_gating add|mul`); one set of detections a window.  Its
+`--data_shape` must be a multiple of 64 (384, 448): the default 416 fails
+the JAX CLI's FlowNetS assertion and is refused here.  `--motion_stream
+r21d` raises (ROADMAP.md Queue 1 item 7's R(2+1)D half), and `--stream`
+refuses the two-stream backbone, as it refuses --new_model's.
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -114,6 +122,8 @@ Without `--dataset`, the seeded synthetic mode:
         --window 3,1 --k_join_type max --k_join_pos late --stream   # 32 streams of a clip
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
         --window 5,1 --new_model --conv_types 2,3,3,2,2,2   # Darknet3D (--hier 3,3,1,1,1 --window 9,1: HDarknet)
+    python -m videoyolo_torch.detect --data_shape 384 --batch_size 16 \
+        --window 3,1 --motion_stream flownet --stream_gating add   # the two-stream model
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
 
 The model takes seeded random weights.  Each request is a batch of uint8
@@ -163,6 +173,7 @@ from .metrics.imgnetvid import VIDDetectionMetric
 from .metrics.mscoco import COCODetectionMetric
 from .metrics.pascalvoc import VOCMApMetric
 from .models.factory import YoloConfig, build_model
+from .models.flownet import check_input_size
 from .serving import Detector, collect_boxes
 from .streaming import StreamingDetector, stream_frames
 from .train.checkpoint import load_detector_params, variables_of
@@ -196,6 +207,9 @@ def parse_args(argv=None):
     p.add_argument("--conv_types", default="2,2,2,2,2,2", help="Darknet3D's conv types: the stem and 5 stages")
     p.add_argument("--hier", default="1,1,1,1,1", help="HDarknet's merge windows a level")
     p.add_argument("--h_join_type", default=None, help="HDarknet's merge: max or conv")
+    p.add_argument("--motion_stream", default=None,
+                   help="the two-stream model's motion stream: flownet (--window 3,1; r21d: ROADMAP.md item 7)")
+    p.add_argument("--stream_gating", default=None, help="the motion stream's gating of darknet: add or mul")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
                    help="int8 serving: the fused int8-end-to-end YOLOv3")
     p.add_argument("--stream", action="store_true",
@@ -235,20 +249,28 @@ def _requests(rs, num, b, s, k, stride):
 
 
 def backbone_kwargs(args) -> dict:
-    """--new_model's backbone flags as the factory's keywords (none
-    without it), as detect_yolo3.py passes them."""
-    if not args.new_model:
-        return {}
-    return dict(new_model=True, conv_types=tuple(int(c) for c in args.conv_types.split(",")),
-                hierarchical=tuple(int(h) for h in args.hier.split(",")), h_join_type=args.h_join_type)
+    """--new_model's and --motion_stream's backbone flags as the factory's
+    keywords (none without them), as detect_yolo3.py passes them; a flownet
+    stream's data shape checked first (a multiple of 64, where the JAX
+    CLI's model fails its encoder's assertion)."""
+    kw = {}
+    if args.motion_stream:
+        if args.motion_stream == "flownet":
+            check_input_size(args.data_shape, args.data_shape)
+        kw.update(motion_stream=args.motion_stream, add_type=args.stream_gating)
+    if args.new_model:
+        kw.update(new_model=True, conv_types=tuple(int(c) for c in args.conv_types.split(",")),
+                  hierarchical=tuple(int(h) for h in args.hier.split(",")), h_join_type=args.h_join_type)
+    return kw
 
 
 def check_stream_args(args, window) -> None:
     """detect_yolo3.py's --stream asserts (:960-968, 1008-1011), and the int8
     stream deferred."""
-    if args.new_model:
-        raise ValueError("--stream needs the built-in per-frame backbone: --new_model's Darknet3D and HDarknet own "
-                         "their time mixing (the JAX package's stream asserts so)")
+    if args.new_model or args.motion_stream:
+        raise ValueError("--stream needs the built-in per-frame backbone: --new_model's Darknet3D and HDarknet and "
+                         "--motion_stream's two-stream backbone own their time mixing (the JAX package's stream "
+                         "asserts so)")
     if window[0] <= 1:
         raise ValueError("--stream needs a temporal window (--window k,1)")
     if window[1] != 1:
@@ -684,9 +706,10 @@ def dataset_config(args, num_classes: int) -> YoloConfig:
     """The dataset path's model (detect_yolo3.py:270-301): YOLOv3 with the
     standard stem, YOLOv3T with the temporal flags under --window k > 1,
     YOLOv3Temporal with --temp or --mult_out, or YOLOv3T over Darknet3D or
-    HDarknet with --new_model."""
+    HDarknet with --new_model, or over the two-stream backbone with
+    --motion_stream."""
     k = int(args.window.split(",")[0])
-    if k <= 1 and not (args.temp or args.mult_out or args.new_model):
+    if k <= 1 and not (args.temp or args.mult_out or args.new_model or args.motion_stream):
         return YoloConfig(num_classes=num_classes)
     return YoloConfig(num_classes=num_classes, k=k if k > 1 else None, k_join_type=args.k_join_type,
                       k_join_pos=args.k_join_pos, block_conv_type=args.block_conv_type, rnn_pos=args.rnn_pos,

@@ -137,6 +137,8 @@ class Darknet3D(nn.Module):
     H/16, W/16, 512), (B, H/32, W/32, 1024), time max-pooled at the swap
     point or, where it lives to the end, at each route."""
 
+    route_channels = DARKNET_CHANNELS[-3:]
+
     def __init__(self, conv_types: Sequence[int] = (2, 2, 2, 2, 2, 2), funnel_time: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()

@@ -10,8 +10,11 @@ JAX factory: a YOLOv3T with corr_pos="late" and no join is built directly.
 `new_model` builds YOLOv3T over a backbone that returns the routes itself:
 `HDarknet(hierarchical, h_join_type or "max")` with k = 1 when
 hierarchical[0] > 1, else `Darknet3D(conv_types, funnel_time)` with k = k or
-1, the temporal flags passed as they are (factory.py:104-135).  The
-motion-stream branch raises and names the ROADMAP item that brings it.
+1, the temporal flags passed as they are (factory.py:104-135).
+`motion_stream="flownet"` (k = 3, factory.py:64-65) builds YOLOv3T over the
+two-stream `TwoStreamDarknet(add_type)` with no temporal flag, as the JAX
+factory does (factory.py:74-88); `motion_stream="r21d"` raises and names
+the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -20,12 +23,12 @@ from typing import Optional, Sequence
 
 from .darknet3d import Darknet3D
 from .h_darknet import HDarknet
+from .ts_darknet import TwoStreamDarknet
 from .yolo3 import YOLOv3
 from .yolo3_temporal import YOLOv3T, YOLOv3Temporal
 
 __all__ = ["YoloConfig", "build_model", "yolo3_darknet53", "yolo3_3ddarknet", "yolo3_no_backbone"]
 
-_FAMILIES = "they come with a later slice, see ROADMAP.md Queue 1 items 7 and 12"
 
 
 @dataclass(frozen=True)
@@ -43,6 +46,7 @@ class YoloConfig:
     corr_pos: Optional[str] = None  # early | late
     corr_d: Optional[int] = None
     motion_stream: Optional[str] = None  # flownet | r21d
+    add_type: Optional[str] = None  # the motion stream's gating: add | mul
     agnostic: bool = False
     new_model: bool = False
     hierarchical: Sequence[int] = (1, 1, 1, 1, 1)
@@ -60,8 +64,17 @@ class YoloConfig:
 def build_model(cfg: YoloConfig):
     """Config -> model instance (in training mode, as torch builds modules:
     call `.eval()` to detect)."""
-    if cfg.motion_stream:
-        raise NotImplementedError(f"two-stream backbones: {_FAMILIES}")
+    if cfg.motion_stream == "r21d":
+        raise NotImplementedError("the R(2+1)D motion stream (motion_stream='r21d') comes with ROADMAP.md Queue 1 "
+                                  "item 7's R(2+1)D half")
+    if cfg.motion_stream is not None:
+        if cfg.motion_stream != "flownet":
+            raise ValueError(f"motion_stream must be 'flownet' or 'r21d', got {cfg.motion_stream!r}")
+        if cfg.k != 3:
+            raise ValueError(f"the flownet stream requires k=3 (factory.py:64-65), got k={cfg.k}")
+        backbone = TwoStreamDarknet(stream="flownet", t=cfg.k, add_type=cfg.add_type, dtype=cfg.dtype)
+        return YOLOv3T(num_classes=cfg.num_classes, k=cfg.k, backbone=backbone, agnostic=cfg.agnostic,
+                       dtype=cfg.dtype)
     if cfg.temporal or cfg.t_out:
         return YOLOv3Temporal(
             num_classes=cfg.num_classes, t=cfg.k or 5, conv=int(cfg.block_conv_type), corr_d=cfg.corr_d or 0,

@@ -34,6 +34,8 @@ _MERGE_WIDTHS = (32, 64, 128, 256)  # the channels after the stem and stages 1-3
 class HDarknet(nn.Module):
     """NHWC windows (B, t, H, W, 3) (or images) -> the three routes."""
 
+    route_channels = (256, 512, 1024)
+
     def __init__(self, windows: Sequence[int] = (3, 1, 1, 1, 1), merge_type: str = "max",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()

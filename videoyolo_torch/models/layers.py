@@ -110,6 +110,27 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x, self._cast("weight", self.weight), bias, self.stride, self.padding)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """flax's `nn.ConvTranspose((4, 4), strides=2, padding="SAME")` as
+    FlowNet's decoder builds it: output 2H x 2W, float32 parameters cast
+    to `dtype` at each call, NCHW in and out.  The weight is torch's (in,
+    out, kh, kw), which applies the kernel spatially flipped: flax's
+    kernel (kh, kw, in, out) is not flipped (`transpose_kernel=False`), so
+    the weight is that kernel reversed in kh and kw (utils/flax_bridge.py
+    flips it both ways)."""
+
+    _cast = Conv2d._cast
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True, dtype: torch.dtype | None = None):
+        super().__init__(in_channels, out_channels, 4, stride=2, padding=1, bias=bias)
+        self.dtype = dtype or torch.float32
+        self._cast_cache = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self._cast("bias", self.bias)
+        return F.conv_transpose2d(x, self._cast("weight", self.weight), bias, self.stride, self.padding)
+
+
 class GlobalBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm over the global batch of every process of the
     group: flax's statistics under the JAX package's batch-sharded step
@@ -690,15 +711,18 @@ def _nchw_frames(module: Callable, x: torch.Tensor) -> torch.Tensor:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init in place: conv kernels N(0, 1/fan_in) (flax's
-    lecun scale), conv biases 0, BN at identity (scale 1, bias 0, mean 0,
+    lecun scale; a transposed conv's fan-in is its input channels times
+    its taps), conv biases 0, BN at identity (scale 1, bias 0, mean 0,
     var 1).  Draws on the CPU from `generator`, so a seed gives the same
     weights on every device."""
     with torch.no_grad():
         for m in module.modules():
             if getattr(m, "zero_init", False):
                 m.weight.zero_()
-            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, nn.ConvTranspose2d)):
                 fan_in = m.weight[0].numel()
+                if isinstance(m, nn.ConvTranspose2d):
+                    fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / fan_in**0.5
                 m.weight.copy_(w)
                 if m.bias is not None:

@@ -47,16 +47,18 @@ window of tips, pooled over time.  The 3D and 2+1D blocks
 detection blocks over the window, (k, k, k) or (1, k, k) then (k, 1, 1)
 cells; the transitions stay per frame.
 
-With a `backbone` (`Darknet3D` or `HDarknet`, the factory's `new_model`),
-YOLOv3T takes the backbone's three 4-D routes in place of the Darknet-53
-stages, and its FPN and heads run in 2D on them, as the JAX package's do:
-no join or correlation runs, whatever the flags.
+With a `backbone` (`Darknet3D` or `HDarknet`, the factory's `new_model`,
+or the two-stream `TwoStreamDarknet`, its `motion_stream="flownet"`),
+YOLOv3T takes the backbone's three 4-D routes, of the backbone's
+`route_channels`, in place of the Darknet-53 stages, and its FPN and heads
+run in 2D on them, as the JAX package's do: no join or correlation runs,
+whatever the flags.
 
 The configurations whose JAX forward is at fault raise ValueError (ROADMAP.md
 Queue 3): the conv-RNN or 3-D blocks after an early correlation or on a
 backbone's 4-D routes, and the 3-D funnel.  Not ported yet
-(NotImplementedError naming the ROADMAP.md item): the two-stream and other
-backbones (item 7) and int8 cells (item 9a).
+(NotImplementedError naming the ROADMAP.md item): other backbones (item 7's
+R(2+1)D half) and int8 cells (item 9a).
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ from ..ops.correlation import num_corr_channels
 from .darknet import DARKNET53_CHANNELS, Darknet53Stage1, DarknetStage
 from .darknet3d import Darknet3D
 from .h_darknet import HDarknet
+from .ts_darknet import TwoStreamDarknet
 from .layers import (
     Conv21D, ConvBNLeaky, ConvBNLeaky3D, ConvRNN, Corr, TemporalPooling, nhwc, time_distributed, upsample2x,
 )
@@ -216,8 +219,9 @@ def _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, co
 
 class YOLOv3T(nn.Module):
     """k-frame temporal YOLOv3 (yolo3_temporal.py:166-375) with the built-in
-    Darknet-53 stages, or over a `backbone` (`Darknet3D`, `HDarknet`) that
-    returns the three routes itself from its window.
+    Darknet-53 stages, or over a `backbone` (`Darknet3D`, `HDarknet`,
+    `TwoStreamDarknet`) that returns the three routes itself from its
+    window.
 
     Input (B, k, H, W, 3) NHWC for k > 1 ((B, H, W, 3) for k = 1), or with
     `feed="tips"` the three (B, k, H/s, W/s, C) windows of pre-join tips,
@@ -252,8 +256,9 @@ class YOLOv3T(nn.Module):
         _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, corr_d)
         if quant:
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
-        if backbone is not None and not isinstance(backbone, (Darknet3D, HDarknet)):
-            raise NotImplementedError(f"two-stream and other backbones than Darknet3D and HDarknet: {_LATER} 7")
+        if backbone is not None and not isinstance(backbone, (Darknet3D, HDarknet, TwoStreamDarknet)):
+            raise NotImplementedError(f"backbones other than Darknet3D, HDarknet and the FlowNet two-stream: {_LATER} "
+                                      "7")
         if backbone is not None and (rnn_pos is not None or block_conv_type != "2"):
             raise ValueError("the conv-RNN and 3-D blocks scan a window, and a backbone's routes are 4-D (the JAX "
                              "package reads their batch or rows as time); not built")
@@ -300,7 +305,8 @@ class YOLOv3T(nn.Module):
             return self.k * c + n_corr if corr else c
 
         route_channels = [
-            after(c, self.early_join, self.early_corr) for c in DARKNET53_CHANNELS[-3:]
+            after(c, self.early_join, self.early_corr)
+            for c in (backbone.route_channels if backbone is not None else DARKNET53_CHANNELS[-3:])
         ]
         anchors_rev = list(anchors)[::-1]
         strides_rev = list(strides)[::-1]

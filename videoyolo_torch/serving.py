@@ -40,8 +40,8 @@ class Detector:
     package.
 
     `variables`: the JAX package's variables; a standard 3-channel stem is
-    refolded when `cfg.pad_stem` (YOLOv3 only: YOLOv3T has a 3-channel
-    stem).  None: seeded random weights.
+    refolded when `cfg.pad_stem` (YOLOv3 only: YOLOv3T and its backbones
+    have a 3-channel stem).  None: seeded random weights.
     `dtype` (when given) replaces `cfg.dtype`.  `device` None means CUDA, and
     raises where there is none.
 
@@ -105,7 +105,7 @@ class Detector:
         if variables is None:
             init_weights(model, torch.Generator().manual_seed(seed))
             return model
-        if cfg.pad_stem and not cfg.new_model and "backbone" in variables["params"]:
+        if cfg.pad_stem and not (cfg.new_model or cfg.motion_stream) and "backbone" in variables["params"]:
             stem = variables["params"]["backbone"]["conv0"]["Conv_0"]["kernel"]
             if np.shape(stem)[2] == 3:
                 variables = pad_stem_cin(variables, prefix="backbone")

@@ -222,6 +222,12 @@ def make_train_step(
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
             metrics = {k: v / accum_steps for k, v in sums.items()}
+        for p in model.parameters():
+            if p.grad is None:
+                # a parameter the loss does not reach (the two-stream model's
+                # two finest FlowNet flows): optax still decays it and moves
+                # its momentum, where torch's SGD would skip it
+                p.grad = torch.zeros_like(p)
         if multihost.process_count() > 1:
             average_gradients(model)
         state.apply_gradients()

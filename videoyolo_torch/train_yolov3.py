@@ -17,6 +17,8 @@ on any of them combined through the WordNet class tree.
         --conv_types 2,3,3,2,2,2 --pretrained_base_path darknet53.params ...   # Darknet3D, inflated
     python -m videoyolo_torch.train_yolov3 --dataset vid --window 9,1 --new_model --hier 3,3,1,1,1 \
         --h_join_type max ...   # HDarknet
+    python -m videoyolo_torch.train_yolov3 --dataset vid --window 3,1 --motion_stream flownet \
+        --stream_gating add --data_shape 384 --no_random_shape --nopretrained_cnn ...   # two-stream
     python -m videoyolo_torch.train_yolov3 --dataset comb ...   # voc,coco,det,vid on the class tree
     python -m videoyolo_torch.train_yolov3 --dataset voc,coco,det,vid,yt ...   # any list, the same way
 
@@ -108,6 +110,16 @@ with every conv type 2, where the JAX CLI's load fails (ROADMAP.md Queue 3).
 From their zero init the conv merges overflow the first step's gradient,
 in both packages (Queue 3): train `--h_join_type conv` from a checkpoint.
 
+`--motion_stream flownet` trains the two-stream YOLOv3T on windows of
+`--window 3,1` (the middle frame through Darknet-53, the outer two through
+FlowNetS; `--stream_gating add|mul` gates Darknet-53 with the FlowNet
+encoder's features), as the JAX CLI builds it.  It trains at one shape,
+a multiple of 64: `--data_shape 384 --no_random_shape` (the JAX CLI's run
+fails on the first batch of 416 px or of five of its ten random shapes,
+and the twin refuses them).  `--pretrained_cnn` loads the ImageNet
+Darknet-53 into the ungated model's darknet half, as the JAX CLI does, and
+refuses the gated one, where the JAX CLI's load fails (Queue 3).
+
 The log line `Speed: %.3f samples/sec` is the JAX CLI's (a rank's samples).
 The run is on the card unless `--device cpu` is given.  Paths this slice
 does not port raise NotImplementedError naming their ROADMAP.md item:
@@ -149,8 +161,10 @@ from .models.darknet import Darknet53
 from .models.darknet3d import Darknet3D
 from .models.factory import yolo3_darknet53
 from .models.inflate import inflate_darknet53_to_3d
+from .models.flownet import check_input_size
 from .models.layers import init_weights
 from .models.s2d import refold_stem_s2d
+from .models.ts_darknet import TwoStreamDarknet
 from .parallel import mesh
 from .parallel.multihost import (
     global_mean, is_coordinator, local_batch_size, process_count, process_epoch_indices, process_index, sync_any,
@@ -239,6 +253,9 @@ def parse_args(argv=None):
     p.add_argument("--conv_types", type=_csv, default=["2"] * 6, help="Darknet3D's conv types: the stem and 5 stages")
     p.add_argument("--hier", type=_csv, default=["1"] * 5, help="HDarknet's merge windows a level")
     p.add_argument("--h_join_type", default=None, help="HDarknet's merge: max or conv")
+    p.add_argument("--motion_stream", default=None,
+                   help="the two-stream model's motion stream: flownet (--window 3,1; r21d: ROADMAP.md item 7)")
+    p.add_argument("--stream_gating", default=None, help="the motion stream's gating of darknet: add or mul")
     # paths this slice does not port
     p.add_argument("--features_dir", default=None)
     p.add_argument("--trained_on", default="")
@@ -254,6 +271,15 @@ def check_ported(args):
         raise ValueError("window > 1 requires one video dataset, vid or yt (train_yolov3.py:775-776)")
     if args.mult_out and any(n != "vid" for n in args.dataset + args.dataset_val):
         raise ValueError("--mult_out labels each frame of a window, which only the vid dataset gives")
+    if args.motion_stream == "flownet":
+        # the JAX CLI's FlowNetS asserts H and W are multiples of 64 on the
+        # first batch of another shape: the default 416 and five of the ten
+        # random shapes (352, 416, 480, 544, 608; train_yolov3.py:285) fail
+        check_input_size(args.data_shape, args.data_shape)
+        if not args.no_random_shape:
+            raise ValueError("--motion_stream flownet trains at one shape, a multiple of 64: pass --no_random_shape "
+                             "(five of the ten random shapes, 352, 416, 480, 544 and 608, fail FlowNetS's "
+                             "divisibility check, as the JAX CLI's run fails on its first batch of one)")
     if args.features_dir:
         raise NotImplementedError("--features_dir (the head-only model): see ROADMAP.md Queue 1 item 13")
     if args.trained_on:
@@ -265,7 +291,7 @@ def temporal_kwargs(args) -> dict:
     model), as the JAX CLI passes them, with the backbone's under
     --new_model."""
     k = window(args)[0]
-    if k <= 1 and not (args.temp or args.mult_out or args.new_model):
+    if k <= 1 and not (args.temp or args.mult_out or args.new_model or args.motion_stream):
         return {}
     return dict(k=k if k > 1 else None, k_join_type=args.k_join_type, k_join_pos=args.k_join_pos,
                 block_conv_type=args.block_conv_type, rnn_pos=args.rnn_pos, corr_pos=args.corr_pos,
@@ -273,12 +299,15 @@ def temporal_kwargs(args) -> dict:
 
 
 def backbone_kwargs(args) -> dict:
-    """--new_model's backbone flags as the factory's keywords (none
-    without it)."""
-    if not args.new_model:
-        return {}
-    return dict(new_model=True, conv_types=tuple(int(c) for c in args.conv_types),
-                hierarchical=tuple(int(h) for h in args.hier), h_join_type=args.h_join_type)
+    """--new_model's and --motion_stream's backbone flags as the factory's
+    keywords (none without them)."""
+    kw = {}
+    if args.motion_stream:
+        kw.update(motion_stream=args.motion_stream, add_type=args.stream_gating)
+    if args.new_model:
+        kw.update(new_model=True, conv_types=tuple(int(c) for c in args.conv_types),
+                  hierarchical=tuple(int(h) for h in args.hier), h_join_type=args.h_join_type)
+    return kw
 
 
 def window(args):
@@ -427,8 +456,9 @@ def _load_pretrained_base(args, model):
     the s2d stem, inflated for Darknet3D's 3-D and 2+1D stages (a 3-D
     kernel the 2D one repeated over time / its extent, a 2+1D cell's
     spatial kernel the 2D one and its temporal kernel 1/3, BN across), as
-    they are into HDarknet (Darknet-53's tree); raises when none are
-    found."""
+    they are into HDarknet and the ungated two-stream model's darknet half
+    (Darknet-53's tree); raises when none are found, and for the gated
+    two-stream model."""
     path = _find_pretrained_base(args)
     if path is None:
         raise RuntimeError(
@@ -436,6 +466,13 @@ def _load_pretrained_base(args, model):
             "--pretrained_base_path, place darknet53*.params under ~/.mxnet/models or "
             f"{args.dataset_root}/weights, or pass --nopretrained_cnn to train the base from scratch."
         )
+    if isinstance(getattr(model, "backbone", None), TwoStreamDarknet) and model.backbone.add_type:
+        # the JAX CLI loads Darknet-53's paths into the gated tree here and
+        # fails on its names (ROADMAP.md Queue 3)
+        raise RuntimeError(
+            "--pretrained_cnn with --stream_gating: the gated two-stream tree (gstart, gstage4, stage5) is not "
+            "Darknet-53's (conv0, stage1-5), so the JAX CLI's load fails on it; pass --nopretrained_cnn, or train "
+            "the ungated model (its darknet half takes the base as it is).")
     variables = variables_of(model)
     if "backbone" not in variables["params"]:
         raise RuntimeError(

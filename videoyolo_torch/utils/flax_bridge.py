@@ -9,12 +9,20 @@ The port names its submodules after the flax tree paths
   params      kernel (HWIO) -> weight (OIHW)
               kernel (kt, kh, kw, I, O) -> weight (O, I, kt, kh, kw)   a 3-D conv
               kernel (in, out) -> weight (out, in)     a dense layer
+              kernel (kh, kw, in, out) -> weight (in, out, kh, kw),
+                  reversed in kh and kw                 a transposed conv
               scale         -> weight (BatchNorm)
               bias          -> bias
               qkernel (HWIO int8) -> qkernel (OIHW)    the fused-int8 leaves
               wscale, xscale, oscale -> the same names (buffers)
   batch_stats mean          -> running_mean (+ num_batches_tracked = 0)
               var           -> running_var
+
+A transposed conv is FlowNet's decoder's (`deconv{2..5}`,
+`upsampled_flow{k}_to_{k-1}`, models/flownet.py), told by its module's
+name: flax's `ConvTranspose` applies its kernel as it is, torch's
+`conv_transpose2d` the weight reversed in kh and kw, so the bridge
+reverses it both ways.
 
 The s2d stem's leaves keep their paths: `conv0/Conv_0/kernel` (3, 3, 12,
 128) and `stage1/ConvBNLeaky_0/Conv_0/kernel` (2, 2, 128, 64) map to
@@ -33,6 +41,9 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+# the modules whose kernels are transposed convs' (models/flownet.py)
+_TRANSPOSED = ("deconv", "upsampled_flow")
 
 _LEAVES = {
     "params": {
@@ -64,11 +75,15 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
             *mods, leaf = path
             if leaf not in names:
                 raise ValueError(f"no bridge for {coll} leaf {'/'.join(path)}")
-            t = torch.as_tensor(arr)
+            # a numpy view may run backwards (the JAX FlowNet2 importer's
+            # flipped kernels), which torch cannot wrap
+            t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
             if leaf == "kernel" and t.dim() == 2:
                 t = t.T
             elif leaf == "kernel" and t.dim() == 5:
                 t = t.permute(4, 3, 0, 1, 2)
+            elif leaf == "kernel" and t.dim() == 4 and mods[-1].startswith(_TRANSPOSED):
+                t = t.flip(0, 1).permute(2, 3, 0, 1)
             elif leaf in ("kernel", "qkernel"):
                 if t.dim() != 4:
                     raise ValueError(f"{'/'.join(path)}: expected an HWIO conv kernel, got {tuple(t.shape)}")
@@ -82,7 +97,8 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
 def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
     """A float model's state_dict -> the JAX package's variables (nested
     numpy dicts, float32): conv weights OIHW -> kernel HWIO (O, I, kt, kh,
-    kw -> kt, kh, kw, I, O for a 3-D conv), BatchNorm weight
+    kw -> kt, kh, kw, I, O for a 3-D conv; a transposed conv's reversed
+    back), BatchNorm weight
     -> scale, running stats -> batch_stats; num_batches_tracked is dropped."""
     variables: Dict = {"params": {}, "batch_stats": {}}
     for key, t in state.items():
@@ -92,6 +108,8 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
             continue
         if leaf in ("running_mean", "running_var"):
             coll, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
+        elif leaf == "weight" and arr.dim() == 4 and mods[-1].startswith(_TRANSPOSED):
+            coll, name, arr = "params", "kernel", arr.permute(2, 3, 0, 1).flip(0, 1)
         elif leaf == "weight" and arr.dim() == 4:
             coll, name, arr = "params", "kernel", arr.permute(2, 3, 1, 0)
         elif leaf == "weight" and arr.dim() == 5:
