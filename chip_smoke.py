@@ -319,6 +319,32 @@ Phases; any failure exits non-zero:
      random shapes, --stream, --pretrained_cnn with --stream_gating); no
      K2' or int8 launch in the phase; a `{"slice15_two_stream": ...}` line
      and `launches_slice15` in every kernel's entry of the kernels line.
+ 20. slice 16, the two-stream R(2+1)D family (models/r21d.py, ts_darknet.py's
+     r21d stream, utils/r21d_import.py; the factory's motion_stream="r21d"),
+     416 px, 30 VID classes: (a) B=16 windows of 9 in bf16 through the
+     Detector for the ungated model and the "add" and "mul" gates, and B=4
+     windows of 33 for the ungated one: K1 once a request and bit-equal to
+     the plain NMS on the model's candidates, no K2, ms and windows/s
+     (median of 10 after 3 warm, CUDA events) beside the convs' dense bf16
+     bound, peak memory, one profiled request with R(2+1)D's
+     (`TwoStreamDarknet.motion`), Darknet-53's (`appearance`) and the init
+     2+1D conv's (`R21D.stem`) device time and the profile's device time
+     over the request's CUDA-event time; (b) each model in float32 at 128
+     px (k=9, and k=33 for the ungated one), card vs CPU within
+     rtol=atol=1e-3; (c) a VMZ `.pkl` written here loaded into the ungated
+     model's R(2+1)D (blobs in place as they are), its outputs card vs CPU
+     (1e-3); (d) a float32 train step of the "add" model on B=2 windows at
+     128 px card vs CPU (TRAIN_TOL), R(2+1)D's statistics unchanged, and its
+     bf16 step at 416 px with the largest of B = 8 / 4 / 2 windows that fits
+     (median of 10 after 3 warm, peak memory, a profiled step, R(2+1)D's
+     statistics unchanged); (e) the train twin three steps with
+     --motion_stream r21d --stream_gating mul --window 9,1 (random shapes
+     on, B=4) on a VID tree, the detect twin on its checkpoint at 416 px
+     (raw outputs and the first batch's detections bit-equal to the trained
+     model's); (f) the twins' refusals (a window other than 9 or 33,
+     --stream, --pretrained_cnn with --stream_gating, --quantize); no K2,
+     K2' or int8 launch in the phase; a `{"slice16_r21d": ...}` line and
+     `launches_slice16` in every kernel's entry of the kernels line.
 A `{"phase_end_s": ...}` line gives each phase's end in seconds from the
 start.  The line before last lists every kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -327,10 +353,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import logging
 import math
 import os
+import pickle
 import random
 import re
 import signal
@@ -371,6 +399,7 @@ from videoyolo_torch.models.factory import YoloConfig, build_model
 from videoyolo_torch.models.flownet import CORR_D, CORR_STRIDE2, FlowNetC, FlowNetS
 from videoyolo_torch.models.layers import ConvBNLeaky, QTensor, QuantResidual, init_weights, time_distributed
 from videoyolo_torch.models.yolo3 import YOLOv3, decode_predictions, postprocess, select_topk_candidates
+from videoyolo_torch.models.r21d import R21D, Conv21DR
 from videoyolo_torch.models.ts_darknet import TwoStreamDarknet
 from videoyolo_torch.models.yolo3_temporal import YOLOv3T
 from videoyolo_torch.ops import correlation_kernel, cuda_build, int8_conv_kernel, nms_kernel
@@ -394,6 +423,7 @@ from videoyolo_torch.train.lr import lr_schedule
 from videoyolo_torch.train.step import average_gradients, create_train_state, make_eval_step, make_train_step
 from videoyolo_torch.utils import gluon_import
 from videoyolo_torch.utils.flax_bridge import walk
+from videoyolo_torch.utils.r21d_import import load_vmz_r21d
 
 SIZE = 416
 NUM_CLASSES = 20
@@ -424,6 +454,7 @@ F32_FLOPS = 67e12
 AREA_OPS = 5
 IOU_OPS = 14
 INT8_OPS = 1979e12  # dense int8 tensor-core peak
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
 # K3 (videoyolo_tpu/ops/pallas_conv.py:116): the int8 3x3/s2 downsample cells
 # it takes in the 416-px int8 detect step (input rows <= 208,
 # videoyolo_tpu/models/layers.py:149-160), as (input H = W, C, F)
@@ -5398,6 +5429,436 @@ def data_slice15(dev, card):
     return figures, k1["total"], k2
 
 
+# ---------------------------------------------------------------------------
+# phase 20: slice 16, the two-stream R(2+1)D family (videoyolo_torch/models/
+# r21d.py, ts_darknet.py's r21d stream, utils/r21d_import.py; the factory's
+# motion_stream="r21d") through the factory and both twins
+# ---------------------------------------------------------------------------
+
+S16_CLASSES = 30  # ImageNet-VID's, as the JAX package's profile of the two-stream family
+S16_MODELS = {"ungated": None, "add": "add", "mul": "mul"}  # name: the factory's add_type
+S16_REQUESTS = (("ungated", 9, 16), ("add", 9, 16), ("mul", 9, 16), ("ungated", 33, 4))  # (a): model, k, B
+S16_WARM, S16_TIMED = 3, 10
+S16_F32_SIZE = 128
+S16_F32 = (("ungated", 9), ("add", 9), ("mul", 9), ("ungated", 33))  # (b): model, k at 128 px float32
+S16_F32_TOL = dict(rtol=1e-3, atol=1e-3)
+S16_TRAIN_WINDOWS = (8, 4, 2)  # (d): the bf16 step's B, the largest that fits
+S16_F32_WINDOWS = 2
+S16_TWIN_BATCH = 4  # (e): random shapes reach 608 px
+S16_TWIN_EVERY = 16  # (e): 12 train windows (3 steps at B=4), 4 val windows (one batch)
+# (d), (e): from a seeded init R(2+1)D's frozen BN holds unit statistics and
+# normalises nothing, and at lr 1e-3 without warmup the 416-px step's box
+# scales overflow float32 in the fifth step, in float32 as in bf16 (PERF.md);
+# a warmup epoch keeps the steps finite
+S16_WARMUP_EPOCHS = 1
+S16_DETECT = ["--window", "9,1", "--motion_stream", "r21d", "--stream_gating", "mul"]  # (e): the detect twin's flags
+S16_TWIN = S16_DETECT + ["--warmup_epochs", str(S16_WARMUP_EPOCHS), "--nopretrained_cnn"]  # the train twin's
+S16_SCOPES = {"r21d": [(TwoStreamDarknet, "motion")], "darknet": [(TwoStreamDarknet, "appearance")],
+              "init": [(R21D, "stem")]}
+
+
+def s16_cfg(name, k=9, dtype=None):
+    return YoloConfig(num_classes=S16_CLASSES, k=k, motion_stream="r21d", add_type=S16_MODELS[name], dtype=dtype)
+
+
+def s16_windows(gen, b, k, size, dev):
+    return torch.randint(0, 256, (b, k, size, size, 3), generator=gen, dtype=torch.uint8, device=dev)
+
+
+def conv_macs(model, fn):
+    """The multiply-adds of every 2-D and 3-D conv that `fn()` runs in
+    `model`, from their output shapes: {"r21d": R(2+1)D's, "all": every
+    conv's}.  A 2+1D cell's temporal conv runs as a functional 2-D conv
+    (`r21d.temporal_conv`), so the cell's own output counts it."""
+    macs, hooks = {"r21d": 0, "all": 0}, []
+    for name, m in model.named_modules():
+        if isinstance(m, (Conv21DR, torch.nn.Conv2d, torch.nn.Conv3d)):
+            w = m.temporal.weight if isinstance(m, Conv21DR) else m.weight
+
+            def count(mod, inp, out, r21d=".r21d." in f".{name}.", taps=w[0].numel()):
+                macs["all"] += out.numel() * taps
+                macs["r21d"] += out.numel() * taps if r21d else 0
+            hooks.append(m.register_forward_hook(count))
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs
+
+
+def s16_serve(name, k, b, dev, card, gen):
+    """(a): B windows of k at 416 px bf16 through the Detector: K1 once a
+    request and bit-equal to the plain NMS on the model's candidates, no K2,
+    ms and windows/s (median of 10 after 3 warm, CUDA events) beside the
+    dense bf16 bound of the request's convs, peak memory, one profiled
+    request with R(2+1)D's (`motion`), Darknet-53's (`appearance`) and the
+    init 2+1D conv's (`R21D.stem`) device time and the profile's device
+    time over the request's CUDA-event time.  Returns (figures, K1
+    launches)."""
+    label = f"slice 16 {name} k={k}"
+    t0 = time.perf_counter()
+    det = Detector(s16_cfg(name, k), dtype=torch.bfloat16, data_shape=SIZE, device="cuda")
+    figures = dict(add_type=S16_MODELS[name], k=k, windows=b, build_s=time.perf_counter() - t0)
+    x = s16_windows(gen, b, k, SIZE, dev)
+    nms_greedy.launches = cost_volume.launches = 0
+    outs = det(x)
+    torch.cuda.synchronize()
+    k1 = nms_greedy.launches
+    check(k1 == 1 and cost_volume.launches == 0,
+          f"{label}: K1 {k1} and K2 {cost_volume.launches} launches a request, expected 1 and 0")
+    check_detections(label, [outs], [b], classes=S16_CLASSES)
+    with torch.inference_mode():
+        xn = det._normalized(x)
+        macs = conv_macs(det.model, lambda: det.model(xn))
+        boxes, scores = det.model(xn)
+        cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+        got = nms_greedy(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+        want = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    # (the comparison with the plain version is not counted)
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, want)), f"{label}: K1 on its candidates differs from the "
+          "plain NMS")
+    figures["k1_equal_plain"] = True
+    del xn, boxes, scores, cands
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms_greedy.launches = 0
+    ms = statistics.median(cuda_time_ms(lambda: det(x), iters=S16_TIMED, warmup=S16_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    prof = scoped_profile(f"{label} B={b} windows", lambda: det(x), 1, card, S16_SCOPES)
+    n_req = S16_TIMED + S16_WARM + 2
+    check(nms_greedy.launches == n_req, f"{label}: K1 launches {nms_greedy.launches} over {n_req} requests")
+    k1 += nms_greedy.launches
+    coverage = prof["busy_ms"] / ms if prof else None
+    bound = {s: 2 * m / BF16_FLOPS * 1e3 for s, m in macs.items()}
+    figures.update(ms=ms, windows_s=b / ms * 1e3, frames_s=b * k / ms * 1e3, peak_gib=peak / 2**30,
+                   r21d_gmacs=macs["r21d"] / 1e9, conv_gmacs=macs["all"] / 1e9, r21d_bound_ms=bound["r21d"],
+                   conv_bound_ms=bound["all"], profile=prof, profile_coverage=coverage,
+                   idle_share_events=max(0.0, 1 - coverage) if prof else None)
+    print(f"{label} B={b} windows at {SIZE} px bf16 ({S16_CLASSES} classes) on {card}: {figures['windows_s']:.2f} "
+          f"windows/s ({ms:.3f} ms a request, median of {S16_TIMED} after {S16_WARM} warm); the convs' dense bf16 "
+          f"bound {bound['all']:.3f} ms ({macs['all'] / 1e12:.3f} TMACs, R(2+1)D's {macs['r21d'] / 1e12:.3f} TMACs "
+          f"and {bound['r21d']:.3f} ms); peak memory {peak / 2**30:.2f} GiB; the profile's device time {coverage} of "
+          "the request's CUDA-event time; K1 1 a request, bit-equal to the plain NMS; K2 0")
+    del det, x
+    torch.cuda.empty_cache()
+    return figures, k1
+
+
+def s16_f32(dev, card, gen):
+    """(b): each model in float32 at 128 px on one window (k=9, and k=33
+    for the ungated one), its raw outputs on the card against the CPU's
+    from the same seed (rtol=atol=1e-3)."""
+    s, out = S16_F32_SIZE, {}
+    for name, k in S16_F32:
+        x = s16_windows(gen, 1, k, s, dev)
+        det = Detector(s16_cfg(name, k), dtype=torch.float32, data_shape=s, device="cuda", seed=1)
+        cpu = copy.deepcopy(det.model).cpu()
+        with torch.inference_mode():
+            xn = det._normalized(x)
+            raw = [[t.cpu() for t in det.model(xn)], list(cpu(xn.cpu()))]
+        errs = {n_: float((a - r).abs().max()) for n_, a, r in zip(("boxes", "scores"), *raw)}
+        check(all(bool(torch.allclose(a, r, **S16_F32_TOL)) for a, r in zip(*raw)),
+              f"slice 16 {name} k={k} float32 at {s} px, card vs CPU: max abs errors {errs}")
+        out[f"{name}_k{k}"] = dict(card_vs_cpu_max_abs=errs)
+        print(f"slice 16 {name} k={k} float32 at {s} px, card vs CPU: max abs errors {errs} (allclose {S16_F32_TOL})")
+        del det, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def write_vmz_pkl(path, net, seed):
+    """A VMZ R(2+1)D-34 `.pkl` ({'blobs': ...}, caffe2's names and NCDHW
+    layout) of random blobs shaped from `net` (an R21D), the classifier's
+    last_out_L400 among them; returns the blobs."""
+    rs = np.random.RandomState(seed)
+    state = net.state_dict()
+    blobs = {}
+
+    def conv(name, key):
+        w = state[key]
+        blobs[name] = (rs.randn(*w.shape) / np.sqrt(w[0].numel())).astype(np.float32)
+
+    def bn(prefix, mod):
+        c = state[f"{mod}.weight"].shape[0]
+        for suffix, (lo, hi) in (("s", (0.5, 1.5)), ("b", (-0.1, 0.1)), ("rm", (-0.1, 0.1)), ("riv", (0.5, 1.5))):
+            blobs[f"{prefix}_{suffix}"] = rs.uniform(lo, hi, c).astype(np.float32)
+
+    conv("conv1_middle_w", "init.spatial.weight")
+    bn("conv1_middle_spatbn_relu", "init.mid_bn")
+    conv("conv1_w", "init.temporal.weight")
+    bn("conv1_spatbn_relu", "init_bn")
+    comp = 0
+    for si, n in enumerate(net.layers, start=1):
+        start = comp
+        for bi in range(1, n + 1):
+            name = f"stage{si}_block{bi}"
+            for j in (1, 2):
+                conv(f"comp_{comp}_conv_{j}_middle_w", f"{name}.conv{j}.spatial.weight")
+                bn(f"comp_{comp}_spatbn_{j}_middle", f"{name}.conv{j}.mid_bn")
+                conv(f"comp_{comp}_conv_{j}_w", f"{name}.conv{j}.temporal.weight")
+                bn(f"comp_{comp}_spatbn_{j}", f"{name}.bn{j}")
+            if bi == 1 and f"{name}.down.weight" in state:
+                conv(f"shortcut_projection_{start}_w", f"{name}.down.weight")
+                bn(f"shortcut_projection_{start}_spatbn", f"{name}.down_bn")
+            comp += 1
+    blobs["last_out_L400_w"] = (rs.randn(400, 512) * 0.05).astype(np.float32)
+    blobs["last_out_L400_b"] = np.zeros(400, np.float32)
+    with open(path, "wb") as f:
+        pickle.dump({"blobs": blobs}, f)
+    return blobs
+
+
+def s16_vmz(dev, card, gen):
+    """(c): a VMZ `.pkl` written here loaded into the ungated model's
+    R(2+1)D (float32, k=9): every conv and BN blob in place as it is (no
+    transpose, `riv` uninverted), the classifier left out (the two-stream
+    R(2+1)D has no `dense`); the loaded model's raw outputs at 128 px on the
+    card against the CPU's (rtol=atol=1e-3)."""
+    model = init_weights(build_model(s16_cfg("ungated")), torch.Generator().manual_seed(2)).eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "r21d_34_ig65m.pkl")
+        blobs = write_vmz_pkl(path, model.backbone.r21d, seed=16)
+        load_vmz_r21d(model.backbone, path, 34)
+    net = model.backbone.r21d
+    pairs = [(net.init.spatial.weight, "conv1_middle_w"), (net.init_bn.running_var, "conv1_spatbn_relu_riv"),
+             (net.stage2_block1.down.weight, "shortcut_projection_3_w"),
+             (net.stage4_block3.conv2.temporal.weight, "comp_15_conv_2_w")]
+    check(all(np.array_equal(t.detach().numpy(), blobs[b]) for t, b in pairs) and not hasattr(net, "dense"),
+          "slice 16 VMZ import: a blob is not in place as it is")
+    x = s16_windows(gen, 1, 9, S16_F32_SIZE, dev)
+    card_model = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        xn = (x.float() / 255.0 - torch.tensor(MEAN, device=dev)) / torch.tensor(STD, device=dev)
+        raw = [[t.cpu() for t in card_model(xn)], list(model(xn.cpu()))]
+    errs = {n_: float((a - r).abs().max()) for n_, a, r in zip(("boxes", "scores"), *raw)}
+    check(all(bool(torch.allclose(a, r, **S16_F32_TOL)) for a, r in zip(*raw)),
+          f"slice 16 VMZ-loaded model float32 at {S16_F32_SIZE} px, card vs CPU: max abs errors {errs}")
+    print(f"slice 16 VMZ .pkl ({len(blobs)} blobs) loaded into the ungated model's R(2+1)D-34, float32 at "
+          f"{S16_F32_SIZE} px, card vs CPU: max abs errors {errs} (allclose {S16_F32_TOL})")
+    del card_model
+    torch.cuda.empty_cache()
+    return dict(blobs=len(blobs), card_vs_cpu_max_abs=errs)
+
+
+def r21d_stats(model):
+    return {k: v.detach().clone() for k, v in model.backbone.r21d.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def s16_train(dev, card):
+    """(d): one float32 step of the "add" model on B=2 windows of 9 at 128 px
+    card vs CPU (TRAIN_TOL), R(2+1)D's running statistics left as the init's
+    (mean 0, var 1) bit for bit; then its bf16 step at 416 px with the
+    largest of B = 8 / 4 / 2 windows that fits (median of 10 after 3 warm,
+    peak memory, one profiled step), R(2+1)D's statistics unchanged over
+    the steps."""
+    model = build_model(s16_cfg("add"))
+    figures = {"card_vs_cpu": check_train_card_vs_cpu(
+        "slice 16 add", model,
+        lambda device: window_batch(np.random.RandomState(1), S16_F32_WINDOWS, S16_F32_SIZE, device, k=9),
+        S16_CLASSES, f"{S16_F32_SIZE} px, B={S16_F32_WINDOWS} windows of 9")}
+    stats = r21d_stats(model)
+    check(all(bool((v == (1.0 if k.endswith("var") else 0.0)).all()) for k, v in stats.items()),
+          "slice 16 add float32 train step: R(2+1)D's running statistics moved")
+    del model
+    torch.cuda.empty_cache()
+    tried = {}
+    for b in S16_TRAIN_WINDOWS:
+        model = init_weights(build_model(s16_cfg("add", dtype=torch.bfloat16)), torch.Generator().manual_seed(0))
+        model.to(dev, memory_format=torch.channels_last)
+        state = create_train_state(model, lr_schedule("step", 1e-3, steps_per_epoch=100, epochs=10,
+                                                      warmup_epochs=S16_WARMUP_EPOCHS))
+        step = make_train_step(model, num_classes=S16_CLASSES)
+        batch = window_batch(np.random.RandomState(0), b, SIZE, dev, k=9)
+        before = r21d_stats(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step(state, batch)
+            torch.cuda.synchronize()
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if fits:
+            break
+        tried[b] = "out of memory"
+        print(f"slice 16 add train step B={b} windows of 9 at {SIZE} px bf16: out of memory on {card}")
+        del model, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        fail(f"slice 16 add train step: no B in {S16_TRAIN_WINDOWS} fits at {SIZE} px")
+    ms = statistics.median(cuda_time_ms(lambda: step(state, batch), iters=S16_TIMED, warmup=S16_WARM))
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step(state, batch).items()}
+    prof = scoped_profile(f"slice 16 add train B={b} windows of 9", lambda: step(state, batch), 1, card, S16_SCOPES)
+    check(all(np.isfinite(v) for v in losses.values()), f"slice 16 add train step losses not finite: {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          f"slice 16 add: parameters not finite after {S16_TIMED + S16_WARM + 4} steps")
+    after = r21d_stats(model)
+    check(all(torch.equal(after[k], v) for k, v in before.items()),
+          "slice 16 add bf16 train steps moved R(2+1)D's running statistics")
+    coverage = prof["busy_ms"] / ms if prof else None
+    figures.update(windows=b, out_of_memory=tried, ms=ms, windows_s=b / ms * 1e3, peak_gib=peak / 2**30,
+                   profile=prof, profile_coverage=coverage, losses=losses, r21d_stats_unchanged=True)
+    print(f"slice 16 add train step B={b} windows of 9 at {SIZE} px bf16 on {card}: {figures['windows_s']:.2f} "
+          f"windows/s ({ms:.3f} ms a step, median of {S16_TIMED} after {S16_WARM} warm), peak memory "
+          f"{peak / 2**30:.2f} GiB; the profile's device time {coverage} of the step's; R(2+1)D's statistics "
+          f"unchanged; losses {losses}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return figures
+
+
+def s16_twins(dev, card):
+    """(e): on a VID tree (phase 12's train snippets, two val snippets) the
+    train twin three steps with --motion_stream r21d --stream_gating mul
+    --window 9,1 (B=4, bf16, random shapes on, --nopretrained_cnn; validated
+    at 416 px), then the detect twin on its checkpoint: its raw outputs and
+    the first batch's detections bit-equal to the trained model's.  Returns
+    (figures, K1 launches)."""
+    workers = os.cpu_count() or 1
+    k1 = 0
+    b = S16_TWIN_BATCH
+    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
+        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+        vid = f"{tmp}/ImageNetVID/ILSVRC"
+        window = (9, 1)
+        val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S16_TWIN_EVERY, window=window,
+                                   inference=True)
+        train = ImageNetVidDetection(root=vid, splits=[(2017, "train")], every=S16_TWIN_EVERY, window=window)
+        flags = ["--dataset", "vid", "--dataset_root", tmp, "--data_shape", str(SIZE), "--dtype", "bf16",
+                 "--num_workers", str(workers), "--batch_size", str(b), "--every", str(S16_TWIN_EVERY)]
+        exp = f"{tmp}/exp"
+        nms_greedy.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, stats = train_yolov3.main(flags + S16_TWIN + ["--epochs", "1", "--save_prefix", "0000",
+                                                             "--experiment_root", exp, "--save_interval", "1",
+                                                             "--log_interval", "1"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_steps, n_val = len(train) // b, -(-len(val) // b)
+        bb = getattr(model, "backbone", None)
+        check(isinstance(bb, TwoStreamDarknet) and bb.stream == "r21d" and bb.add_type == "mul",
+              "slice 16 train twin: not the mul-gated R(2+1)D two-stream model")
+        check(nms_greedy.launches == n_val, f"slice 16 train twin: K1 launches {nms_greedy.launches}, expected {n_val}")
+        check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "slice 16 train twin: parameters not finite")
+        k1 += nms_greedy.launches
+        ep = stats["epochs"][0]
+        check(len(ep["steps"]) == n_steps == 3, f"slice 16 train twin: {len(ep['steps'])} steps, expected 3")
+        figures = {"flags": S16_TWIN, "steps": len(ep["steps"]), "samples_s": ep["samples_s"], "seconds": secs,
+                   "peak_gib": peak / 2**30, "val": stats["val"], "logged": list(speed)}
+        print(f"slice 16 train twin ({' '.join(S16_TWIN)}, random shapes, bf16, B={b}, {n_steps} steps, "
+              f"{len(val)} val windows at {SIZE} px) on {card}: {ep['samples_s']:.2f} windows/s over the epoch, "
+              f"{secs:.2f} s with the model's build, peak memory {peak / 2**30:.2f} GiB; K1 {n_val}")
+        ckpt = f"{exp}/0000/yolo3_darknet53_vid_0000.params"
+        check(os.path.exists(ckpt), f"the slice 16 train twin wrote no checkpoint {ckpt}")
+
+        nms_greedy.launches = 0
+        t0 = time.perf_counter()
+        dflags = flags + S16_DETECT
+        preds = detect.main(dflags + ["--model_path", ckpt, "--save_dir", f"{tmp}/res", "--save_prefix", "twin",
+                                      "--metrics", "voc"])
+        torch.cuda.synchronize()
+        dsecs = time.perf_counter() - t0
+        check(nms_greedy.launches == n_val, f"slice 16 detect twin: K1 launches {nms_greedy.launches}")
+        k1 += nms_greedy.launches
+        cfg = detect.dataset_config(detect.parse_args(dflags), S16_CLASSES)
+        twin_det = Detector(cfg, detect.load_model_variables(ckpt, cfg), dtype=torch.bfloat16, data_shape=SIZE)
+        tf = YOLO3VideoInferenceTransform(SIZE, SIZE)
+        idxs = range(min(b, len(val)))
+        images = torch.from_numpy(np.stack([
+            tf(np.stack([native.decode(p) for p in val.window_paths(i)]), val.label_and_size(i)[0])[0]
+            for i in idxs])).to(dev)
+        model.eval()
+        with torch.inference_mode():
+            raw_twin, raw_trained = twin_det.model(twin_det._normalized(images)), model(images)
+        check(all(torch.equal(a, b_) for a, b_ in zip(raw_twin, raw_trained)),
+              "slice 16: the raw outputs of the checkpoint's model differ from the trained model's")
+        nms_greedy.launches = 0
+        ids, sc, boxes = (a.cpu().numpy() for a in make_eval_step(model)(images))
+        k1 += nms_greedy.launches
+        ref = {}
+        for n, i in enumerate(idxs):
+            collect_boxes(ref, val.sample_path(i), ids[n], sc[n], np.clip(boxes[n], 0, SIZE), SIZE)
+        check(all(preds.get(val.sample_path(i), []) == ref.get(val.sample_path(i), []) for i in idxs),
+              "slice 16: the detect twin's detections from the checkpoint differ from the trained model's")
+        figures["detect_twin"] = {"windows": len(val), "seconds": dsecs, "detections": sum(map(len, preds.values())),
+                                  "voc": open(f"{tmp}/res/twin/voc.txt").read().splitlines()[-1]}
+        print(f"slice 16 detect twin from the checkpoint (B={b}, {len(val)} windows, {dsecs:.2f} s, model load "
+              f"included) on {card}: raw outputs and the first batch's {sum(map(len, ref.values()))} detections "
+              "equal the trained model's bit for bit")
+        del model, twin_det, images
+        torch.cuda.empty_cache()
+    return figures, k1
+
+
+def s16_refusals():
+    """(f): what the twins refuse with the R(2+1)D stream, each where the
+    JAX CLIs fail or the port defers: a window other than 9 or 33 (detect
+    and train), `--stream`, `--pretrained_cnn` with `--stream_gating`, and
+    `--quantize`."""
+    r21d_flags = ["--window", "9,1", "--motion_stream", "r21d"]
+    k5 = ["--window", "5,1", "--motion_stream", "r21d"]
+    synthetic = ["--batch_size", "1", "--num_requests", "1"]
+    with tempfile.NamedTemporaryFile(suffix=".params") as base:
+        args = train_yolov3.parse_args(["--dataset", "vid", *r21d_flags, "--stream_gating", "mul",
+                                        "--pretrained_base_path", base.name])
+        with torch.device("meta"):
+            gated = train_yolov3.yolo3_darknet53(["a"] * S16_CLASSES, **train_yolov3.temporal_kwargs(args))
+        cases = {
+            "detect_window_5": (ValueError, "k in {9,33}", lambda: detect.main(synthetic + k5)),
+            "train_window_5": (ValueError, "--window 9,1 or 33,1", lambda: train_yolov3.check_ported(
+                train_yolov3.parse_args(["--dataset", "vid", *k5]))),
+            "detect_stream": (ValueError, "built-in per-frame backbone",
+                              lambda: detect.main(synthetic + r21d_flags + ["--stream"])),
+            "detect_quantize": (NotImplementedError, "item 9a",
+                                lambda: detect.main(synthetic + r21d_flags + ["--quantize", "int8"])),
+            "train_gated_pretrained_cnn": (RuntimeError, "--stream_gating",
+                                           lambda: train_yolov3._load_pretrained_base(args, gated)),
+        }
+        refused = {}
+        for name, (exc, text, fn) in cases.items():
+            try:
+                fn()
+                refused[name] = False
+            except exc as e:
+                refused[name] = text in str(e)
+            check(refused[name], f"slice 16: {name} was not refused")
+    print(f"slice 16 refusals: {sorted(refused)}")
+    return refused
+
+
+def data_slice16(dev, card):
+    """Phase 20.  Returns (the phase's figures, K1's launches on its
+    paths)."""
+    figures, k1, seconds = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(20)
+    t0 = time.perf_counter()
+    for name, k, b in S16_REQUESTS:
+        figures[f"{name}_k{k}"], k1[f"{name}_k{k}"] = s16_serve(name, k, b, dev, card, gen)
+    seconds["a"] = time.perf_counter() - t0
+    figures["f32"] = s16_f32(dev, card, gen)
+    seconds["b"] = time.perf_counter() - t0
+    figures["vmz"] = s16_vmz(dev, card, gen)
+    seconds["c"] = time.perf_counter() - t0
+    figures["add_k9"]["train_step"] = s16_train(dev, card)
+    seconds["d"] = time.perf_counter() - t0
+    figures["twins"], k1["twins"] = s16_twins(dev, card)
+    seconds["e"] = time.perf_counter() - t0
+    figures["refused"] = s16_refusals()
+    seconds["f"] = time.perf_counter() - t0
+    figures["seconds_from_start"] = seconds
+    print(f"slice 16 parts' ends, seconds from the phase's start: {seconds}")
+    k1["total"] = sum(k1.values())
+    figures["k1"] = k1
+    print(f"slice 16 launches: K1 {k1}")
+    return figures, k1["total"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -5518,6 +5979,15 @@ def main() -> int:
     check(not any(off_path15.values()), f"phase 19 launched kernels off its path: {off_path15}")
     phase_s["19"] = time.perf_counter() - t_start
 
+    # 20. slice 16: the two-stream R(2+1)D family through the factory and both twins
+    torch.cuda.empty_cache()
+    cost_volume.launches = cost_volume_backward.launches = quant_downsample.launches = int8_conv.launches = 0
+    s16_figures, k1_slice16 = data_slice16(dev, card)
+    off_path16 = dict(k2=cost_volume.launches, adjoint=cost_volume_backward.launches, k3=quant_downsample.launches,
+                      int8_conv=int8_conv.launches)
+    check(not any(off_path16.values()), f"phase 20 launched kernels off its path: {off_path16}")
+    phase_s["20"] = time.perf_counter() - t_start
+
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
         plain_ms=sum(lv["adjoint_plain_ms"] for lv in step7["levels"]),
@@ -5554,6 +6024,7 @@ def main() -> int:
             "launches_slice13": k1_slice13,
             "launches_slice14": k1_slice14,
             "launches_slice15": k1_slice15,
+            "launches_slice16": k1_slice16,
         },
         {
             "name": "cost_volume",
@@ -5589,6 +6060,7 @@ def main() -> int:
             "launches_slice15": k2_slice15,
             "slice15": {"per": "one FlowNetC call: 1 launch, d=20, stride2=2 (441 channels) on its stride-8 level",
                         "b16": s15_figures["flownetc"]["k2"], "b1": s15_figures["flownetc"]["k2_b1"]},
+            "launches_slice16": off_path16["k2"],
         },
         {
             "name": "cost_volume_backward",
@@ -5617,6 +6089,7 @@ def main() -> int:
             "launches_slice10": k2_slice10[1],
             "launches_slice13": k2_slice13[1],
             "launches_slice15": off_path15["adjoint"],
+            "launches_slice16": off_path16["adjoint"],
         },
         {
             "name": "quant_downsample",
@@ -5632,6 +6105,7 @@ def main() -> int:
             "route_launches": k3["route_launches"],
             "cells": k3["cells"],
             "launches_slice15": off_path15["k3"],
+            "launches_slice16": off_path16["k3"],
         },
         {
             "name": "int8_conv",
@@ -5647,6 +6121,7 @@ def main() -> int:
             "per": "one B=128 request with ds_conv='pallas': 68 launches",
             **{k: conv[k] for k in ("ms_1x1", "int_mm_1x1_ms", "cells_1x1", "route_launches", "classes")},
             "launches_slice15": off_path15["int8_conv"],
+            "launches_slice16": off_path16["int8_conv"],
         },
     ]
     print(json.dumps({"slice4_training": train_figures}))
@@ -5660,6 +6135,7 @@ def main() -> int:
     print(json.dumps({"slice13_rnn_3d": s13_figures}))
     print(json.dumps({"slice14_backbones": s14_figures}))
     print(json.dumps({"slice15_two_stream": s15_figures}))
+    print(json.dumps({"slice16_r21d": s16_figures}))
     print(json.dumps({"phase_end_s": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

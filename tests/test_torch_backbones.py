@@ -588,15 +588,19 @@ def test_hdarknet_refusals_beside_jax():
 
 
 def test_yolov3t_backbone_refusals_beside_jax():
-    """The R(2+1)D two-stream config and any backbone other than Darknet3D,
-    HDarknet or the FlowNet two-stream still raise item 7; int8 with a
-    backbone item 9a; the conv-RNN and 3-D blocks on a backbone's 4-D
-    routes ValueError; the stream refuses a custom backbone, as JAX's
-    asserts."""
+    """Any backbone other than Darknet3D, HDarknet or the two-stream
+    TwoStreamDarknet raises naming item 7; the R(2+1)D stream with
+    `new_model` builds the two-stream model, as JAX's factory does (the
+    motion stream first); int8 with a backbone raises item 9a; the
+    conv-RNN and 3-D blocks on a backbone's 4-D routes ValueError; the
+    stream refuses a custom backbone, as JAX's asserts."""
     with pytest.raises(NotImplementedError, match="item 7"):
         YOLOv3T(num_classes=NC, k=3, backbone=torch.nn.Identity())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_model(YoloConfig(num_classes=NC, k=9, motion_stream="r21d", new_model=True))
+    with torch.device("meta"):
+        assert build_model(YoloConfig(num_classes=NC, k=9, motion_stream="r21d", new_model=True)).backbone.stream \
+            == "r21d"
+    assert type(jax_build_model(JaxYoloConfig(num_classes=NC, k=9, motion_stream="r21d", new_model=True)).backbone
+                ).__name__ == "TwoStreamDarknet"
     with torch.device("meta"):
         bb = darknet3d.Darknet3D((2, 3, 3, 2, 2, 2))
         with pytest.raises(NotImplementedError, match="item 9a"):

@@ -526,16 +526,15 @@ def test_convert_torch_flownet_matches_jax(tmp_path):
 # --- the refusals beside JAX's behaviour -----------------------------------------------------
 
 def test_refusals_beside_jax():
-    """The R(2+1)D stream raises item 7's R(2+1)D half (JAX builds it); a
-    flownet stream with k other than 3 fails JAX's assert and raises
-    ValueError here, as an unknown stream or gating does; the int8 model
-    raises item 9a; 416-px windows fail JAX's encoder assertion and raise
-    the same message here; the streaming detector refuses the two-stream
-    backbone, as JAX's stream asserts."""
-    with pytest.raises(NotImplementedError, match=r"item 7's R\(2\+1\)D half"):
-        build_model(YoloConfig(num_classes=NC, k=9, motion_stream="r21d"))
-    with pytest.raises(NotImplementedError, match=r"item 7's R\(2\+1\)D half"):
-        ts_darknet.TwoStreamDarknet(stream="r21d", t=9)
+    """The R(2+1)D stream builds, as JAX's does (tests/test_torch_r21d.py
+    holds it to JAX); a flownet stream with k other than 3 fails JAX's
+    assert and raises ValueError here, as an unknown stream or gating does;
+    the int8 model raises item 9a; 416-px windows fail JAX's encoder
+    assertion and raise the same message here; the streaming detector
+    refuses the two-stream backbone, as JAX's stream asserts."""
+    with torch.device("meta"):
+        assert build_model(YoloConfig(num_classes=NC, k=9, motion_stream="r21d")).backbone.stream == "r21d"
+        assert not hasattr(ts_darknet.TwoStreamDarknet(stream="r21d", t=9), "flow_encoder")
     with pytest.raises(AssertionError, match="k=3"):
         jax_build_model(JaxYoloConfig(num_classes=NC, k=5, motion_stream="flownet"))
     with pytest.raises(ValueError, match="k=3"):

@@ -317,14 +317,13 @@ def test_factory_surface():
     assert m.output0.anchors.dtype == torch.float32
     head = yolo3_no_backbone(["a", "b"])
     assert not head.use_backbone and head.output2.num_classes == 2
-    # the new_model family and the FlowNet two-stream model build
-    # (tests/test_torch_backbones.py, tests/test_torch_flownet.py); the
-    # R(2+1)D motion stream still raises
+    # the new_model family and the FlowNet and R(2+1)D two-stream models
+    # build (tests/test_torch_backbones.py, tests/test_torch_flownet.py,
+    # tests/test_torch_r21d.py)
     with torch.device("meta"):
         assert build_model(YoloConfig(num_classes=2, new_model=True)).has_backbone
         assert build_model(YoloConfig(num_classes=2, k=3, motion_stream="flownet")).has_backbone
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(YoloConfig(num_classes=2, k=9, motion_stream="r21d"))
+        assert build_model(YoloConfig(num_classes=2, k=9, motion_stream="r21d")).backbone.stream == "r21d"
     # the output conv-RNN builds (tests/test_torch_rnn.py), but not after an
     # early correlation
     assert type(build_model(YoloConfig(num_classes=2, k=3, rnn_pos="out")).output0).__name__ == "YOLOOutputRNN"

@@ -105,8 +105,11 @@ Darknet-53, the outer two through FlowNetS, optionally gating Darknet-53
 (`--stream_gating add|mul`); one set of detections a window.  Its
 `--data_shape` must be a multiple of 64 (384, 448): the default 416 fails
 the JAX CLI's FlowNetS assertion and is refused here.  `--motion_stream
-r21d` raises (ROADMAP.md Queue 1 item 7's R(2+1)D half), and `--stream`
-refuses the two-stream backbone, as it refuses --new_model's.
+r21d` builds the same model with R(2+1)D-34 as its motion stream on
+windows of `--window 9,1` or `33,1` (the factory refuses other k, where
+the JAX CLI's asserts), at any multiple of 32.  `--stream` refuses the
+two-stream backbone, as it refuses --new_model's, and `--quantize` any
+window (item 9a).
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -124,6 +127,8 @@ Without `--dataset`, the seeded synthetic mode:
         --window 5,1 --new_model --conv_types 2,3,3,2,2,2   # Darknet3D (--hier 3,3,1,1,1 --window 9,1: HDarknet)
     python -m videoyolo_torch.detect --data_shape 384 --batch_size 16 \
         --window 3,1 --motion_stream flownet --stream_gating add   # the two-stream model
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
+        --window 9,1 --motion_stream r21d --stream_gating mul   # R(2+1)D's (--window 33,1: k=33)
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
 
 The model takes seeded random weights.  Each request is a batch of uint8
@@ -208,7 +213,7 @@ def parse_args(argv=None):
     p.add_argument("--hier", default="1,1,1,1,1", help="HDarknet's merge windows a level")
     p.add_argument("--h_join_type", default=None, help="HDarknet's merge: max or conv")
     p.add_argument("--motion_stream", default=None,
-                   help="the two-stream model's motion stream: flownet (--window 3,1; r21d: ROADMAP.md item 7)")
+                   help="the two-stream model's motion stream: flownet (--window 3,1) or r21d (--window 9,1 or 33,1)")
     p.add_argument("--stream_gating", default=None, help="the motion stream's gating of darknet: add or mul")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
                    help="int8 serving: the fused int8-end-to-end YOLOv3")

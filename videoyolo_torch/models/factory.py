@@ -11,10 +11,10 @@ JAX factory: a YOLOv3T with corr_pos="late" and no join is built directly.
 `HDarknet(hierarchical, h_join_type or "max")` with k = 1 when
 hierarchical[0] > 1, else `Darknet3D(conv_types, funnel_time)` with k = k or
 1, the temporal flags passed as they are (factory.py:104-135).
-`motion_stream="flownet"` (k = 3, factory.py:64-65) builds YOLOv3T over the
-two-stream `TwoStreamDarknet(add_type)` with no temporal flag, as the JAX
-factory does (factory.py:74-88); `motion_stream="r21d"` raises and names
-the ROADMAP item that brings it.
+`motion_stream="flownet"` (k = 3, factory.py:64-65) or `"r21d"` (k = 9 or
+33, factory.py:66-67; the JAX factory's assertions are ValueErrors here)
+builds YOLOv3T over the two-stream `TwoStreamDarknet(stream, add_type)`
+with no temporal flag, as the JAX factory does (factory.py:74-88).
 """
 from __future__ import annotations
 
@@ -64,15 +64,14 @@ class YoloConfig:
 def build_model(cfg: YoloConfig):
     """Config -> model instance (in training mode, as torch builds modules:
     call `.eval()` to detect)."""
-    if cfg.motion_stream == "r21d":
-        raise NotImplementedError("the R(2+1)D motion stream (motion_stream='r21d') comes with ROADMAP.md Queue 1 "
-                                  "item 7's R(2+1)D half")
     if cfg.motion_stream is not None:
-        if cfg.motion_stream != "flownet":
+        if cfg.motion_stream not in ("flownet", "r21d"):
             raise ValueError(f"motion_stream must be 'flownet' or 'r21d', got {cfg.motion_stream!r}")
-        if cfg.k != 3:
+        if cfg.motion_stream == "flownet" and cfg.k != 3:
             raise ValueError(f"the flownet stream requires k=3 (factory.py:64-65), got k={cfg.k}")
-        backbone = TwoStreamDarknet(stream="flownet", t=cfg.k, add_type=cfg.add_type, dtype=cfg.dtype)
+        if cfg.motion_stream == "r21d" and cfg.k not in (9, 33):
+            raise ValueError(f"the r21d stream requires k in {{9,33}} (factory.py:66-67), got k={cfg.k}")
+        backbone = TwoStreamDarknet(stream=cfg.motion_stream, t=cfg.k, add_type=cfg.add_type, dtype=cfg.dtype)
         return YOLOv3T(num_classes=cfg.num_classes, k=cfg.k, backbone=backbone, agnostic=cfg.agnostic,
                        dtype=cfg.dtype)
     if cfg.temporal or cfg.t_out:

@@ -191,7 +191,8 @@ class GlobalBatchNorm(torch.autograd.Function):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over dim 1.
+    """flax's `nn.BatchNorm(momentum=0.9, epsilon=eps)` over dim 1 (eps
+    1e-5, the JAX package's everywhere but R(2+1)D's 1e-3).
 
     Eval normalises with the running statistics.  Train normalises with the
     batch's and updates the running ones as flax's `_compute_stats` does:
@@ -214,8 +215,8 @@ class BatchNorm(nn.BatchNorm2d):
     While `frozen` (the recompute of `remat`), train mode leaves the
     running statistics alone."""
 
-    def __init__(self, num_features: int, phases: int = 1):
-        super().__init__(num_features, eps=BN_EPS, momentum=1 - BN_MOMENTUM)
+    def __init__(self, num_features: int, phases: int = 1, eps: float = BN_EPS):
+        super().__init__(num_features, eps=eps, momentum=1 - BN_MOMENTUM)
         self.phases = phases
         self.frozen = False
 

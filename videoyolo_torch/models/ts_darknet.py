@@ -1,21 +1,32 @@
 """The two-stream DarkNet backbone (port of
-videoyolo_tpu/models/ts_darknet.py:1-165), its FlowNet stream.
+videoyolo_tpu/models/ts_darknet.py:1-165): its FlowNet and R(2+1)D
+streams.
 
-Of a window of t frames, the middle one runs through Darknet-53 while the
-others, stacked on channels, run through the FlowNetS encoder and decoder;
-each FPN level's darknet route is concatenated with the decoder's concat3,
-concat4 or concat5 (256 + 386, 512 + 770 and 1024 + 1026 channels at
-strides 8, 16 and 32).  With `add_type` "add" or "mul" the encoder's c1 ...
-c4 also gate the first residual block of Darknet-53's first four groups:
-the block's body runs on `d + relu(g)` or `d * relu(g)` and the residual
-`d` is added by hand (ts_darknet.py:33-85, `gstart` and `gstage4`).  The
-input is NHWC windows (B, t, H, W, 3), H and W multiples of 64; the routes
-NHWC maps.  Submodules carry the flax names (`flow_encoder`,
-`flow_decoder`, `conv0`, `stage1`-`stage5`, `gstart`, `gstage4`).
+The middle frame of a window of t frames runs through Darknet-53, the
+motion stream through the window:
 
-Not ported yet (NotImplementedError naming the ROADMAP.md item): the
-R(2+1)D stream (`stream="r21d"`, item 7's R(2+1)D half) and int8 cells
-(item 9a).
+* `stream="flownet"` (t = 3): the other frames, stacked on channels, run
+  through the FlowNetS encoder and decoder; each FPN level's darknet route
+  is concatenated with the decoder's concat3, concat4 or concat5 (256 +
+  386, 512 + 770 and 1024 + 1026 channels at strides 8, 16 and 32); the
+  gates are the encoder's c1 ... c4.
+* `stream="r21d"` (t = 9 or 33, the factory's rule): R(2+1)D-34 runs on the
+  whole window, the middle frame included; its four stage outputs maxed
+  over time are the gates (64, 128, 256 and 512 channels at strides 2, 4,
+  8 and 16), and stages 2-4 maxed over time and 2x2 max-pooled are the
+  route features (256 + 128, 512 + 256 and 1024 + 512 channels at strides 8,
+  16 and 32).  H and W: multiples of 32.
+
+With `add_type` "add" or "mul" the gates also gate the first residual
+block of Darknet-53's first four groups: the block's body runs on `d +
+relu(g)` or `d * relu(g)` and the residual `d` is added by hand
+(ts_darknet.py:33-85, `gstart` and `gstage4`).  The input is NHWC windows
+(B, t, H, W, 3); the routes NHWC maps.  Submodules carry the flax names
+(`flow_encoder`, `flow_decoder` or `r21d`, `conv0`, `stage1`-`stage5`,
+`gstart`, `gstage4`).
+
+Not ported yet (NotImplementedError naming the ROADMAP.md item): int8
+cells (item 9a).
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ from torch.nn import functional as F
 from .darknet import DarknetBasicBlock, DarknetStage
 from .flownet import CONCAT_CHANNELS, FlowNetSEncoder, _FlowDecoder, stack_frames_on_channels
 from .layers import ConvBNLeaky
+from .r21d import R21D, R21D_CONFIGS
 
 __all__ = ["TwoStreamDarknet"]
 
@@ -88,28 +100,33 @@ class _GatedStage4(nn.Module):
 
 
 class TwoStreamDarknet(nn.Module):
-    """DarknetFlownet (ts_darknet.py:88-165): NHWC windows (B, t, H, W, 3)
-    -> the three NHWC routes, darknet's channels then FlowNet's."""
+    """DarknetFlownet / DarknetR21D (ts_darknet.py:88-165): NHWC windows (B,
+    t, H, W, 3) -> the three NHWC routes, darknet's channels then the
+    motion stream's."""
 
     def __init__(self, stream: str = "flownet", t: int = 3, add_type: Optional[str] = None, quant=False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if stream == "r21d":
-            raise NotImplementedError("the R(2+1)D motion stream (stream='r21d') comes with ROADMAP.md Queue 1 "
-                                      "item 7's R(2+1)D half")
-        if stream != "flownet":
+        if stream not in ("flownet", "r21d"):
             raise ValueError(f"stream must be 'flownet' or 'r21d', got {stream!r}")
         if add_type not in ADD_TYPES:
             raise ValueError(f"add_type must be one of {ADD_TYPES}, got {add_type!r}")
         if quant:
             raise NotImplementedError("the two-stream int8 model is deferred, see ROADMAP.md Queue 1 item 9a")
-        if t < 2:
-            raise ValueError(f"the two-stream backbone takes a window of t >= 2 frames, got {t}")
-        self.t, self.add_type = t, add_type
+        if t < (2 if stream == "flownet" else 1):
+            raise ValueError(f"the {stream} two-stream backbone takes a window of t >= "
+                             f"{2 if stream == 'flownet' else 1} frames, got {t}")
+        self.stream, self.t, self.add_type = stream, t, add_type
         self.dtype = dtype or torch.float32
-        self.route_channels = tuple(c + f for c, f in zip((256, 512, 1024), CONCAT_CHANNELS))
-        self.flow_encoder = FlowNetSEncoder(3 * (t - 1), dtype=dtype)
-        self.flow_decoder = _FlowDecoder(dtype=dtype)
+        if stream == "flownet":
+            motion_channels = CONCAT_CHANNELS
+            self.flow_encoder = FlowNetSEncoder(3 * (t - 1), dtype=dtype)
+            self.flow_decoder = _FlowDecoder(dtype=dtype)
+        else:
+            block, layers, channels = R21D_CONFIGS[34]
+            motion_channels = channels[2:]
+            self.r21d = R21D(block=block, layers=layers, channels=channels, return_taps=True, dtype=dtype)
+        self.route_channels = tuple(c + f for c, f in zip((256, 512, 1024), motion_channels))
         if add_type is None:
             self.conv0 = ConvBNLeaky(3, 32, kernel=3, dtype=dtype)
             for i, (cin, c, n) in enumerate(((32, 64, 1), (64, 128, 2), (128, 256, 8), (256, 512, 8)), start=1):
@@ -122,15 +139,22 @@ class TwoStreamDarknet(nn.Module):
     def forward(self, x: torch.Tensor):
         if x.dim() != 5 or x.shape[1] != self.t:
             raise ValueError(f"TwoStreamDarknet takes windows (B, {self.t}, H, W, 3), got {tuple(x.shape)}")
-        m = self.t // 2
-        gates, feats = self.motion(stack_frames_on_channels(torch.cat([x[:, :m], x[:, m + 1:]], dim=1)))
-        routes = self.appearance(x[:, m], gates)
+        gates, feats = self.motion(x)
+        routes = self.appearance(x[:, self.t // 2], gates)
         return tuple(torch.cat([d, f], dim=1).permute(0, 2, 3, 1) for d, f in zip(routes, feats))
 
-    def motion(self, rest: torch.Tensor):
-        """The FlowNet stream on the other frames stacked on channels (B, H,
-        W, 3(t-1)): the gates (the encoder's c1 ... c4) and the route
-        features (concat3, concat4, concat5), NCHW."""
+    def motion(self, x: torch.Tensor):
+        """The motion stream on the window (B, t, H, W, 3): the gates and the
+        route features, NCHW.  FlowNet: the frames other than the middle one
+        stacked on channels; the gates the encoder's c1 ... c4, the features
+        the decoder's concat3, concat4, concat5.  R(2+1)D: the whole window;
+        the gates its stage outputs maxed over time, the features stages 2-4
+        maxed over time and 2x2 max-pooled (ts_darknet.py:128-141)."""
+        if self.stream == "r21d":
+            gates = tuple(r.amax(dim=2) for r in self.r21d.taps(x.to(self.dtype).permute(0, 4, 1, 2, 3)))
+            return gates, tuple(F.max_pool2d(g, 2, 2) for g in gates[1:])
+        m = self.t // 2
+        rest = stack_frames_on_channels(torch.cat([x[:, :m], x[:, m + 1:]], dim=1))
         c1, c2, c3, c4, c5, c6 = self.flow_encoder(rest.permute(0, 3, 1, 2))
         return (c1, c2, c3, c4), self.flow_decoder(c2, c3, c4, c5, c6, flows=False)
 

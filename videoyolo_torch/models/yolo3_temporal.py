@@ -48,7 +48,7 @@ detection blocks over the window, (k, k, k) or (1, k, k) then (k, 1, 1)
 cells; the transitions stay per frame.
 
 With a `backbone` (`Darknet3D` or `HDarknet`, the factory's `new_model`,
-or the two-stream `TwoStreamDarknet`, its `motion_stream="flownet"`),
+or the two-stream `TwoStreamDarknet`, its `motion_stream` flownet or r21d),
 YOLOv3T takes the backbone's three 4-D routes, of the backbone's
 `route_channels`, in place of the Darknet-53 stages, and its FPN and heads
 run in 2D on them, as the JAX package's do: no join or correlation runs,
@@ -56,9 +56,10 @@ whatever the flags.
 
 The configurations whose JAX forward is at fault raise ValueError (ROADMAP.md
 Queue 3): the conv-RNN or 3-D blocks after an early correlation or on a
-backbone's 4-D routes, and the 3-D funnel.  Not ported yet
-(NotImplementedError naming the ROADMAP.md item): other backbones (item 7's
-R(2+1)D half) and int8 cells (item 9a).
+backbone's 4-D routes, and the 3-D funnel.  A backbone of another class
+raises NotImplementedError (the factory builds none: ROADMAP.md item 7
+lists the three).  Not ported yet (NotImplementedError naming the
+ROADMAP.md item): int8 cells (item 9a).
 """
 from __future__ import annotations
 
@@ -80,8 +81,6 @@ from .layers import (
 from .yolo3 import FPN_CHANNELS, YOLOOutput, decode_predictions
 
 __all__ = ["YOLOv3T", "YOLOv3Temporal"]
-
-_LATER = "comes with a later slice of the temporal family, see ROADMAP.md Queue 1 item"
 
 
 def _anchor_pairs(level_anchors):
@@ -257,8 +256,8 @@ class YOLOv3T(nn.Module):
         if quant:
             raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
         if backbone is not None and not isinstance(backbone, (Darknet3D, HDarknet, TwoStreamDarknet)):
-            raise NotImplementedError(f"backbones other than Darknet3D, HDarknet and the FlowNet two-stream: {_LATER} "
-                                      "7")
+            raise NotImplementedError("backbones other than Darknet3D, HDarknet and TwoStreamDarknet, the factory's "
+                                      "three (ROADMAP.md Queue 1 item 7): not built")
         if backbone is not None and (rnn_pos is not None or block_conv_type != "2"):
             raise ValueError("the conv-RNN and 3-D blocks scan a window, and a backbone's routes are 4-D (the JAX "
                              "package reads their batch or rows as time); not built")

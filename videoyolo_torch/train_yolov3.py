@@ -19,6 +19,8 @@ on any of them combined through the WordNet class tree.
         --h_join_type max ...   # HDarknet
     python -m videoyolo_torch.train_yolov3 --dataset vid --window 3,1 --motion_stream flownet \
         --stream_gating add --data_shape 384 --no_random_shape --nopretrained_cnn ...   # two-stream
+    python -m videoyolo_torch.train_yolov3 --dataset vid --window 9,1 --motion_stream r21d \
+        --stream_gating mul --nopretrained_cnn --batch_size 8 ...   # two-stream, R(2+1)D
     python -m videoyolo_torch.train_yolov3 --dataset comb ...   # voc,coco,det,vid on the class tree
     python -m videoyolo_torch.train_yolov3 --dataset voc,coco,det,vid,yt ...   # any list, the same way
 
@@ -119,6 +121,13 @@ fails on the first batch of 416 px or of five of its ten random shapes,
 and the twin refuses them).  `--pretrained_cnn` loads the ImageNet
 Darknet-53 into the ungated model's darknet half, as the JAX CLI does, and
 refuses the gated one, where the JAX CLI's load fails (Queue 3).
+
+`--motion_stream r21d` trains the same two-stream YOLOv3T with R(2+1)D-34
+as its motion stream on windows of `--window 9,1` or `33,1` (the whole
+window through R(2+1)D, the middle frame through Darknet-53), at any data
+shape that is a multiple of 32, random shapes included.  R(2+1)D's BN keeps
+its running statistics in training, as the JAX package's does.
+`--pretrained_cnn` and `--stream_gating` behave as with flownet.
 
 The log line `Speed: %.3f samples/sec` is the JAX CLI's (a rank's samples).
 The run is on the card unless `--device cpu` is given.  Paths this slice
@@ -254,7 +263,7 @@ def parse_args(argv=None):
     p.add_argument("--hier", type=_csv, default=["1"] * 5, help="HDarknet's merge windows a level")
     p.add_argument("--h_join_type", default=None, help="HDarknet's merge: max or conv")
     p.add_argument("--motion_stream", default=None,
-                   help="the two-stream model's motion stream: flownet (--window 3,1; r21d: ROADMAP.md item 7)")
+                   help="the two-stream model's motion stream: flownet (--window 3,1) or r21d (--window 9,1 or 33,1)")
     p.add_argument("--stream_gating", default=None, help="the motion stream's gating of darknet: add or mul")
     # paths this slice does not port
     p.add_argument("--features_dir", default=None)
@@ -280,6 +289,10 @@ def check_ported(args):
             raise ValueError("--motion_stream flownet trains at one shape, a multiple of 64: pass --no_random_shape "
                              "(five of the ten random shapes, 352, 416, 480, 544 and 608, fail FlowNetS's "
                              "divisibility check, as the JAX CLI's run fails on its first batch of one)")
+    if args.motion_stream == "r21d" and window(args)[0] not in (9, 33):
+        # the JAX CLI's factory asserts it when it builds the model
+        raise ValueError(f"--motion_stream r21d takes --window 9,1 or 33,1 (factory.py:66-67), got k="
+                         f"{window(args)[0]}")
     if args.features_dir:
         raise NotImplementedError("--features_dir (the head-only model): see ROADMAP.md Queue 1 item 13")
     if args.trained_on:
@@ -470,9 +483,10 @@ def _load_pretrained_base(args, model):
         # the JAX CLI loads Darknet-53's paths into the gated tree here and
         # fails on its names (ROADMAP.md Queue 3)
         raise RuntimeError(
-            "--pretrained_cnn with --stream_gating: the gated two-stream tree (gstart, gstage4, stage5) is not "
-            "Darknet-53's (conv0, stage1-5), so the JAX CLI's load fails on it; pass --nopretrained_cnn, or train "
-            "the ungated model (its darknet half takes the base as it is).")
+            "--pretrained_cnn with --stream_gating: the gated two-stream tree (gstart, gstage4, stage5), with "
+            "either motion stream (flownet or r21d), is not Darknet-53's (conv0, stage1-5), so the JAX CLI's load "
+            "fails on it; pass --nopretrained_cnn, or train the ungated model (its darknet half takes the base as "
+            "it is).")
     variables = variables_of(model)
     if "backbone" not in variables["params"]:
         raise RuntimeError(
