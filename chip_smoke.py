@@ -80,7 +80,7 @@ Phases; any failure exits non-zero:
      128 px, B=4 on the card and on the CPU from the same weights and batch
      (losses, each leaf's update and the BN statistics within the stated
      TRAIN_TOL); the overfit run of `videoyolo_torch.overfit` (bf16, 160 px,
-     B=8, 400 steps), which must pass the JAX package's rule; its checkpoint
+     B=8, 100 steps), which must pass the JAX package's rule; its checkpoint
      written by `save_params`, loaded into a fresh model, whose eval step's
      detections must equal the trained model's bit for bit, K1 launched once
      an eval (counted); then a profiled overfit step (device ops a step, the
@@ -215,12 +215,14 @@ Phases; any failure exits non-zero:
      phase 9 with their peak memory; `average_gradients` called on its
      gradients, NCCL's all-reduce of them, changing no bit, and timed; (c)
      `python -m torch.distributed.run --nproc_per_node 1` on the train twin
-     with --mixup --syncbn on phase 10's VOC tree (B=48, 416 px, bf16, one
-     epoch, validated, K1 counted in the rank by a runner, `--twin-rank`,
-     that calls the twin's `main`), one checkpoint written; then `-m
-     videoyolo_torch.train_yolov3` for three epochs, a SIGTERM to the rank
-     after its first step, which must leave `<prefix>_0000.params`, no
-     validation and exit 0; a `{"slice11_dp": ...}` line and
+     with --mixup --syncbn on a VOC tree as phase 10's (B=48, 416 px, bf16,
+     K1 counted in the rank by a runner, `--twin-rank`, that calls the
+     twin's `main`), two epochs asked for: the first whole (validated, one
+     checkpoint), then a SIGTERM to the rank in the second epoch's first
+     step, which must leave `<prefix>_0001.params`, validate no more and
+     exit 0.  (a)'s ranks and (c)'s torchrun start first and import while
+     (b) runs; each starts its work when told, (a) after (b) and (c) after
+     (a), so no two parts share the card.  A `{"slice11_dp": ...}` line and
      `launches_slice11` in the kernels line;
  16. slice 12, streaming (videoyolo_torch/streaming.py): (a) the JAX bench's
      stream model (bench.py:479-522: YOLOv3T k=3, late max join, 20
@@ -383,7 +385,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import gc
+import itertools
 import json
 import logging
 import math
@@ -427,6 +431,7 @@ from videoyolo_torch.data.transforms import (
 )
 from videoyolo_torch.models.darknet import Darknet53
 from videoyolo_torch.models import flownet_utils
+from videoyolo_torch.models import layers as model_layers
 from videoyolo_torch.models.factory import YoloConfig, build_model, yolo3_darknet53, yolo3_no_backbone
 from videoyolo_torch.models.mobilenet import get_mobilenet
 from videoyolo_torch.models.surgery import resolve_reuse_map
@@ -443,7 +448,7 @@ from videoyolo_torch.ops.correlation_kernel import (
     cost_volume, cost_volume_backward, cost_volume_backward_plain, cost_volume_pair_backward,
     cost_volume_pair_backward_plain,
 )
-from videoyolo_torch.ops.int8_conv import int8_conv_plain, quant_downsample_plain
+from videoyolo_torch.ops.int8_conv import int8_conv3d_plain, int8_conv_plain, quant_downsample_plain
 from videoyolo_torch.ops.int8_conv_kernel import int8_conv, quant_downsample
 from videoyolo_torch.ops.quantize import replace_quant
 from videoyolo_torch.ops.nms import nms_greedy_plain
@@ -740,13 +745,26 @@ def check_entry_point(preds, n):
     return entries
 
 
+@functools.lru_cache(maxsize=None)
+def library_sass(lib):
+    """`cuobjdump -sass` of a built library, once."""
+    return cuda_build.sass(lib)
+
+
 def build_kernels():
     """Every kernel source, one nvcc each, started together.  Returns each
     wrapper module's (library, ptxas report)."""
     t0 = time.perf_counter()
     sources = (nms_kernel, correlation_kernel, int8_conv_kernel)
+
+    def build(k):  # the SASS that phase 2 reads, dumped as soon as its library is built
+        lib, ptxas = k.build()
+        if k is not nms_kernel:
+            library_sass(lib)
+        return lib, ptxas
+
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        builds = list(pool.map(lambda k: k.build(), sources))
+        builds = list(pool.map(build, sources))
     print(f"built {', '.join(lib.name for lib, _ in builds)} in {time.perf_counter() - t0:.1f} s")
     for lib, ptxas in builds:
         for line in ptxas.splitlines():
@@ -791,7 +809,7 @@ def check_corr_build(ptxas):
         check(spilled == 0, f"cost volume ptxas: the instance (R, GX, GY) = {inst} spills {spilled} bytes")
         print(f"cost volume instance (R, GX, GY) = {inst}{' (main path)' if inst in main else ''}: "
               f"{regs} registers, no spills")
-    sass = cuda_build.sass(correlation_kernel.build()[0])
+    sass = library_sass(correlation_kernel.build()[0])
     kernels = re.findall(r"Function : (\S*cost_volume_kernelILi(\d+)ELi(\d+)ELi(\d+)E\S*)\n(.*?)(?=Function :|\Z)",
                          sass, re.S)
     seen = set()
@@ -814,7 +832,7 @@ def check_int8_sass():
     """The int8 library's SASS: every kernel stores its output 16 bytes at a
     time (STG.E.128), and the wgmma route's kernels multiply with Hopper's
     warpgroup MMA (IGMMA).  Prints one line of each per route."""
-    sass = cuda_build.sass(int8_conv_kernel.build()[0])
+    sass = library_sass(int8_conv_kernel.build()[0])
     kernels = re.findall(r"Function : (\S*int8_(?:conv|downsample)_kernelILi(\d)E\S*)\n(.*?)(?=Function :|\Z)",
                          sass, re.S)
     routes = {str(v): k for k, v in int8_conv_kernel.ROUTE_IDS.items()}
@@ -1179,10 +1197,16 @@ def serve_slice2(rs, dev, card):
     return det, x32, corr_launches, nms_launches, figures, max_err
 
 
+def n_moved(now, before):
+    """The counts of a dict of counters that moved since `before`, by how
+    much."""
+    return {k: v - before[k] for k, v in now.items() if v != before[k]}
+
+
 def route_delta(kernel, before):
     """The launches by route of an int8 wrapper since `before`, those that
     moved."""
-    return {r: n - before[r] for r, n in kernel.route_launches.items() if n != before[r]}
+    return n_moved(kernel.route_launches, before)
 
 
 # the classes of int8 cells in the per-class table, by (kernel, stride, C,
@@ -1266,28 +1290,37 @@ def compare_cells(label, card_outs, cpu_outs):
 
 
 class CallRecorder:
-    """Records the calls of a kernel wrapper in `module` during a block,
-    passing them through (the wrapper counts its launches on the name it is
-    bound to, so the count moves with it)."""
+    """Records the calls of a kernel wrapper in `module` during a block
+    (`calls`), and with `outs` their outputs, passing them through.  A
+    wrapper counts its launches on the name it is bound to in its own
+    module, so when `module` is that module the counts move with the
+    name."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name, outs=False):
+        self.module, self.name, self.calls, self.outs, self.keep = module, name, [], [], outs
 
     def __enter__(self):
-        self.orig = getattr(self.module, self.name)
+        self.orig = orig = getattr(self.module, self.name)
 
         def record(*args, **kwargs):
             self.calls.append((args, kwargs))
-            return self.orig(*args, **kwargs)
+            out = orig(*args, **kwargs)
+            if self.keep:
+                self.outs.append(out)
+            return out
 
-        record.launches = self.orig.launches
-        record.route_launches = self.orig.route_launches  # one dict, counted in place
+        self.counted = orig.__module__ == self.module.__name__ and hasattr(orig, "launches")
+        if self.counted:
+            record.launches = orig.launches
+            if hasattr(orig, "route_launches"):  # a dict, counted in place
+                record.route_launches = orig.route_launches
         self.record = record
         setattr(self.module, self.name, record)
         return self
 
     def __exit__(self, *exc):
-        self.orig.launches = self.record.launches
+        if self.counted:
+            self.orig.launches = self.record.launches
         setattr(self.module, self.name, self.orig)
 
 
@@ -1484,14 +1517,20 @@ def profile_steps(steps, card):
 
     out = {}
     for label, det, x, n, top in steps:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                det(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        # the device's activity alone (the host's ops made most of the events to parse), with the host's
+        # added only where that recorded no device time
+        for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    det(x)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+            if busy_ms:
+                break
+            print(f"profile {label}: no device time with the activities {activities}")
         if busy_ms == 0:
             print(f"profile {label}: the profiler recorded no device time; busy share not measured")
             continue
@@ -1504,13 +1543,16 @@ def profile_steps(steps, card):
             print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step  "
                   f"{e.count // n:4d}x  {e.key[:90]}")
         out[label] = {"wall_ms": wall_ms / n, "busy_ms": busy_ms / n, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-                      "ops": sum(e.count for e in events) // n}
+                      "ops": sum(e.count for e in events) // n,
+                      "top": [(e.key[:90], e.self_device_time_total / 1e3 / n)
+                              for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]]}
     return out
 
 
 TRAIN_BATCH = 48  # the JAX package's timed train step (bench.py:148)
 TRAIN_ROWS = 56  # the loader's padded gt rows
 OVERFIT_CLASSES = 3
+OVERFIT_STEPS = 100  # each overfit run's steps (the entry point's default is 400): the loss is under 1% of the first by step 50
 # card vs CPU, one float32 train step at 128 px, B=4: other conv algorithms
 # and summation orders, and BatchNorm in train mode amplifies rounding into
 # some leaves' updates (on the CPU, that step in float32 lands up to 0.106
@@ -1586,10 +1628,13 @@ def train_state_errors(losses, ref_losses, got, ref, before):
     the BN statistics' largest absolute error."""
     stats = [k for k in ref if k.endswith(("running_mean", "running_var"))]
     params = [k for k in ref if k not in stats and not k.endswith("num_batches_tracked")]
-    leaf = {k: float(((got[k] - before[k]) - (ref[k] - before[k])).abs().max()
-                     / (ref[k] - before[k]).abs().max().clamp_min(1e-30)) for k in params}
-    num = sum(float(((got[k] - ref[k])).pow(2).sum()) for k in params)
-    den = sum(float((ref[k] - before[k]).pow(2).sum()) for k in params)
+    leaf, num, den = {}, 0.0, 0.0
+    for k in params:  # each leaf's float64 reductions on the card (on the host they took seconds a model)
+        g, r, b = (t[k].to("cuda") for t in (got, ref, before))
+        update = r - b
+        leaf[k] = float(((g - b) - update).abs().max() / update.abs().max().clamp_min(1e-30))
+        num += float((g - r).pow(2).sum())
+        den += float(update.pow(2).sum())
     worst = max(leaf, key=leaf.get)
     return {"loss_rtol": max(abs(m[k] - r[k]) / abs(r[k]) for m, r in zip(losses, ref_losses) for k in r),
             "l2": (num / den) ** 0.5, "worst_leaf": leaf[worst], "worst_leaf_name": worst,
@@ -1634,7 +1679,7 @@ def train_slice4(dev, card):
     with tempfile.TemporaryDirectory() as tmp:
         nms_greedy.launches = 0
         rec, model = overfit.run(overfit.parse_args(
-            ["--out", f"{tmp}/overfit_yolov3.json", "--save_prefix", f"{tmp}/yolo3"]))
+            ["--out", f"{tmp}/overfit_yolov3.json", "--save_prefix", f"{tmp}/yolo3", "--steps", str(OVERFIT_STEPS)]))
         check(rec["pass"], f"overfit run fails the JAX package's rule: {rec}")
         fresh = load_into(YOLOv3(num_classes=OVERFIT_CLASSES, dtype=torch.bfloat16),
                           load_variables(rec["checkpoint"])).to(dev, memory_format=torch.channels_last)
@@ -1645,7 +1690,7 @@ def train_slice4(dev, card):
     check(k1 == 3, f"K1 launches on the training path: {k1}, expected 3 (one an eval)")
     check(all(torch.equal(a, b) for a, b in zip(trained, reloaded)),
           "the checkpoint's eval detections differ from the trained model's")
-    print(f"slice 4 overfit (bf16, 160 px, B=8, 400 steps) on {card}: passes the JAX package's rule; "
+    print(f"slice 4 overfit (bf16, 160 px, B=8, {OVERFIT_STEPS} steps) on {card}: passes the JAX package's rule; "
           f"loss {rec['loss_first']:.2f} -> {rec['loss_last']:.4f}, mean top-1 IoU {rec['mean_top1_iou']:.4f}, "
           f"class accuracy {rec['top1_class_acc']}, {rec['step_ms']:.2f} ms/step on the host's clock")
     print(f"slice 4 checkpoint round trip: save_params -> load_variables -> a fresh model; eval detections "
@@ -1676,8 +1721,8 @@ VOC_SPLITS = {(2007, "trainval"): 240, (2012, "trainval"): 240, (2007, "test"): 
 VOC_TEST = VOC_SPLITS[(2007, "test")]
 TWIN_BATCH = 48  # the train twin's batch, as phase 9's train step
 DETECT_BATCH = 128  # the detect twin's batch, as slice 1's B=128 request
-LOADER_PASSES = 2  # passes over the trainval split for the loader's steady rates
-DETECT_PASSES = 4  # passes over the test split for the inference loader and the detect loop
+LOADER_PASSES = 1  # passes over the trainval split for the loader's steady rates
+DETECT_PASSES = 3  # passes over the test split for the inference loader and the detect loop
 # the libjpeg build's pixels of two of the tree's images, decoded where
 # libjpeg is (tests/test_torch_data.py holds the file against that build)
 LIBJPEG_REF = Path(__file__).resolve().parent / "tests" / "data" / "jpeg_writer_libjpeg.npz"
@@ -2324,36 +2369,56 @@ def vid_snippet(s: int, seed: int = 3000):
     return frames, labels
 
 
+_SNIPPETS = {}  # (split, snippet, seed) -> the run-wide directory its frames and XMLs were written under
+
+
 def write_vid_tree(root: str, splits=(("val", VID_SNIPPETS, 3000),)) -> None:
     """`root`/ImageNetVID/ILSVRC: for each (split, snippets, seed) that many
     snippets of VID_FRAMES .JPEG frames (`vid_snippet` from the seed),
     frame ids 1, 2, ... in the split file, an XML a frame with each box's
-    WordNet id and track id; the snippets are encoded in a thread pool."""
+    WordNet id and track id.  Each snippet is encoded once in the run (in a
+    thread pool) and linked into every tree that holds it."""
     wn = load_names("imagenetvid_wn")
     base = os.path.join(root, "ImageNetVID", "ILSVRC")
     os.makedirs(os.path.join(base, "ImageSets", "VID"), exist_ok=True)
 
     def write(split, s, seed):
         video = f"ILSVRC2015_{split}_{s:08d}"
+        if (split, s, seed) not in _SNIPPETS:
+            cache = tempfile.TemporaryDirectory()
+            frames, labels = vid_snippet(s, seed)
+            for d in ("Data", "Annotations"):
+                os.makedirs(os.path.join(cache.name, d), exist_ok=True)
+            for f, (img, boxes) in enumerate(zip(frames, labels)):
+                with open(os.path.join(cache.name, "Data", f"{f:06d}.JPEG"), "wb") as fh:
+                    fh.write(encode_jpeg(img))
+                objs = "".join(f"<object><trackid>{t}</trackid><name>{wn[c]}</name><bndbox><xmin>{x0}</xmin>"
+                               f"<ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox></object>"
+                               for x0, y0, x1, y1, c, t in boxes)
+                with open(os.path.join(cache.name, "Annotations", f"{f:06d}.xml"), "w") as fh:
+                    fh.write(f"<annotation><size><width>{VID_W}</width><height>{VID_H}</height></size>{objs}"
+                             "</annotation>")
+            _SNIPPETS[split, s, seed] = cache
         for d in ("Data", "Annotations"):
-            os.makedirs(os.path.join(base, d, "VID", split, video), exist_ok=True)
-        frames, labels = vid_snippet(s, seed)
-        for f, (img, boxes) in enumerate(zip(frames, labels)):
-            with open(os.path.join(base, "Data", "VID", split, video, f"{f:06d}.JPEG"), "wb") as fh:
-                fh.write(encode_jpeg(img))
-            objs = "".join(f"<object><trackid>{t}</trackid><name>{wn[c]}</name><bndbox><xmin>{x0}</xmin>"
-                           f"<ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox></object>"
-                           for x0, y0, x1, y1, c, t in boxes)
-            with open(os.path.join(base, "Annotations", "VID", split, video, f"{f:06d}.xml"), "w") as fh:
-                fh.write(f"<annotation><size><width>{VID_W}</width><height>{VID_H}</height></size>{objs}"
-                         "</annotation>")
-        return [f"{video}/{f:06d}" for f in range(len(frames))]
+            os.makedirs(os.path.join(base, d, "VID", split), exist_ok=True)
+            os.symlink(os.path.join(_SNIPPETS[split, s, seed].name, d), os.path.join(base, d, "VID", split, video))
+        return [f"{video}/{f:06d}" for f in range(VID_FRAMES)]
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
         for split, snippets, seed in splits:
             names = [n for video in pool.map(lambda s: write(split, s, seed), range(snippets)) for n in video]
             with open(os.path.join(base, "ImageSets", "VID", f"{split}.txt"), "w") as fh:
                 fh.write("\n".join(f"{n} {i + 1}" for i, n in enumerate(names)) + "\n")
+
+
+@contextlib.contextmanager
+def vid_tree(splits):
+    """A fresh directory holding `write_vid_tree`'s tree of `splits` (its
+    snippets encoded once in the run, so a phase's own outputs and its
+    readers' lists stay in its own directory)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write_vid_tree(tmp, splits)
+        yield tmp
 
 
 class _PerSampleVOC(VOCDetection):
@@ -2585,6 +2650,8 @@ TRAIN_WINDOWS = 16  # 48 frames: the frames of the B=48 2D step
 WINDOW_DETECT_BATCH = 32  # slice 2's B=32 windows
 CORR_BWD_LAUNCHES = 3  # per train step: one adjoint launch for each level's two cost volumes
 VID_TRAIN_SNIPPETS, VID_EVERY7 = 6, 2
+# phase 12's VID tree, which phase 13 reads too
+VID_TREE = (("train", VID_TRAIN_SNIPPETS, 4000), ("val", VID_SNIPPETS, 3000))
 WINDOW_LOOP = 128  # windows of the warm detect loop: the val windows over and over
 # (name, B, H, W, C, d, stride2): the train step's three levels at B=16 and
 # B=1 (at 13x13x1024 one image needs C cut into 64 slabs to fill the card),
@@ -2814,19 +2881,19 @@ def data_slice7(dev, card):
 
     with tempfile.TemporaryDirectory() as tmp:
         nms_greedy.launches = 0
-        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_k3.json", "--config", "k3"]))
+        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_k3.json", "--config", "k3",
+                                                 "--steps", str(OVERFIT_STEPS)]))
         k1["overfit_k3"] = nms_greedy.launches
         check(rec["pass"], f"overfit k3 fails the JAX package's rule: {rec}")
-        print(f"slice 7 overfit k3 (YOLOv3T k=3, late max join, bf16, 160 px, B=8 static windows, 400 steps) on "
+        print(f"slice 7 overfit k3 (YOLOv3T k=3, late max join, bf16, 160 px, B=8 static windows, {OVERFIT_STEPS} steps) on "
               f"{card}: passes the JAX package's rule; loss {rec['loss_first']:.2f} -> {rec['loss_last']:.4f}, mean "
               f"top-1 IoU {rec['mean_top1_iou']:.4f}, class accuracy {rec['top1_class_acc']}, "
               f"{rec['step_ms']:.2f} ms/step on the host's clock")
         figures["overfit_k3"] = rec
     torch.cuda.empty_cache()
 
-    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", VID_SNIPPETS, 3000)))
+    t0 = time.perf_counter()
+    with logged_speed() as speed, vid_tree(VID_TREE) as tmp:
         figures["tree_s"] = time.perf_counter() - t0
         vid = f"{tmp}/ImageNetVID/ILSVRC"
         val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=VID_EVERY7, window=(WINDOW, 1),
@@ -3308,20 +3375,20 @@ def data_t5(dev, card):
 
     with tempfile.TemporaryDirectory() as tmp:
         nms_greedy.launches = cost_volume.launches = cost_volume_backward.launches = 0
-        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_t5.json", "--config", "t5"]))
+        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_t5.json", "--config", "t5",
+                                                 "--steps", str(OVERFIT_STEPS)]))
         k1["overfit_t5"] = nms_greedy.launches
         k2["overfit_t5"] = (cost_volume.launches, cost_volume_backward.launches)
         check(rec["pass"], f"overfit t5 fails the JAX package's rule: {rec}")
-        print(f"t5 overfit (YOLOv3Temporal t=5 t_out, corr pyramid d=2, bf16, 160 px, B=8 static windows, 400 steps, "
+        print(f"t5 overfit (YOLOv3Temporal t=5 t_out, corr pyramid d=2, bf16, 160 px, B=8 static windows, {OVERFIT_STEPS} steps, "
               f"per-timestep gt, the middle frame's detections) on {card}: passes the JAX package's rule; loss "
               f"{rec['loss_first']:.2f} -> {rec['loss_last']:.4f}, mean top-1 IoU {rec['mean_top1_iou']:.4f}, class "
               f"accuracy {rec['top1_class_acc']}, {rec['step_ms']:.2f} ms/step on the host's clock")
         figures["overfit_t5"] = rec
     torch.cuda.empty_cache()
 
-    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        # phase 12's VID tree, read as windows of 5 with per-frame labels
-        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", VID_SNIPPETS, 3000)))
+    # phase 12's VID tree, read as windows of 5 with per-frame labels
+    with logged_speed() as speed, vid_tree(VID_TREE) as tmp:
         vid = f"{tmp}/ImageNetVID/ILSVRC"
         val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=VID_EVERY7, window=(T5_FRAMES, 1),
                                    mult_out=True, inference=True)
@@ -3507,10 +3574,11 @@ def data_slice10(dev, card):
     workers = os.cpu_count() or 1
     with tempfile.TemporaryDirectory() as tmp:
         nms_greedy.launches = 0
-        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_tree.json", "--config", "tree"]))
+        rec, _ = overfit.run(overfit.parse_args(["--out", f"{tmp}/overfit_tree.json", "--config", "tree",
+                                                 "--steps", str(OVERFIT_STEPS)]))
         k1["overfit_tree"] = nms_greedy.launches
         check(rec["pass"], f"overfit tree fails the JAX package's rule: {rec}")
-        print(f"slice 10 overfit tree (YOLOv3, 7 tree nodes, multi-hot rows, bf16, 160 px, B=8, 400 steps) on "
+        print(f"slice 10 overfit tree (YOLOv3, 7 tree nodes, multi-hot rows, bf16, 160 px, B=8, {OVERFIT_STEPS} steps) on "
               f"{card}: passes the JAX package's rule (top class on the leaf's branch); loss {rec['loss_first']:.2f} "
               f"-> {rec['loss_last']:.4f}, mean top-1 IoU {rec['mean_top1_iou']:.4f}, {rec['step_ms']:.2f} ms/step "
               "on the host's clock")
@@ -3748,16 +3816,35 @@ DP_TIMEOUT_S = 300  # the process group's, and the spawner's join of each child
 DP_TWIN_SPLITS = {(2007, "trainval"): 96, (2012, "trainval"): 96, (2007, "test"): 96}
 
 
-def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+def free_port(avoid=()) -> int:
+    """A port free now, none of `avoid` (ports handed out earlier and not
+    bound yet)."""
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if port not in avoid:
+            return port
 
 
 def rank_env(rank: int, world: int, port: int) -> dict:
     """A rank's environment as torchrun sets it, every rank on card 0."""
     return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                 MASTER_PORT=str(port))
+
+
+def await_go(path: str) -> None:
+    """Blocks a child of phase 15, its imports done, until the parent
+    creates `path` (the parent's own part of the phase runs meanwhile)."""
+    deadline, parent = time.time() + 2 * DP_TIMEOUT_S, os.getppid()
+    while not os.path.exists(path):
+        if time.time() > deadline or os.getppid() != parent:
+            raise TimeoutError(f"no {path} within {2 * DP_TIMEOUT_S} s, or the parent is gone")
+        time.sleep(0.05)
+
+
+def go(path: str) -> None:
+    open(path, "w").close()
 
 
 def dp_batch(device, dtype=torch.float32):
@@ -3800,9 +3887,11 @@ def dp_run(device, batch, dtype, accum, steps):
 def dp_rank(work: str) -> int:
     """A rank of phase 15 (a), started by `dp_pair`: joins the gloo group on
     card 0, takes its rows of the global batch, runs DP_RUNS, and writes
-    what it saw to `work` (the states on rank 0 only)."""
+    what it saw to `work` (the states on rank 0 only).  It starts once
+    `work`/go exists."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    await_go(os.path.join(work, "go"))
     with mesh.process_group("cuda", backend="gloo", timeout_s=DP_TIMEOUT_S) as dev:
         rank = multihost.process_index()
         rows = slice(rank * DP_LOCAL, (rank + 1) * DP_LOCAL)
@@ -3842,22 +3931,27 @@ def wait_all(procs, timeout, label):
     return outs
 
 
-def dp_pair(dev, card):
+def dp_pair_start(tmp, port):
+    """Phase 15 (a)'s two ranks, started on `port`: each imports, then
+    waits for `tmp`/go."""
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", tmp],
+                             env=rank_env(r, DP_RANKS, port), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True) for r in range(DP_RANKS)]
+
+
+def dp_pair(dev, card, tmp, procs):
     """Phase 15 (a): two ranks on the one card over gloo (CUDA tensors
     through the host) against the one-process step on the global batch on
     the card: in float64 within TRAIN_TOL, without and with accumulation
     (the batch reordered as the ranks' micro-batches make it); in float32
     timed, and its distance from the one-process step within
     DP_FLOAT32_FLOOR times that step's distance from itself on the batch's
-    rows reversed."""
+    rows reversed.  `procs` are `dp_pair_start(tmp)`'s ranks, told here to
+    start."""
     figures = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        port = free_port()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", tmp],
-                                  env=rank_env(r, DP_RANKS, port), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True) for r in range(DP_RANKS)]
-        wait_all(procs, DP_TIMEOUT_S, "phase 15 (a)")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+    go(os.path.join(tmp, "go"))
+    wait_all(procs, DP_TIMEOUT_S, "phase 15 (a)")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
     check(all(r["flags"] == [True, True, False] for r in ranks), f"sync_flag / sync_any: {[r['flags'] for r in ranks]}")
 
     def state(model):
@@ -3906,7 +4000,7 @@ def dp_pair(dev, card):
     return figures
 
 
-def dp_nccl_world1(dev, card):
+def dp_nccl_world1(dev, card, avoid=()):
     """Phase 15 (b): the train step in a NCCL group of one at slice 4's
     B=48, 416 px, bf16 (s2d stem): bit-equal to the plain step over
     DP_NCCL_STEPS steps (cuDNN deterministic for the comparison, and the
@@ -3948,7 +4042,7 @@ def dp_nccl_world1(dev, card):
     try:
         plain, control = run(), run()
         os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                          MASTER_PORT=str(free_port()))
+                          MASTER_PORT=str(free_port(avoid)))
         with mesh.process_group("cuda", timeout_s=DP_TIMEOUT_S):
             check(torch.distributed.get_backend() == "nccl", "phase 15 (b): the group is not NCCL's")
             dp = run()
@@ -3976,24 +4070,27 @@ def dp_nccl_world1(dev, card):
 
 
 def twin_rank(argv) -> int:
-    """A rank of phase 15 (c), started by torchrun: the train twin's `main`,
-    as `python -m videoyolo_torch.train_yolov3` runs it, with K1 counted; its
-    figures on the last line."""
+    """A rank of phase 15 (c), started by torchrun: once the file argv[0]
+    exists, the train twin's `main` on argv[1:], as `python -m
+    videoyolo_torch.train_yolov3` runs it, with K1 counted; its figures on
+    the last line."""
     logging.basicConfig(level=logging.INFO)
+    await_go(argv[0])
+    argv = argv[1:]
     nms_greedy.launches = 0
     _, stats = train_yolov3.main(argv)
     torch.cuda.synchronize()
     ep = stats["epochs"][0]
     print(json.dumps({"k1": nms_greedy.launches, "samples_s": ep["samples_s"], "steps": len(ep["steps"]),
-                      "wait_share": ep["wait_s"] / ep["seconds"], "val": stats["val"]}))
+                      "wait_share": ep["wait_s"] / ep["seconds"], "val": stats["val"],
+                      "preempted": stats["preempted"]}))
     return 0
 
 
-def torchrun(args, log_path=None):
-    """`python -m torch.distributed.run --nproc_per_node 1 ...` from the
-    checkout's root."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port",
-           str(free_port()), *args]
+def torchrun(args, port):
+    """`python -m torch.distributed.run --nproc_per_node 1 --master_port
+    port ...` from the checkout's root."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port", str(port), *args]
     env = dict(os.environ)
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(key, None)
@@ -4001,64 +4098,92 @@ def torchrun(args, log_path=None):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def dp_twin(card):
-    """Phase 15 (c): the train twin under torchrun, one rank over NCCL, on a
-    VOC tree as phase 10's with DP_TWIN_SPLITS' names: one epoch with
-    --mixup --syncbn (B=48, 416 px, validated: K1 counted), one checkpoint;
-    then a SIGTERM to the rank in the first epoch of three, which must leave
-    `<prefix>_0000.params` alone and exit 0."""
+def dp_twin_start(tmp, port):
+    """Phase 15 (c)'s torchrun on `port`, started on a VOC tree written in
+    `tmp`: its rank imports, then waits for `tmp`/go.  Returns (the agent,
+    the time of its start)."""
     workers = os.cpu_count() or 1
-    with tempfile.TemporaryDirectory() as tmp:
-        write_voc_tree(tmp, DP_TWIN_SPLITS)
-        argv = ["--dataset", "voc", "--mixup", "--syncbn", "--dataset_root", tmp, "--batch_size", str(TWIN_BATCH),
-                "--data_shape", str(SIZE), "--no_random_shape", "--nopretrained_cnn", "--dtype", "bf16",
-                "--save_prefix", "0000", "--save_interval", "1", "--log_interval", "1", "--num_workers", str(workers)]
-        t0 = time.perf_counter()
-        out, = wait_all([torchrun([os.path.abspath(__file__), "--twin-rank", *argv, "--epochs", "1",
-                                   "--experiment_root", f"{tmp}/exp"])], DP_TIMEOUT_S, "phase 15 (c) one epoch")
-        seconds = time.perf_counter() - t0
-        rec = json.loads(out.strip().splitlines()[-1])
-        files = sorted(os.listdir(f"{tmp}/exp/0000"))
-        check(files == ["yolo3_darknet53_voc_0000.params", "yolo3_darknet53_voc_train.log"],
-              f"phase 15 (c): the twin's files {files}")
-        n_val = -(-DP_TWIN_SPLITS[(2007, "test")] // TWIN_BATCH)
-        check(rec["k1"] == n_val, f"phase 15 (c): K1 launches in the twin's validation {rec['k1']}, expected {n_val}")
-        print(f"slice 11 (c) train twin under torchrun (1 rank, NCCL, --mixup --syncbn, bf16, B={TWIN_BATCH}, {SIZE} "
-              f"px, one epoch of {rec['steps']} steps) on {card}: {rec['samples_s']:.1f} samples/s over the epoch, "
-              f"waiting on the prefetcher {rec['wait_share']:.3f} of it; validation K1 {rec['k1']} launches, mAP "
-              f"{rec['val'][0]['map']:.4f}; one checkpoint; {seconds:.1f} s with torchrun's start")
+    write_voc_tree(tmp, DP_TWIN_SPLITS)
+    argv = ["--dataset", "voc", "--mixup", "--syncbn", "--dataset_root", tmp, "--batch_size", str(TWIN_BATCH),
+            "--data_shape", str(SIZE), "--no_random_shape", "--nopretrained_cnn", "--dtype", "bf16",
+            "--save_prefix", "0000", "--save_interval", "1", "--log_interval", "1", "--num_workers", str(workers),
+            "--epochs", "2", "--experiment_root", f"{tmp}/exp"]
+    return torchrun([os.path.abspath(__file__), "--twin-rank", os.path.join(tmp, "go"), *argv], port), time.perf_counter()
 
-        agent = torchrun(["-m", "videoyolo_torch.train_yolov3", *argv, "--epochs", "3", "--experiment_root",
-                          f"{tmp}/sig"])
-        lines, signalled = [], False
-        deadline = time.time() + DP_TIMEOUT_S
-        while time.time() < deadline and not signalled:
-            line = agent.stdout.readline()
-            if not line:
-                break
-            lines.append(line)
-            if "[Epoch 0][Batch 0]" in line:
-                workers_of = subprocess.run(["ps", "-o", "pid=", "--ppid", str(agent.pid)], capture_output=True,
-                                            text=True).stdout.split()
-                check(len(workers_of) == 1, f"phase 15 (c): torchrun's workers {workers_of}")
-                os.kill(int(workers_of[0]), signal.SIGTERM)
-                signalled = True
-        rest, = wait_all([agent], DP_TIMEOUT_S, "phase 15 (c) SIGTERM")
-        log = "".join(lines) + rest
-        check(signalled, f"phase 15 (c): no first step seen:\n{log[-3000:]}")
-        files = sorted(os.listdir(f"{tmp}/sig/0000"))
-        check("Preempted: wrote" in log and "Validation" not in log
-              and files == ["yolo3_darknet53_voc_0000.params", "yolo3_darknet53_voc_train.log"],
-              f"phase 15 (c) SIGTERM: files {files}:\n{log[-3000:]}")
-        print(f"slice 11 (c) SIGTERM to the rank in its first epoch: exit 0, {files[0]} written, no validation")
-    return {"twin": {**rec, "seconds": seconds}, "sigterm": {"files": files}}, rec["k1"]
+
+def dp_twin(card, tmp, agent, t_start):
+    """Phase 15 (c): the train twin under torchrun (`dp_twin_start`'s, told
+    here to start), one rank over NCCL, on a VOC tree as phase 10's with
+    DP_TWIN_SPLITS' names, --mixup --syncbn (B=48, 416 px), two epochs
+    asked for in one torchrun start: the first whole (validated, K1
+    counted, one checkpoint), then a SIGTERM to the rank in the second
+    epoch's first step, which must write `<prefix>_0001.params`, validate
+    no more and exit 0."""
+    t0 = time.perf_counter()
+    go(os.path.join(tmp, "go"))
+    lines, signalled = [], False
+    deadline = time.time() + DP_TIMEOUT_S
+    while time.time() < deadline and not signalled:
+        line = agent.stdout.readline()
+        if not line:
+            break
+        lines.append(line)
+        if "[Epoch 1][Batch 0]" in line:
+            workers_of = subprocess.run(["ps", "-o", "pid=", "--ppid", str(agent.pid)], capture_output=True,
+                                        text=True).stdout.split()
+            check(len(workers_of) == 1, f"phase 15 (c): torchrun's workers {workers_of}")
+            os.kill(int(workers_of[0]), signal.SIGTERM)
+            signalled = True
+    rest, = wait_all([agent], DP_TIMEOUT_S, "phase 15 (c)")
+    seconds, since_start = time.perf_counter() - t0, time.perf_counter() - t_start
+    log = "".join(lines) + rest
+    check(signalled, f"phase 15 (c): no second epoch's first step seen:\n{log[-3000:]}")
+    recs = [ln for ln in log.strip().splitlines() if ln.startswith('{"k1"')]
+    check(len(recs) == 1, f"phase 15 (c): the rank's figures line:\n{log[-3000:]}")
+    rec = json.loads(recs[0])
+    files = sorted(os.listdir(f"{tmp}/exp/0000"))
+    want = ["yolo3_darknet53_voc_0000.params", "yolo3_darknet53_voc_0001.params", "yolo3_darknet53_voc_train.log"]
+    check(files == want, f"phase 15 (c): the twin's files {files}")
+    n_val = -(-DP_TWIN_SPLITS[(2007, "test")] // TWIN_BATCH)
+    check(rec["k1"] == n_val and len(rec["val"]) == 1,
+          f"phase 15 (c): K1 launches in the twin's validations {rec['k1']} over {len(rec['val'])}, expected "
+          f"{n_val} over one")
+    print(f"slice 11 (c) train twin under torchrun (1 rank, NCCL, --mixup --syncbn, bf16, B={TWIN_BATCH}, {SIZE} "
+          f"px, one epoch of {rec['steps']} steps) on {card}: {rec['samples_s']:.1f} samples/s over the epoch, "
+          f"waiting on the prefetcher {rec['wait_share']:.3f} of it; validation K1 {rec['k1']} launches, mAP "
+          f"{rec['val'][0]['map']:.4f}; one checkpoint")
+    check(rec["preempted"] == 1 and "Preempted: wrote" in log and log.count("Validation") == 1,
+          f"phase 15 (c) SIGTERM: preempted {rec['preempted']}:\n{log[-3000:]}")
+    print(f"slice 11 (c) SIGTERM to the rank in its second epoch's first step: exit 0, {files[1]} written, no "
+          f"second validation; {seconds:.1f} s from the go to the exit for both epochs ({since_start:.1f} s since "
+          f"the torchrun start, its imports beside (a) and (b))")
+    return {"twin": {**rec, "seconds": seconds, "since_start_s": since_start}, "sigterm": {"files": files}}, rec["k1"]
 
 
 def data_slice11(dev, card):
-    """Phase 15.  Returns (the phase's figures, K1's launches on the twin's
-    validation)."""
-    figures = {"pair": dp_pair(dev, card), "nccl_world1": dp_nccl_world1(dev, card)}
-    twin, k1 = dp_twin(card)
+    """Phase 15.  (a)'s ranks and (c)'s torchrun are started first and
+    import while (b) runs in this process; each starts its work when told,
+    (a) after (b), (c) after (a), so no two parts share the card.  Returns
+    (the phase's figures, K1's launches on the twin's validation)."""
+    with tempfile.TemporaryDirectory() as tmp_a, tempfile.TemporaryDirectory() as tmp_c:
+        ports = [free_port()]
+        ports.append(free_port(avoid=ports))
+        agent, t_agent = dp_twin_start(tmp_c, ports[0])
+        procs = [agent]
+        try:
+            procs += dp_pair_start(tmp_a, ports[1])
+            figures = {"nccl_world1": dp_nccl_world1(dev, card, avoid=ports)}
+            figures["pair"] = dp_pair(dev, card, tmp_a, procs[1:])
+            twin, k1 = dp_twin(card, tmp_c, agent, t_agent)
+        finally:  # on a failure: torchrun passes a SIGTERM on to its rank
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.communicate(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.communicate()
     figures.update(twin)
     return figures, k1
 
@@ -4389,6 +4514,8 @@ S13_TRAIN_WINDOWS = 8
 S13_F32_WINDOWS = 2  # (d): the float32 step's windows, phase 12's (BN statistics over 6 frames)
 S13_TWIN_EVERY = 8  # (e): 24 train windows (3 steps at B=8), 8 val windows (one batch)
 S13_TWIN_VAL_SNIPPETS = 2  # (e): the first two of phase 12's val snippets
+# (e)'s VID tree, which phases 18-20's twins read too
+S13_TWIN_TREE = (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000))
 # (e): the flags as a user of the JAX CLI passes them; the factory's default
 # k_join_type "max" makes this the tip GRU with the late max join
 S13_TWIN_FLAGS = ["--window", f"{WINDOW},1", "--rnn_pos", "late", "--k_join_pos", "late", "--corr_pos", "late",
@@ -4686,8 +4813,7 @@ def s13_twins(dev, card):
     Returns (figures, K1 launches, K2 launches)."""
     workers = os.cpu_count() or 1
     figures, k1, k2 = {}, 0, 0
-    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+    with logged_speed() as speed, vid_tree(S13_TWIN_TREE) as tmp:
         vid = f"{tmp}/ImageNetVID/ILSVRC"
         val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S13_TWIN_EVERY, window=(WINDOW, 1),
                                    inference=True)
@@ -4954,8 +5080,7 @@ def s14_twins(dev, card):
     --new_model` refused.  Returns (figures, K1 launches)."""
     workers = os.cpu_count() or 1
     figures, k1 = {}, 0
-    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+    with logged_speed() as speed, vid_tree(S13_TWIN_TREE) as tmp:
         base = f"{tmp}/darknet53.params"
         write_darknet53_params(base, seed=14)
         vid = f"{tmp}/ImageNetVID/ILSVRC"
@@ -5331,8 +5456,7 @@ def s15_twins(dev, card):
     K1 launches)."""
     workers = os.cpu_count() or 1
     k1 = 0
-    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+    with logged_speed() as speed, vid_tree(S13_TWIN_TREE) as tmp:
         vid = f"{tmp}/ImageNetVID/ILSVRC"
         window = (WINDOW, 1)
         val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S15_TWIN_EVERY, window=window,
@@ -5757,8 +5881,7 @@ def s16_twins(dev, card):
     workers = os.cpu_count() or 1
     k1 = 0
     b = S16_TWIN_BATCH
-    with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        write_vid_tree(tmp, (("train", VID_TRAIN_SNIPPETS, 4000), ("val", S13_TWIN_VAL_SNIPPETS, 3000)))
+    with logged_speed() as speed, vid_tree(S13_TWIN_TREE) as tmp:
         vid = f"{tmp}/ImageNetVID/ILSVRC"
         window = (9, 1)
         val = ImageNetVidDetection(root=vid, splits=[(2017, "val")], every=S16_TWIN_EVERY, window=window,
@@ -5908,6 +6031,9 @@ S17_F32_TOL = dict(rtol=1e-3, atol=1e-3)
 S17_FILE_TOL = 1e-4  # a file against the forward of its batch, of the route's largest magnitude
 S17_COCO_IMAGES = 4  # distinct images of the COCO tree that --trained_on coco reads its classes from
 S17_REPEATS = 5  # host-clock repeats of the sweep's parts
+# (b)-(d)'s VOC names: 4 train steps at B=48 (a 6-batch sweep at B=32), one detect batch of the test split
+S17_VOC_SPLITS = {(2007, "trainval"): 96, (2012, "trainval"): 96, (2007, "test"): DETECT_BATCH}
+S17_VOC_TEST = S17_VOC_SPLITS[(2007, "test")]
 
 
 def s17_mobilenet(dev, card):
@@ -6084,12 +6210,12 @@ def s17_head_only(tmp, feat, dev, card, workers):
     model, stats = train_yolov3.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    k1, n_val = nms_greedy.launches, -(-VOC_TEST // TWIN_BATCH)
+    k1, n_val = nms_greedy.launches, -(-S17_VOC_TEST // TWIN_BATCH)
     check(k1 == n_val, f"slice 17 head-only twin: K1 launches {k1}, expected {n_val}")
     check(not model.use_backbone and model.dtype == torch.float32, "slice 17: the twin did not train the float32 "
                                                                    "head-only model")
     ep = stats["epochs"][0]
-    n_steps = (2 * VOC_SPLITS[(2007, "trainval")]) // TWIN_BATCH
+    n_steps = (2 * S17_VOC_SPLITS[(2007, "trainval")]) // TWIN_BATCH
     check(len(ep["steps"]) == n_steps, f"slice 17 head-only twin: {len(ep['steps'])} steps, expected {n_steps}")
     ckpt = f"{exp}/0000/yolo3_darknet53_voc_0000.params"
     fresh = yolo3_no_backbone(NUM_CLASSES)
@@ -6169,7 +6295,7 @@ def s17_surgery(tmp, dev, card, workers):
     model, stats = train_yolov3.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    k1, n_val = nms_greedy.launches, -(-VOC_TEST // TWIN_BATCH)
+    k1, n_val = nms_greedy.launches, -(-S17_VOC_TEST // TWIN_BATCH)
     check(k1 == n_val, f"slice 17 --trained_on twin: K1 launches {k1}, expected {n_val}")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "slice 17: finetuned parameters not finite")
     ckpt = f"{exp}/ft/yolo3_darknet53_voc_0000.params"
@@ -6183,7 +6309,7 @@ def s17_surgery(tmp, dev, card, workers):
     preds = detect.main(argv_d)
     torch.cuda.synchronize()
     dsecs = time.perf_counter() - t0
-    n_det = -(-VOC_TEST // DETECT_BATCH)
+    n_det = -(-S17_VOC_TEST // DETECT_BATCH)
     check(nms_greedy.launches == n_det, f"slice 17 detect twin: K1 launches {nms_greedy.launches}, expected {n_det}")
     k1 += nms_greedy.launches
     test = VOCDetection(root=f"{tmp}/PascalVOC/VOCdevkit", splits=[(2007, "test")], inference=True)
@@ -6261,7 +6387,7 @@ def data_slice17(dev, card):
     figures["mobilenet"] = s17_mobilenet(dev, card)
     seconds["a"] = time.perf_counter() - t0
     with logged_speed() as speed, tempfile.TemporaryDirectory() as tmp:
-        write_voc_tree(tmp)
+        write_voc_tree(tmp, S17_VOC_SPLITS)
         figures["extract"], feat = s17_extract(tmp, dev, card, workers)
         seconds["b"] = time.perf_counter() - t0
         figures["head_only"], k1["head_only_twin_validation"] = s17_head_only(tmp, feat, dev, card, workers)
@@ -6278,6 +6404,380 @@ def data_slice17(dev, card):
     figures["k1"] = k1
     print(f"slice 17 launches: K1 {k1}")
     return figures, k1["total"]
+
+
+# --- phase 22, slice 18: the int8 dynamic and static modes ---------------------
+
+S18_CALIB = 8  # (a): images of the one calibration batch
+S18_WINDOW_CALIB = 4  # (b)-(d): windows of the one calibration batch
+S18_BATCHES = (128, 1)  # (a): the timed requests
+S18_TIMED = {128: 10, 1: 30}
+S18_CHECK_IMAGES = 8  # (a): the request whose every int8 conv is held against its plain version
+S18_WINDOWS = 32  # (b)
+S18_BLOCK_WINDOWS = 16  # (c), (d)
+S18_CHECK_WINDOWS = 2  # (c): the request whose every 3-D int8 conv is held against its plain form
+S18_WINDOW_TIMED = 5
+S18_F32_SIZE = 128
+S18_F32_TOL = dict(rtol=1e-3, atol=1e-3)
+# (a): int8 conv launches of one request by route, and by epilogue in each mode
+S18_ROUTES = {"wgmma": 71, "mma_word": 1}
+S18_EPILOGUES = {"static": {"bf16": 72}, "dynamic": {"raw": 72}, "fused": {"int8": 69, "bf16": 3}}
+# (c), (d): the temporal models, static: (config, int8 conv launches, of them
+# the 3-D route's, K2 launches) a request
+S18_TEMPORAL = {
+    "block3_mean": (dict(num_classes=S13_CLASSES, k=WINDOW, k_join_type="mean", k_join_pos="late",
+                         block_conv_type="3"), 72, 18, 0),
+    "block21_max": (dict(num_classes=S13_CLASSES, k=WINDOW, k_join_type="max", k_join_pos="late",
+                         block_conv_type="21"), 81, 27, 0),
+    "t5_pyramid": (dict(num_classes=S13_CLASSES, temporal=True, t_out=True, corr_d=4), 75, 0, T5_CORR_LAUNCHES),
+    "t5_funnel": (dict(num_classes=S13_CLASSES, temporal=True, t_out=False), 76, 4, 0),
+    "rnn_late_max": (dict(num_classes=S13_CLASSES, k=WINDOW, k_join_pos="late", rnn_pos="late"), 69, 0, 0),
+}
+S18_VOC_SPLITS = {(2007, "test"): 16}  # (e): two batches of 8
+
+
+def int8_counts():
+    """The int8 conv kernel's counters, copied."""
+    return dict(int8_conv.route_launches), int8_conv.launches
+
+
+def int8_delta(before):
+    routes, n = before
+    return n_moved(int8_conv.route_launches, routes), int8_conv.launches - n
+
+
+def epilogue(q, qkernel, stride=1, scale=None, bias=None, oscale=None, out_dtype=torch.float32):
+    """The epilogue a call of the int8 conv kernel's wrapper with these
+    arguments runs: the "raw" int32 sums without `scale`, "int8" with
+    `oscale`, else real values in `out_dtype` ("f32" / "bf16")."""
+    if scale is None:
+        return "raw"
+    return "int8" if oscale is not None else {torch.float32: "f32", torch.bfloat16: "bf16"}[out_dtype]
+
+
+def epilogues(rec):
+    """The calls a `CallRecorder` of the int8 conv kernel's wrapper kept,
+    counted by epilogue."""
+    counts = {}
+    for args, kwargs in rec.calls:
+        e = epilogue(*args, **kwargs)
+        counts[e] = counts.get(e, 0) + 1
+    return counts
+
+
+class LaunchesWithin:
+    """Counts the int8 conv kernel's launches made inside the calls of
+    `module.name` (the 3-D int8 conv) during a block: the change in the
+    kernel wrapper's own count across each call."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def within(*args, **kwargs):
+            before = int8_conv_kernel.int8_conv.launches
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.n += int8_conv_kernel.int8_conv.launches - before
+
+        setattr(self.module, self.name, within)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def s18_check_plain(label, rec, plain):
+    """Each call `rec` recorded: its output against `plain` on its
+    arguments, bit for bit.  Returns the values compared."""
+    values = 0
+    with torch.inference_mode():
+        for i, ((args, kwargs), out) in enumerate(zip(rec.calls, rec.outs)):
+            ref = plain(*args, **kwargs)
+            check(out.dtype == ref.dtype and out.shape == ref.shape and torch.equal(out, ref),
+                  f"{label}: launch {i} ({tuple(args[0].shape)} -> {tuple(out.shape)} {out.dtype}) differs from "
+                  "its plain version")
+            values += out.numel()
+    return values
+
+
+def s18_k1(label, det, x):
+    """The request's detections against the plain NMS on its own candidates."""
+    with torch.inference_mode():
+        ids, sc, bb = det(x)
+        boxes, scores = det.model(det._normalized(x))
+        if boxes.dim() == 4:  # t_out: T folded into the batch
+            boxes, scores = boxes.flatten(0, 1), scores.flatten(0, 1)
+            ids, sc, bb = ids.flatten(0, 1), sc.flatten(0, 1), bb.flatten(0, 1)
+        cands = select_topk_candidates(boxes, scores, topk=NMS_TOPK)
+        ref, _ = nms_greedy_plain(cands, NMS_THRESH, VALID_THRESH, POST_NMS)
+    check(torch.equal(ids, ref[..., 0:1]) and torch.equal(sc, ref[..., 1:2])
+          and torch.equal(bb, ref[..., 2:6].clamp(0, det.data_shape)),
+          f"{label}: detections differ from the plain NMS on the same candidates")
+    check(int((ids >= 0).sum()) > 0, f"{label}: no detections")
+
+
+def s18_images(rs, dev, card):
+    """(a): YOLOv3 at 416 px in bf16, static and dynamic beside the fused
+    int8 and the bf16 models."""
+    cfg = YoloConfig(num_classes=NUM_CLASSES, pad_stem=True)
+    calib = [rs.randint(0, 256, (S18_CALIB, SIZE, SIZE, 3)).astype(np.uint8)]
+    dets, built = {}, {}
+    for mode, quantize in (("bf16", None), ("fused", "int8"), ("static", "int8_static"), ("dynamic", "int8_dynamic")):
+        t0 = time.perf_counter()
+        dets[mode] = Detector(cfg, dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0, quantize=quantize,
+                              calibration=calib if quantize in ("int8", "int8_static") else None)
+        torch.cuda.synchronize()
+        built[mode] = time.perf_counter() - t0
+    check(dets["static"].model.quant == "static" and dets["dynamic"].model.quant is True,
+          "slice 18: the Detector's int8 modes")
+    print(f"slice 18 Detectors built (quantised, calibrated on {S18_CALIB} images) in seconds: {built}")
+    xs = {b: torch.from_numpy(rs.randint(0, 256, (b, SIZE, SIZE, 3)).astype(np.uint8)).to(dev)
+          for b in S18_BATCHES + (S18_CHECK_IMAGES,)}
+    figures = dict(build_s=built, requests={})
+
+    # launches a request, by route and epilogue, and every launch of the B=8
+    # request against its plain version
+    compared = {}
+    for mode in ("static", "dynamic", "fused"):
+        before, k1 = int8_counts(), nms_greedy.launches
+        with CallRecorder(int8_conv_kernel, "int8_conv", outs=True) as rec:
+            out = dets[mode](xs[S18_CHECK_IMAGES])
+        (routes, n), epis = int8_delta(before), epilogues(rec)
+        check(n == 72 and routes == S18_ROUTES and epis == S18_EPILOGUES[mode] and nms_greedy.launches - k1 == 1,
+              f"slice 18 {mode}: launches a request: int8 conv {n} by route {routes} by epilogue {epis}, K1 "
+              f"{nms_greedy.launches - k1}")
+        check_detections(f"slice 18 {mode}", [out], [S18_CHECK_IMAGES])
+        if mode != "fused":
+            compared[mode] = s18_check_plain(f"slice 18 {mode} B={S18_CHECK_IMAGES}", rec, int8_conv_plain)
+        figures["requests"][mode] = dict(int8_conv=n, routes=routes, epilogues=epis)
+        print(f"slice 18 {mode} B={S18_CHECK_IMAGES}: {n} int8 conv launches, by route {routes}, by epilogue {epis}"
+              + (f"; each output equal to its plain version ({compared[mode]} values)" if mode in compared else ""))
+    figures["compared_values"] = compared
+
+    # K1 on the static and dynamic B=128 requests' candidates
+    for mode in ("static", "dynamic"):
+        s18_k1(f"slice 18 {mode} B={S18_BATCHES[0]}", dets[mode], xs[S18_BATCHES[0]])
+
+    # the requests' times, all four models in one call
+    for b in S18_BATCHES:
+        for mode, det in dets.items():
+            ms = median_ms(lambda d=det: d(xs[b]), S18_TIMED[b], warmup=3 if b > 1 else 5)
+            figures["requests"].setdefault(mode, {})[f"b{b}_ms"] = ms
+            print(f"slice 18 detect B={b} at {SIZE} px {mode} on {card}: {ms:.3f} ms/request"
+                  + (f" ({b / ms * 1e3:.1f} images/s)" if b > 1 else ""))
+
+    # where a request's device time goes: the int8 conv kernel against the
+    # quantise passes, and (dynamic) the raw sums' dequantise pass
+    b0 = S18_BATCHES[0]
+    figures["profile"] = profile_steps([(f"slice 18 {m} B={b0}", dets[m], xs[b0], 2, 30)
+                                        for m in ("static", "dynamic")], card)
+    for label, p in figures["profile"].items():
+        conv_ms = sum(ms for name, ms in p["top"] if "int8_conv" in name)
+        p["int8_conv_ms"] = conv_ms
+        print(f"{label}: the int8 conv kernel {conv_ms:.3f} of {p['busy_ms']:.3f} ms busy a request")
+
+    # float32 at 128 px, card against the CPU, static and dynamic
+    small = rs.randint(0, 256, (2, S18_F32_SIZE, S18_F32_SIZE, 3)).astype(np.uint8)
+    errs = {}
+    for mode in ("int8_static", "int8_dynamic"):
+        det = Detector(cfg, data_shape=S18_F32_SIZE, device="cuda", seed=0, quantize=mode,
+                       calibration=[small] if mode == "int8_static" else None)
+        twin = cpu_twin(det.model)
+        with torch.inference_mode():
+            x = det._normalized(small)
+            card_out = [t.cpu() for t in det.model(x)]
+            cpu_out = twin(x.cpu())
+        for name, a, b_ in zip(("boxes", "scores"), card_out, cpu_out):
+            a, b_ = (a.clamp(0, S18_F32_SIZE), b_.clamp(0, S18_F32_SIZE)) if name == "boxes" else (a, b_)
+            errs[f"{mode}_{name}"] = float((a - b_).abs().max())
+            check(bool(torch.allclose(a, b_, **S18_F32_TOL)),
+                  f"slice 18 float32 {mode} {name}: card vs CPU max abs {errs[f'{mode}_{name}']}")
+    figures["f32_card_vs_cpu_max_abs"] = errs
+    print(f"slice 18 float32 at {S18_F32_SIZE} px, card vs CPU (same int8 variables): max abs {errs}")
+    return figures
+
+
+def s18_slice2(rs, dev, card):
+    """(b): slice 2's YOLOv3T, static, at B=32 windows: K2 on the int8
+    model's routes against the plain correlation."""
+    calib = [rs.randint(0, 256, (S18_WINDOW_CALIB, WINDOW, SIZE, SIZE, 3)).astype(np.uint8)]
+    det = Detector(YoloConfig(**SLICE2), dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0,
+                   quantize="int8", calibration=calib)
+    check(det.model.quant == "static", "slice 18 (b): --window serves the static model")
+    x = torch.from_numpy(rs.randint(0, 256, (S18_WINDOWS, WINDOW, SIZE, SIZE, 3)).astype(np.uint8)).to(dev)
+    before, k2, k1 = int8_counts(), cost_volume.launches, nms_greedy.launches
+    with CallRecorder(int8_conv_kernel, "int8_conv") as rec:
+        out = det(x)
+    (routes, n), epis = int8_delta(before), epilogues(rec)
+    made = (n, cost_volume.launches - k2, nms_greedy.launches - k1)
+    check(made == (72, CORR_LAUNCHES, 1) and epis == {"bf16": 72},
+          f"slice 18 (b): launches (int8 conv, K2, K1) {made}, by epilogue {epis}")
+    check_detections("slice 18 (b)", [out], [S18_WINDOWS])
+    m, max_err = det.model, 0.0
+    with torch.inference_mode():
+        frames = m.frame_routes(det._normalized(x))
+        for level, r in enumerate(frames):
+            kr, pr = m.corr(r), plain_corr(m.corr, r)
+            err = float((kr - pr).abs().max())
+            check(bool(torch.allclose(kr, pr, **CORR_TOL)), f"slice 18 (b) level {level}: K2 vs plain {err}")
+            max_err = max(max_err, err)
+    s18_k1("slice 18 (b)", det, x)
+    ms = median_ms(lambda: det(x), S18_WINDOW_TIMED)
+    print(f"slice 18 (b) YOLOv3T static B={S18_WINDOWS} windows at {SIZE} px on {card}: {ms:.3f} ms/request "
+          f"({S18_WINDOWS / ms * 1e3:.1f} windows/s); launches (int8 conv, K2, K1) {made}; K2 on the int8 model's "
+          f"routes within {CORR_TOL} of the plain correlation (max abs {max_err:.3g})")
+    return dict(ms=ms, launches=made, k2_max_abs_err=max_err)
+
+
+def s18_temporal(rs, dev, card):
+    """(c), (d): the '3' and '21' blocks, the t=5 pyramid and funnel and
+    the tip GRU, static, at B=16 windows; each 3-D int8 launch of a B=2
+    request against its plain form, bit for bit."""
+    figures = {}
+    for name, (kw, n_int8, n_3d, n_k2) in S18_TEMPORAL.items():
+        cfg = YoloConfig(**kw)
+        t = T5_FRAMES if kw.get("temporal") else WINDOW
+        calib = [rs.randint(0, 256, (S18_WINDOW_CALIB, t, SIZE, SIZE, 3)).astype(np.uint8)]
+        t0 = time.perf_counter()
+        det = Detector(cfg, dtype=torch.bfloat16, data_shape=SIZE, device="cuda", seed=0, quantize="int8",
+                       calibration=calib)
+        build_s = time.perf_counter() - t0
+        check(det.model.quant == "static", f"slice 18 {name}: the static model")
+        x = torch.from_numpy(rs.randint(0, 256, (S18_BLOCK_WINDOWS, t, SIZE, SIZE, 3)).astype(np.uint8)).to(dev)
+        before = int8_counts(), cost_volume.launches, nms_greedy.launches
+        with CallRecorder(int8_conv_kernel, "int8_conv") as rec, \
+                LaunchesWithin(model_layers, "int8_conv3d") as in3d:
+            out = det(x)
+        (routes, n), epis = int8_delta(before[0]), epilogues(rec)
+        made = (n, in3d.n, cost_volume.launches - before[1], nms_greedy.launches - before[2])
+        check(made == (n_int8, n_3d, n_k2, 1) and epis == {"bf16": n_int8},
+              f"slice 18 {name}: launches (int8 conv, of them 3-D, K2, K1) {made}, by epilogue {epis}")
+        ids = out[0].flatten(0, 1) if out[0].dim() == 4 else out[0]
+        check(int((ids >= 0).sum()) > 0 and all(bool(torch.isfinite(o).all()) for o in out),
+              f"slice 18 {name}: no finite detections")
+        s18_k1(f"slice 18 {name}", det, x)
+        compared = 0
+        if n_3d:
+            x2 = x[:S18_CHECK_WINDOWS]
+            with CallRecorder(model_layers, "int8_conv3d", outs=True) as rec, torch.inference_mode():
+                det.model(det._normalized(x2))
+            check(len(rec.calls) == n_3d, f"slice 18 {name}: {len(rec.calls)} 3-D calls")
+            compared = s18_check_plain(f"slice 18 {name} 3-D route", rec, int8_conv3d_plain)
+        ms = median_ms(lambda: det(x), S18_WINDOW_TIMED)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        figures[name] = dict(ms=ms, launches=made, routes=routes, build_s=build_s, compared_3d_values=compared)
+        print(f"slice 18 {name} static B={S18_BLOCK_WINDOWS} windows of {t} at {SIZE} px on {card}: {ms:.3f} "
+              f"ms/request ({S18_BLOCK_WINDOWS / ms * 1e3:.1f} windows/s); launches (int8 conv, 3-D route, K2, K1) "
+              f"{made}, by route {routes}; built and calibrated in {build_s:.1f} s; peak memory so far {mem:.1f} GiB"
+              + (f"; every 3-D launch of a B={S18_CHECK_WINDOWS} request equal to its plain form ({compared} "
+                 "values)" if n_3d else ""))
+        del det
+        torch.cuda.empty_cache()
+    return figures
+
+
+def s18_twins(rs, dev, card):
+    """(e): the detect twin's synthetic and dataset paths with --quantize,
+    and its refusals."""
+    figures = {}
+    base = ["--data_shape", str(SIZE), "--batch_size", "8", "--num_requests", "1", "--seed", "2", "--dtype", "bf16"]
+    runs = {  # flags: (int8 conv launches, K2, K1) for the calibration pass and the request
+        "int8_static": (["--quantize", "int8_static"], (144, 0, 1)),
+        "int8_dynamic": (["--quantize", "int8_dynamic"], (72, 0, 1)),
+        "window_int8": (["--window", f"{WINDOW},1", "--k_join_pos", "late", "--corr_pos", "early", "--corr_d", "4",
+                         "--quantize", "int8"], (144, 2 * CORR_LAUNCHES, 1)),
+    }
+    for name, (flags, want) in runs.items():
+        before = int8_conv.launches, cost_volume.launches, nms_greedy.launches
+        t0 = time.perf_counter()
+        preds = detect.main(base + flags)
+        made = (int8_conv.launches - before[0], cost_volume.launches - before[1], nms_greedy.launches - before[2])
+        check(made == want, f"slice 18 twin {name}: launches (int8 conv, K2, K1) {made}")
+        entries = check_entry_point(preds, 8)
+        figures[name] = dict(launches=made, detections=len(entries), s=time.perf_counter() - t0)
+        print(f"slice 18 twin {' '.join(flags)}: {len(entries)} detections over 8 inputs, launches (int8 conv, K2, "
+              f"K1) {made}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_voc_tree(tmp, S18_VOC_SPLITS)
+        argv = ["--dataset", "voc", "--dataset_root", tmp, "--data_shape", str(SIZE), "--batch_size", "8",
+                "--dtype", "bf16", "--save_dir", f"{tmp}/res", "--save_prefix", "int8", "--quantize", "int8",
+                "--seed", "3", "--num_workers", "4"]
+        before = int8_conv.launches, nms_greedy.launches
+        preds = detect.main(argv)
+        made = (int8_conv.launches - before[0], nms_greedy.launches - before[1])
+        # the fused calibration pass over two batches, then the two batches
+        check(made == (72 * 4, 2), f"slice 18 twin --dataset voc --quantize int8: launches (int8 conv, K1) {made}")
+        dataset = detect.get_dataset(["voc"], tmp)
+        cache = detect.load_predictions(f"{tmp}/res/int8", dataset)
+        loader = DetectionLoader(dataset, batch_size=8, num_workers=4, native_decode=(SIZE, SIZE))
+        calib = [b["image"] for b in itertools.islice(iter(loader), 2)]
+        det = Detector(YoloConfig(num_classes=NUM_CLASSES), dtype=torch.bfloat16, data_shape=SIZE, device="cuda",
+                       seed=3, quantize="int8", calibration=calib)
+        check(det.model.init_kwargs["quant"] == "fused", "slice 18: --dataset voc --quantize int8 serves fused")
+        want = detect.detect_dataset(det, dataset, loader)
+        paths = [dataset.sample_path(i) for i in range(len(dataset))]
+        same = all(cache.get(p, []) == preds.get(p) and np.allclose(
+            np.asarray(cache.get(p, []), np.float64).reshape(-1, 6),
+            np.asarray(want.get(p, []), np.float64).reshape(-1, 6), rtol=0, atol=1e-6) for p in paths)
+        n_det = sum(len(want.get(p, [])) for p in paths)
+        check(same and n_det > 0, "slice 18: the dataset path's int8 cache differs from the in-process Detector's")
+        figures["voc_int8"] = dict(launches=made, images=len(paths), detections=n_det)
+        print(f"slice 18 twin --dataset voc --quantize int8: {len(paths)} images, {n_det} detections; the cache "
+              "equals the in-process Detector calibrated on the loader's first two batches; launches (int8 conv, "
+              f"K1) {made}")
+
+    synthetic = ["--data_shape", str(SIZE), "--batch_size", "1", "--num_requests", "1"]
+    cases = {
+        "stream": (NotImplementedError, "item 9a", synthetic + ["--window", "3,1", "--stream", "--quantize", "int8"]),
+        "two_stream": (NotImplementedError, "item 9a", synthetic + ["--window", "3,1", "--motion_stream", "flownet",
+                                                                    "--data_shape", "384", "--quantize", "int8"]),
+        "new_model": (AssertionError, "int8 temporal backbones", synthetic + ["--window", "5,1", "--new_model",
+                                                                              "--conv_types", "2,3,3,2,2,2",
+                                                                              "--quantize", "int8"]),
+    }
+    refused = {}
+    for name, (exc, text, argv) in cases.items():
+        try:
+            detect.main(argv)
+            refused[name] = False
+        except exc as e:
+            refused[name] = text in str(e)
+        check(refused[name], f"slice 18: {name} --quantize was not refused")
+    figures["refused"] = sorted(refused)
+    print(f"slice 18 refusals: {sorted(refused)}")
+    return figures
+
+
+def data_slice18(dev, card):
+    """Phase 22.  Returns the phase's figures."""
+    rs = np.random.RandomState(18)
+    figures, seconds = {}, {}
+    t0 = time.perf_counter()
+    figures["images"] = s18_images(rs, dev, card)
+    seconds["a"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    figures["slice2"] = s18_slice2(rs, dev, card)
+    seconds["b"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    figures["temporal"] = s18_temporal(rs, dev, card)
+    seconds["c_d"] = time.perf_counter() - t0
+    figures["twins"] = s18_twins(rs, dev, card)
+    seconds["e"] = time.perf_counter() - t0
+    figures["seconds_from_start"] = seconds
+    print(f"slice 18 parts' ends, seconds from the phase's start: {seconds}")
+    return figures
+
+
+def mark(phase_s, key, t_start):
+    """Records phase `key`'s end, and says so on stderr, where a run stopped
+    by its time limit still shows how far it got."""
+    phase_s[key] = time.perf_counter() - t_start
+    print(f"chip_smoke: phase {key} done at {phase_s[key]:.1f} s", file=sys.stderr, flush=True)
 
 
 def main() -> int:
@@ -6306,90 +6806,90 @@ def main() -> int:
     builds = build_kernels()
     check_corr_build(builds[correlation_kernel][1])
     check_int8_sass()
-    phase_s["2"] = time.perf_counter() - t_start
+    mark(phase_s, "2", t_start)
 
     # 3. the kernels against their plain versions
     rs = np.random.RandomState(0)
     nms_err, nms_cases, nms_synthetic = check_nms_kernel(rs, dev, card)
     corr_err = check_corr_kernel(dev)
     int8_cases, k3_err, conv_err = check_int8_kernels(dev)
-    phase_s["3"] = time.perf_counter() - t_start
+    mark(phase_s, "3", t_start)
 
     # 4. slice 1: the detect path at 416 px, bf16
     nms_ms = {}
     det1, x128, x1, nms_launches, err = serve_slice1(rs, dev, card, nms_ms)
     nms_err = max(nms_err, err)
-    phase_s["4"] = time.perf_counter() - t_start
+    mark(phase_s, "4", t_start)
 
     # 5. slice 2: YOLOv3T windows with early correlation at 416 px, bf16
     det2, x32, corr_launches, nms_launches2, corr, err = serve_slice2(rs, dev, card)
     corr_err = max(corr_err, err)
-    phase_s["5"] = time.perf_counter() - t_start
+    mark(phase_s, "5", t_start)
 
     # 6. slice 3: fused-int8 YOLOv3 at 416 px, bf16 tips
     det3, x128_3, int8_launches, k3, conv, cells3 = serve_slice3(rs, dev, card)
-    phase_s["6"] = time.perf_counter() - t_start
+    mark(phase_s, "6", t_start)
 
     # 7. reference
     check_reference(rs)
-    phase_s["7"] = time.perf_counter() - t_start
+    mark(phase_s, "7", t_start)
 
     # 8. profile
     profile_steps([("slice 1 B=128", det1, x128, 3, 8), ("slice 1 B=1", det1, x1, 20, 4),
                    ("slice 2 B=32", det2, x32, 3, 10), ("slice 3 B=128", det3, x128_3, 3, 10)], card)
-    phase_s["8"] = time.perf_counter() - t_start
+    mark(phase_s, "8", t_start)
 
     # 9. slice 4: training
     del det1, det2, det3, x128, x1, x32, x128_3
     torch.cuda.empty_cache()
     train_figures, k1_slice4 = train_slice4(dev, card)
-    phase_s["9"] = time.perf_counter() - t_start
+    mark(phase_s, "9", t_start)
 
     # 10. slice 5: detect and train on VOC from disk through the twins
     torch.cuda.empty_cache()
     data_figures, k1_slice5 = data_slice5(dev, card)
-    phase_s["10"] = time.perf_counter() - t_start
+    mark(phase_s, "10", t_start)
 
     # 11. slice 6: COCO, ImageNet-DET and -VID from disk through the twins
     torch.cuda.empty_cache()
     slice6_figures, k1_slice6 = data_slice6(dev, card)
-    phase_s["11"] = time.perf_counter() - t_start
+    mark(phase_s, "11", t_start)
 
     # 12. slice 7: VID windows from disk, YOLOv3T training, K2's adjoint
     torch.cuda.empty_cache()
     slice7_figures, k1_slice7, k2_slice7 = data_slice7(dev, card)
     step7 = slice7_figures["train_step"]
-    phase_s["12"] = time.perf_counter() - t_start
+    mark(phase_s, "12", t_start)
 
     # 13. slice 9: YOLOv3Temporal t=5, detection, training and both twins
     torch.cuda.empty_cache()
     t5_figures, k1_slice9, k2_slice9 = data_t5(dev, card)
-    phase_s["13"] = time.perf_counter() - t_start
+    mark(phase_s, "13", t_start)
 
     # 14. slice 10: the combined class tree and YouTube-BB through both twins
     torch.cuda.empty_cache()
     comb_figures, k1_slice10, k2_slice10 = data_slice10(dev, card)
-    phase_s["14"] = time.perf_counter() - t_start
+    mark(phase_s, "14", t_start)
 
     # 15. slice 11: data-parallel training (the earlier phases' memory freed)
     torch.cuda.empty_cache()
     dp_figures, k1_slice11 = data_slice11(dev, card)
-    phase_s["15"] = time.perf_counter() - t_start
+    mark(phase_s, "15", t_start)
 
     # 16. slice 12: streaming video detection through the detect twin
     torch.cuda.empty_cache()
     stream_figures, k1_slice12, k2_slice12 = data_slice12(dev, card)
-    phase_s["16"] = time.perf_counter() - t_start
+    mark(phase_s, "16", t_start)
 
     # 17. slice 13: the conv-RNN and the 3D / 2+1D blocks through both twins and the stream
     torch.cuda.empty_cache()
     s13_figures, k1_slice13, k2_slice13 = data_slice13(dev, card)
-    phase_s["17"] = time.perf_counter() - t_start
+    mark(phase_s, "17", t_start)
 
     # 18. slice 14: the 3D / 2+1D and hierarchical DarkNet backbones through the factory and both twins
     torch.cuda.empty_cache()
     s14_figures, k1_slice14 = data_slice14(dev, card)
-    phase_s["18"] = time.perf_counter() - t_start
+    mark(phase_s, "18", t_start)
 
     # 19. slice 15: the two-stream FlowNet family through the factory and both twins, FlowNetC's K2
     torch.cuda.empty_cache()
@@ -6398,7 +6898,7 @@ def main() -> int:
     off_path15 = dict(adjoint=cost_volume_backward.launches, k3=quant_downsample.launches,
                       int8_conv=int8_conv.launches)
     check(not any(off_path15.values()), f"phase 19 launched kernels off its path: {off_path15}")
-    phase_s["19"] = time.perf_counter() - t_start
+    mark(phase_s, "19", t_start)
 
     # 20. slice 16: the two-stream R(2+1)D family through the factory and both twins
     torch.cuda.empty_cache()
@@ -6407,7 +6907,7 @@ def main() -> int:
     off_path16 = dict(k2=cost_volume.launches, adjoint=cost_volume_backward.launches, k3=quant_downsample.launches,
                       int8_conv=int8_conv.launches)
     check(not any(off_path16.values()), f"phase 20 launched kernels off its path: {off_path16}")
-    phase_s["20"] = time.perf_counter() - t_start
+    mark(phase_s, "20", t_start)
 
     # 21. slice 17: MobileNet, the extract twin, head-only training and class surgery through the twins
     torch.cuda.empty_cache()
@@ -6416,7 +6916,22 @@ def main() -> int:
     off_path17 = dict(k2=cost_volume.launches, adjoint=cost_volume_backward.launches, k3=quant_downsample.launches,
                       int8_conv=int8_conv.launches)
     check(not any(off_path17.values()), f"phase 21 launched kernels off its path: {off_path17}")
-    phase_s["21"] = time.perf_counter() - t_start
+    mark(phase_s, "21", t_start)
+
+    # 22. slice 18: the int8 dynamic and static modes through Detector and both detect-twin paths
+    torch.cuda.empty_cache()
+    counters18 = (nms_greedy, cost_volume, cost_volume_backward, quant_downsample, int8_conv)
+    for c in counters18:
+        c.launches = 0
+    with LaunchesWithin(model_layers, "int8_conv3d") as in3d18:  # its count starts at 0 with the others
+        s18_figures = data_slice18(dev, card)
+    k1_slice18, k2_slice18, adjoint18, k3_slice18, int8_slice18 = (c.launches for c in counters18)
+    check(k1_slice18 > 0 and k2_slice18 > 0 and int8_slice18 > 0 and in3d18.n > 0 and not (adjoint18 or k3_slice18),
+          f"phase 22 launches (K1, K2, K2', K3, int8 conv, of it the 3-D route's): "
+          f"{[c.launches for c in counters18] + [in3d18.n]}")
+    print(f"slice 18 launches: K1 {k1_slice18}, K2 {k2_slice18}, K2' {adjoint18}, K3 {k3_slice18}, int8 conv "
+          f"{int8_slice18} (of them the 3-D route's {in3d18.n})")
+    mark(phase_s, "22", t_start)
 
     adjoint = dict(
         ms=step7["k2_adjoint_ms"],
@@ -6456,6 +6971,7 @@ def main() -> int:
             "launches_slice15": k1_slice15,
             "launches_slice16": k1_slice16,
             "launches_slice17": k1_slice17,
+            "launches_slice18": k1_slice18,
         },
         {
             "name": "cost_volume",
@@ -6493,6 +7009,7 @@ def main() -> int:
                         "b16": s15_figures["flownetc"]["k2"], "b1": s15_figures["flownetc"]["k2_b1"]},
             "launches_slice16": off_path16["k2"],
             "launches_slice17": off_path17["k2"],
+            "launches_slice18": k2_slice18,
         },
         {
             "name": "cost_volume_backward",
@@ -6523,6 +7040,7 @@ def main() -> int:
             "launches_slice15": off_path15["adjoint"],
             "launches_slice16": off_path16["adjoint"],
             "launches_slice17": off_path17["adjoint"],
+            "launches_slice18": adjoint18,
         },
         {
             "name": "quant_downsample",
@@ -6540,6 +7058,7 @@ def main() -> int:
             "launches_slice15": off_path15["k3"],
             "launches_slice16": off_path16["k3"],
             "launches_slice17": off_path17["k3"],
+            "launches_slice18": k3_slice18,
         },
         {
             "name": "int8_conv",
@@ -6557,6 +7076,13 @@ def main() -> int:
             "launches_slice15": off_path15["int8_conv"],
             "launches_slice16": off_path16["int8_conv"],
             "launches_slice17": off_path17["int8_conv"],
+            "launches_slice18": int8_slice18,
+            "slice18": {"per": "one B=128 request of YOLOv3 static or dynamic: 72 launches (static: the bf16 "
+                               "epilogue; dynamic: the raw sums); the 3-D cells one launch each, their time taps "
+                               "folded into channels",
+                        "requests": s18_figures["images"]["requests"],
+                        "launches_3d": in3d18.n,
+                        "compared_values": s18_figures["images"]["compared_values"]},
         },
     ]
     print(json.dumps({"slice4_training": train_figures}))
@@ -6572,6 +7098,7 @@ def main() -> int:
     print(json.dumps({"slice15_two_stream": s15_figures}))
     print(json.dumps({"slice16_r21d": s16_figures}))
     print(json.dumps({"slice17_extract": s17_figures}))
+    print(json.dumps({"slice18_int8": s18_figures}))
     print(json.dumps({"phase_end_s": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -6585,6 +7112,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a child of phase 15 (a)
         sys.exit(dp_rank(sys.argv[2]))
-    if sys.argv[1:2] == ["--twin-rank"]:  # a rank of phase 15 (c), under torchrun
+    if sys.argv[1:2] == ["--twin-rank"]:  # a rank of phase 15 (c), under torchrun: its go file, the twin's argv
         sys.exit(twin_rank(sys.argv[2:]))
     sys.exit(main())

@@ -591,8 +591,10 @@ def test_yolov3t_backbone_refusals_beside_jax():
     """Any backbone other than Darknet3D, HDarknet or the two-stream
     TwoStreamDarknet raises naming item 7; the R(2+1)D stream with
     `new_model` builds the two-stream model, as JAX's factory does (the
-    motion stream first); int8 with a backbone raises item 9a; the
-    conv-RNN and 3-D blocks on a backbone's 4-D routes ValueError; the
+    motion stream first); int8 over a Darknet3D backbone fails JAX's
+    backbone-quant assertion (tests/test_torch_int8_temporal.py holds it
+    beside JAX's); the conv-RNN and 3-D blocks on a backbone's 4-D routes
+    ValueError; the
     stream refuses a custom backbone, as JAX's asserts."""
     with pytest.raises(NotImplementedError, match="item 7"):
         YOLOv3T(num_classes=NC, k=3, backbone=torch.nn.Identity())
@@ -603,8 +605,8 @@ def test_yolov3t_backbone_refusals_beside_jax():
                 ).__name__ == "TwoStreamDarknet"
     with torch.device("meta"):
         bb = darknet3d.Darknet3D((2, 3, 3, 2, 2, 2))
-        with pytest.raises(NotImplementedError, match="item 9a"):
-            YOLOv3T(num_classes=NC, k=5, backbone=bb, quant="fused")
+        with pytest.raises(ValueError, match="custom backbone must carry the same quant mode"):
+            YOLOv3T(num_classes=NC, k=5, backbone=bb, quant="static")
         for kw in (dict(rnn_pos="out"), dict(k_join_pos="late", k_join_type="max", block_conv_type="3")):
             with pytest.raises(ValueError, match="4-D"):
                 YOLOv3T(num_classes=NC, k=5, backbone=bb, **kw)

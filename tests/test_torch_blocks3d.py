@@ -180,8 +180,13 @@ def test_3d_refusals_beside_jax_batch_mixing():
         YOLOv3Temporal(num_classes=NC, conv=4)
     with pytest.raises(ValueError, match="frame-pure"):
         YOLOv3T(num_classes=NC, k=3, k_join_pos="late", k_join_type="max", block_conv_type="3", feed="tips")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        layers.Conv21D(4, 8, quant="static")
+    # the int8 2+1D cell (item 9a, tests/test_torch_int8_temporal.py): two
+    # int8 halves, each with its own scale; the fused pipeline is 2-D only
+    cell = layers.Conv21D(4, 8, quant="static")
+    assert cell.ConvBNLeaky3D_0.qkernel.shape == (8, 4, 1, 3, 3) and cell.ConvBNLeaky3D_1.qkernel.shape == (8, 8, 3, 1, 1)
+    assert {k for k in cell.state_dict() if k.endswith("xscale")} == {"ConvBNLeaky3D_0.xscale", "ConvBNLeaky3D_1.xscale"}
+    with pytest.raises(ValueError, match="3-D int8 cells"):
+        layers.Conv21D(4, 8, quant="fused")
 
 
 @pytest.mark.parametrize("argv", [

@@ -234,7 +234,7 @@ def test_refusals_beside_jax():
     """A window other than 9 or 33: JAX's factory asserts when the JAX CLI
     builds the model; the train twin refuses it before loading data and the
     detect twin where its factory builds the model.  `--stream` refuses the
-    two-stream backbone and `--quantize` any window (item 9a).  The train
+    two-stream backbone and `--quantize` the two-stream model (item 9a).  The train
     twin takes random shapes and --window 33,1 with r21d."""
     with pytest.raises(AssertionError, match=r"k in \{9,33\}"):
         jax_build_model(JaxYoloConfig(num_classes=NUM_CLASSES, k=5, motion_stream="r21d"))

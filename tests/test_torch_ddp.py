@@ -1,8 +1,9 @@
 """The port's data-parallel training in two processes on the CPU (gloo)
 against the JAX package's step on the global batch.
 
-Two ranks (tests/torch_ddp_worker.py, started here on a free port and
-killed on any failure) each take two rows of a global batch of four:
+Two ranks (tests/torch_ddp_worker.py, started here on a port held for them
+and all killed as soon as one fails) each take two rows of a global batch
+of four:
   * the full-width YOLOv3 with the space-to-depth stem (its BatchNorm pools
     four channel groups: `phases`) and the first three stages
     rematerialised, uint8 pixels with colour maps and mixup ratios, two
@@ -27,12 +28,15 @@ Then the train twin itself under `torchrun --nproc_per_node 2`.
 Tolerances are tests/test_torch_train_step.py's float64 ones: losses rtol
 1e-6, each updated leaf within 1e-5 of its largest update, the BN statistics
 rtol 1e-5 (atol 1e-7); the two ranks' final states equal bit for bit."""
+import contextlib
 import fcntl
 import os
+import queue
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -78,10 +82,25 @@ TWIN = ["--device", "cpu", "--dataset", "voc", "--mixup", "--syncbn", "--batch_s
         "--save_prefix", "0000", "--gpus", "0,1", "--num_samples", "-1"]
 
 
-def free_port() -> int:
+# the deadlines: the ranks take about 80 s alone and 200 s beside five busy
+# xdist workers; a torchrun test 15-20 s alone
+RANKS_S = 600
+TORCHRUN_S = 300
+
+
+@contextlib.contextmanager
+def held_port():
+    """A free port, held for the block: bound here with SO_REUSEADDR and
+    never listening, so the kernel hands it to no other process (another
+    worker's ranks, gloo's connections), while the rendezvous store of the
+    ranks or of torchrun, which binds with SO_REUSEADDR too, listens on it.
+    A port only looked up and let go could be taken before the store binds
+    it, and a rank would then wait out its deadline on another run's
+    store."""
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        yield s.getsockname()[1]
 
 
 def _env(**extra):
@@ -91,19 +110,48 @@ def _env(**extra):
     return dict(env, **extra)
 
 
-def _wait(procs, timeout):
-    """Every process's output; kills them all if any fails or runs over."""
-    outs = []
+def _read_lines(proc) -> "queue.Queue":
+    """`proc`'s output lines as a thread reads them; None at its end."""
+    lines = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    return lines
+
+
+def _drain(lines) -> str:
+    out = []
+    while (line := lines.get()) is not None:
+        out.append(line)
+    return "".join(out)
+
+
+def _wait(procs, timeout, lines=None):
+    """Every process's output (read by threads as it comes, so no pipe
+    fills).  Kills them all as soon as one fails or `timeout` seconds have
+    passed, so a rank left waiting on a dead peer costs nothing more; every
+    one must exit 0."""
+    lines = lines or [_read_lines(p) for p in procs]
+    deadline = time.monotonic() + timeout
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-4000:]
+            p.wait()
+    outs = [_drain(q) for q in lines]
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * len(procs), f"exits {codes} (deadline {timeout} s)\n" + "\n".join(
+        out[-4000:] for c, out in zip(codes, outs) if c)
     return outs
 
 
@@ -163,15 +211,23 @@ def _once(tmp_path_factory, name, compute):
     """`compute()` once a test run: under xdist the first worker that asks
     runs it and leaves the result beside the workers' temp dirs, and the
     others wait on its lock and read it (the two ranks and JAX's references
-    take about 15 GB, too much to hold in several workers at once)."""
+    take about 15 GB, too much to hold in several workers at once).  A
+    failure is left there too, so the others fail at once with it rather
+    than each run the ranks again."""
     if "PYTEST_XDIST_WORKER" not in os.environ:
         return compute()
     shared = tmp_path_factory.getbasetemp().parent
     with open(shared / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        path = shared / f"{name}.pt"
+        path, failed = shared / f"{name}.pt", shared / f"{name}.failed"
+        if failed.exists():
+            raise RuntimeError(f"{name} failed in another worker:\n{failed.read_text()}")
         if not path.exists():
-            torch.save(compute(), path)
+            try:
+                torch.save(compute(), path)
+            except BaseException as e:
+                failed.write_text(f"{type(e).__name__}: {e}"[-8000:])
+                raise
         return torch.load(path, weights_only=False)
 
 
@@ -215,27 +271,30 @@ def _run_ddp(d, voc_root):
         "loader": dict(argv=TWIN + ["--dataset_root", voc_root]),
     }
     torch.save(runs, d / "runs.pt")
-    env = _env(WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(d), str(d)], cwd=REPO, env=dict(env, RANK=str(r)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    # JAX's steps compile while the ranks run, and run after them: run at
-    # once, the ranks and the references would hold about 15 GB
-    step_opts = dict(step=dict(mixup=True))
-    try:
-        with ThreadPoolExecutor(2) as pool:  # XLA compiles outside the GIL
-            fns = {"step": pool.submit(_compiled, s2d_model, lambda: _jax_state(s2d_v, np.float64, step_opts), batch,
-                                       step_opts["step"]),
-                   "accum": pool.submit(_compiled, plain_model, lambda: _jax_state(plain_v, np.float64, OPTIONS), batch,
-                                        OPTIONS["step"])}
-            fns = {k: f.result() for k, f in fns.items()}
-        with _float64_volumes():  # patches the JAX layers' module: after the others
-            fns["window"] = _compiled(window_model, lambda: _window_jax_state(window_v, np.float64), window, {})
-    except BaseException:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        raise
-    _wait(procs, timeout=600)
+    with held_port() as port:
+        env = _env(WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs = [subprocess.Popen([sys.executable, str(WORKER), str(d), str(d)], cwd=REPO,
+                                  env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(WORLD)]
+        lines = [_read_lines(p) for p in procs]
+        # JAX's steps compile while the ranks run, and run after them: run
+        # at once, the ranks and the references would hold about 15 GB
+        step_opts = dict(step=dict(mixup=True))
+        try:
+            with ThreadPoolExecutor(2) as pool:  # XLA compiles outside the GIL
+                fns = {"step": pool.submit(_compiled, s2d_model, lambda: _jax_state(s2d_v, np.float64, step_opts),
+                                           batch, step_opts["step"]),
+                       "accum": pool.submit(_compiled, plain_model, lambda: _jax_state(plain_v, np.float64, OPTIONS),
+                                            batch, OPTIONS["step"])}
+                fns = {k: f.result() for k, f in fns.items()}
+            with _float64_volumes():  # patches the JAX layers' module: after the others
+                fns["window"] = _compiled(window_model, lambda: _window_jax_state(window_v, np.float64), window, {})
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        _wait(procs, RANKS_S, lines)
     refs = {
         "step": _jax_run(s2d_model, s2d_v, batch, np.float64, STEPS, step_opts, keep=(STEPS,), fn=fns["step"]),
         "accum": _jax_run(plain_model, plain_v, {k: a[REORDERED] for k, a in batch.items()}, np.float64, 2, OPTIONS,
@@ -344,9 +403,9 @@ def test_sync_flags_and_loaders_across_two_ranks(ddp):
     assert loaders[0]["epochs"][0] != loaders[0]["epochs"][1]
 
 
-def _torchrun(voc_root, exp, *extra):
+def _torchrun(port, voc_root, exp, *extra):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(WORLD), "--master_port",
-           str(free_port()), "-m", "videoyolo_torch.train_yolov3", *TWIN, "--dataset_root", voc_root,
+           str(port), "-m", "videoyolo_torch.train_yolov3", *TWIN, "--dataset_root", voc_root,
            "--experiment_root", str(exp), *extra]
     return subprocess.Popen(cmd, cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -357,7 +416,8 @@ def test_torchrun_twin_one_epoch_checkpoint_read_by_jax(voc_root, tmp_path):
     batch of 4, both ranks validating; one checkpoint and one _train.log,
     rank 0's; the JAX package reads the checkpoint into its YOLOv3."""
     exp = tmp_path / "exp"
-    out, = _wait([_torchrun(voc_root, exp, "--epochs", "1", "--save_interval", "1")], timeout=600)
+    with held_port() as port:
+        out, = _wait([_torchrun(port, voc_root, exp, "--epochs", "1", "--save_interval", "1")], TORCHRUN_S)
     assert out.count("[Epoch 0][Batch 5]") == WORLD and out.count("[Epoch 0] Validation") == WORLD
     assert "[Epoch 0][Batch 6]" not in out
     files = sorted(os.listdir(exp / "0000"))
@@ -396,22 +456,27 @@ def test_torchrun_twin_sigterm_to_one_rank_stops_both(voc_root, tmp_path):
     log-interval boundary, rank 0 writes `<prefix>_0000.params` (no
     validation, no other checkpoint) and every process exits 0."""
     exp = tmp_path / "exp"
-    agent = _torchrun(voc_root, exp, "--epochs", "3", "--save_interval", "1")
-    lines = []
-    try:
-        deadline = time.time() + 600
-        while time.time() < deadline:
-            line = agent.stdout.readline()
-            if not line:
-                break
-            lines.append(line)
-            if "[Epoch 0][Batch 0]" in line:
-                os.kill(_rank_pid(agent, 1), signal.SIGTERM)
-                break
-        rest, = _wait([agent], timeout=600)
-    finally:
-        if agent.poll() is None:
-            agent.kill()
+    with held_port() as port:
+        agent = _torchrun(port, voc_root, exp, "--epochs", "3", "--save_interval", "1")
+        reader, lines = _read_lines(agent), []
+        try:
+            deadline = time.monotonic() + TORCHRUN_S
+            while (left := deadline - time.monotonic()) > 0:
+                try:
+                    line = reader.get(timeout=left)
+                except queue.Empty:
+                    break
+                if line is None:
+                    reader.put(None)  # the end, for _wait's read
+                    break
+                lines.append(line)
+                if "[Epoch 0][Batch 0]" in line:
+                    os.kill(_rank_pid(agent, 1), signal.SIGTERM)
+                    break
+            rest, = _wait([agent], TORCHRUN_S, [reader])
+        finally:
+            if agent.poll() is None:
+                agent.kill()
     out = "".join(lines) + rest
     assert out.count("Preempted: wrote") == WORLD and "Validation" not in out, out[-4000:]
     assert "[Epoch 1]" not in out

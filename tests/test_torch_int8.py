@@ -420,11 +420,14 @@ def test_detector_int8_matches_jax(fused_jax):
         Detector(cfg, data_shape=SIZE, device="cpu", quantize="int8")
     with pytest.raises(ValueError, match="quantize='int8'"):
         Detector(cfg, jax.tree_util.tree_map(np.asarray, fused_jax["qvars"]), data_shape=SIZE, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9a"):
+    # the static mode calibrates too; "int8" on a window model serves the
+    # static one (item 9a, tests/test_torch_int8_temporal.py)
+    with pytest.raises(ValueError, match="calibrates"):
         Detector(cfg, data_shape=SIZE, device="cpu", quantize="int8_static")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        Detector(YoloConfig(num_classes=4, k=3), data_shape=SIZE, device="cpu", quantize="int8",
-                 calibration=[fused_jax["images"]])
+    windows = np.stack([fused_jax["images"]] * 3, axis=1)
+    det = Detector(YoloConfig(num_classes=4, k=3), data_shape=SIZE, device="cpu", quantize="int8",
+                   calibration=[windows])
+    assert det.model.quant == "static" and det(windows)[0].shape == (2, 100, 1)
 
 
 def test_detect_quantize_int8_on_cpu(capsys):
@@ -437,10 +440,12 @@ def test_detect_quantize_int8_on_cpu(capsys):
     assert len(preds) == 4 and sum(len(v) for v in preds.values()) > 0
     for entries in preds.values():
         assert all(len(e) == 6 and 0 <= e[0] < 20 and 0 <= min(e[2:]) and max(e[2:]) <= 1 for e in entries)
+    # the dynamic mode and the static window model serve too (item 9a,
+    # tests/test_torch_int8_modes.py and test_torch_int8_temporal.py)
     for flags in (["--quantize", "int8_dynamic"], ["--quantize", "int8", "--window", "3"]):
-        with pytest.raises(NotImplementedError, match="item 9a"):
-            detect.main(["--data_shape", str(SIZE), "--batch_size", "1", "--num_requests", "1",
-                         "--device", "cpu", *flags])
+        preds = detect.main(["--data_shape", str(SIZE), "--batch_size", "1", "--num_requests", "1",
+                             "--device", "cpu", *flags])
+        assert len(preds) == 1 and all(len(e) == 6 for v in preds.values() for e in v)
 
 
 # --- the int8 kernels' plan --------------------------------------------------
@@ -550,12 +555,16 @@ def test_deferred_int8_options_raise():
         YOLOv3(num_classes=4, quant="fused", ds_conv="s2d")
     with pytest.raises(NotImplementedError, match="item 9c"):
         YOLOv3(num_classes=4, quant="fused", s2d_stem=True)
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        YOLOv3(num_classes=4, quant="static")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        YOLOv3(num_classes=4, quant="fused", use_backbone=False)
-    with pytest.raises(NotImplementedError, match="item 9a"):
+    # item 9a's static mode and head-only model are built now
+    # (tests/test_torch_int8_modes.py); its two-stream model is deferred
+    with torch.device("meta"):
+        static = YOLOv3(num_classes=4, quant="static")
+        head = YOLOv3(num_classes=4, quant="fused", use_backbone=False)
         quantize.assert_quantizable(build_model(YoloConfig(num_classes=2, k=3)))
+        with pytest.raises(NotImplementedError, match="item 9a"):
+            quantize.assert_quantizable(build_model(YoloConfig(num_classes=2, k=3, motion_stream="flownet")))
+    assert sum(k.endswith("xscale") for k in static.state_dict()) == 72
+    assert {k for k in head.state_dict() if k.endswith("xscale")} == {f"block{i}.ConvBNLeaky_0.xscale" for i in range(3)}
 
 
 def test_int8_kernel_entries_raise_on_cpu_tensors():

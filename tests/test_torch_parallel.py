@@ -83,16 +83,19 @@ def test_mesh_environment_and_item13(monkeypatch):
 @contextmanager
 def _one_process_group(monkeypatch):
     """A gloo process group of one process from the environment, as
-    torchrun would set it; torn down on the way out."""
+    torchrun would set it; torn down on the way out.  Its port is held
+    for the group's life (tests/test_torch_ddp.py:held_port), so no other
+    process is handed it before the store binds it."""
     with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    for key, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                           MASTER_PORT=str(port)).items():
-        monkeypatch.setenv(key, value)
-    with mesh.process_group("cpu", timeout_s=60) as device:
-        assert device == torch.device("cpu") and dist.get_backend() == "gloo"
-        yield device
+        for key, value in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                               MASTER_PORT=str(port)).items():
+            monkeypatch.setenv(key, value)
+        with mesh.process_group("cpu", timeout_s=60) as device:
+            assert device == torch.device("cpu") and dist.get_backend() == "gloo"
+            yield device
     assert not dist.is_initialized()
 
 

@@ -392,8 +392,13 @@ def test_rnn_refusals_beside_jax_failure():
         YOLOv3T(num_classes=NC, k=3, rnn_pos="mid")
     with pytest.raises(ValueError, match="rnn_pos='out'"):
         YOLOv3T(num_classes=NC, k=3, rnn_pos="late", k_join_pos="late", feed="tips")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        YOLOv3T(num_classes=NC, k=3, rnn_pos="out", quant="static")
+    # the int8 conv-RNN configurations serve in mixed precision (item 9a,
+    # tests/test_torch_int8_temporal.py): the output GRUs stay real-valued
+    with torch.device("meta"):
+        mixed = YOLOv3T(num_classes=NC, k=3, rnn_pos="out", quant="static")
+    keys = mixed.state_dict()
+    assert any(k.endswith("qkernel") for k in keys)
+    assert not any(k.endswith("qkernel") for k in keys if k.startswith("output"))
 
 
 @pytest.mark.parametrize("argv", [

@@ -171,7 +171,8 @@ def test_no_cpu_drift_without_cuda():
 def test_import_leaves_jax_out():
     """Importing every module of the port, its entry points and the kernel
     wrappers (with no nvcc on PATH) loads no jax, flax, videoyolo_tpu, cv2
-    or PIL; MobileNet, the class surgery and the extract twin among them.
+    or PIL; MobileNet, the class surgery, the extract twin and the modules
+    the int8 dynamic and static modes changed among them.
     A subprocess: this test process imported jax already."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -181,7 +182,11 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'videoyolo_tpu', 'cv2', 'PIL')]\n"
         "new = ('videoyolo_torch.models.mobilenet', 'videoyolo_torch.models.surgery',\n"
-        "       'videoyolo_torch.extract_base_features')\n"
+        "       'videoyolo_torch.extract_base_features', 'videoyolo_torch.ops.quantize',\n"
+        "       'videoyolo_torch.ops.int8_conv', 'videoyolo_torch.ops.int8_conv_kernel',\n"
+        "       'videoyolo_torch.models.layers', 'videoyolo_torch.models.darknet',\n"
+        "       'videoyolo_torch.models.yolo3', 'videoyolo_torch.models.yolo3_temporal',\n"
+        "       'videoyolo_torch.serving', 'videoyolo_torch.streaming', 'videoyolo_torch.utils.flax_bridge')\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('videoyolo_torch')]), bad)\n"
     )

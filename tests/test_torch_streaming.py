@@ -353,8 +353,9 @@ def test_feed_arguments_raise_as_jax_asserts():
 def test_unported_stream_cases_raise(tmp_path):
     """The conv-RNN's streams build (tests/test_torch_rnn.py) but not after
     an early correlation (a fault of the JAX forward); the int8 (item 9a)
-    streams raise where their models are built, the streaming artifact
-    (item 13) where it is asked for, and the twin's int8 stream (item 9a)."""
+    streams raise where the streaming detector takes their models, the
+    streaming artifact (item 13) where it is asked for, and the twin's int8
+    stream (item 9a)."""
     for cfg in (dict(rnn_pos="out", k_join_type="max", k_join_pos="early"),
                 dict(rnn_pos="late", k_join_type="max", k_join_pos="late")):
         with torch.device("meta"):
@@ -363,8 +364,10 @@ def test_unported_stream_cases_raise(tmp_path):
                                                 else ("stage1", "stage2", "stage3"))
         with pytest.raises(ValueError, match="not built"):
             build_model(YoloConfig(num_classes=3, k=3, corr_pos="early", corr_d=2, **cfg))
+    with torch.device("meta"):
+        int8_model = YOLOv3T(num_classes=3, k=3, k_join_type="max", k_join_pos="late", quant="static")
     with pytest.raises(NotImplementedError, match="item 9a"):
-        YOLOv3T(num_classes=3, k=3, k_join_type="max", k_join_pos="late", quant="static")
+        streaming.StreamingDetector(int8_model)
     for fn in (streaming.export_streaming_detector, streaming.load_streaming_detector):
         with pytest.raises(NotImplementedError, match="item 13"):
             fn(None, None, str(tmp_path / "s"))

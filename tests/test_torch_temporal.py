@@ -296,8 +296,10 @@ def test_factory_raises_on_unported_axes():
                     YoloConfig(num_classes=2, k=3, motion_stream="flownet"),
                     YoloConfig(num_classes=2, k=9, motion_stream="r21d")):
             assert isinstance(build_model(cfg), YOLOv3T) and build_model(cfg).has_backbone
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        YOLOv3T(num_classes=2, k=3, quant=True)
+    # the int8 temporal family is ported (item 9a, tests/test_torch_int8_temporal.py)
+    with torch.device("meta"):
+        int8_model = YOLOv3T(num_classes=2, k=3, quant=True)
+    assert int8_model.quant is True and int8_model.stage1.conv0.calib == {}
     # the streaming split is ported (tests/test_torch_streaming.py): feed="tips"
     # builds the late join's head over tip windows, its output convs only
     with torch.device("meta"):

@@ -208,8 +208,11 @@ def test_conv_bn_leaky_3d_matches_flax(name, train):
         ref = jm.apply(v, x, train=False)
     assert out.shape == ref.shape
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        layers.ConvBNLeaky3D(6, 8, quant="dynamic")
+    # the int8 3-D cell (item 9a, tests/test_torch_int8_temporal.py)
+    qcell = layers.ConvBNLeaky3D(6, 8, quant="dynamic")
+    assert qcell.qkernel.shape == (8, 6, 3, 3, 3) and qcell.qkernel.dtype == torch.int8 and qcell.calib == {}
+    with pytest.raises(ValueError, match="3-D int8 cells"):
+        layers.ConvBNLeaky3D(6, 8, quant="fused")
 
 
 def test_conv3d_takes_channels_last_with_the_model():
@@ -339,7 +342,9 @@ def test_factory_raises_on_unported_axes():
         stage1_head = YOLOv3Temporal(num_classes=2, corr_d=2, feed="stage1")
     assert {key.split(".")[0] for key in stage1_head.state_dict()} >= {"stage2", "stage3", "convs1", "block0"}
     assert not any(key.startswith("stage1.") for key in stage1_head.state_dict())
-    with pytest.raises(NotImplementedError, match="item 9a"):
+    # the static and dynamic modes are ported (item 9a,
+    # tests/test_torch_int8_temporal.py); the fused pipeline is YOLOv3's
+    with pytest.raises(ValueError, match="fused pipeline is YOLOv3's"):
         YOLOv3Temporal(num_classes=2, quant="fused")
     with pytest.raises(ValueError, match="t=1 or t=5"):
         YOLOv3Temporal(num_classes=2, t=3)

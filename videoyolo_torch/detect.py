@@ -17,6 +17,7 @@ or on seeded synthetic requests.
     python -m videoyolo_torch.detect --dataset yt [--window 3,1 ...] --metrics voc ...   # YouTube-BB
     python -m videoyolo_torch.detect --dataset comb [--hier_level 10] --metrics voc ...   # the class tree
     python -m videoyolo_torch.detect --dataset voc --trained_on comb --metrics voc ...
+    python -m videoyolo_torch.detect --dataset voc --quantize int8|int8_static|int8_dynamic ...
 
 With `--dataset`, detect_yolo3.py's dataset path on its validation splits:
 `voc` is VOC 2007 test under `<dataset_root>/PascalVOC/VOCdevkit`, `coco`
@@ -53,7 +54,11 @@ repeated across comb's subsets or YouTube-BB's videos share a file
 (ROADMAP.md Queue 3).
 `--model_path` takes the JAX package's flax msgpack or an MXNet `.params`
 file (the reference's gluon checkpoints); without it the weights are
-seeded random, with a warning.
+seeded random, with a warning.  `--quantize` serves the int8 model as
+detect_yolo3.py:346-386 does: `int8` the fused pipeline on YOLOv3 and the
+static model on the temporal family, `int8_static` and `int8_dynamic`
+forced; the fused and static ones calibrated on the loader's first two
+batches.
 With `--window k[,step]` and k > 1 on `vid` or `yt`, each sample is the
 window of k frames around a val frame (the VID window sampler, which
 YouTube-BB's clips share) and the model is
@@ -108,8 +113,9 @@ the JAX CLI's FlowNetS assertion and is refused here.  `--motion_stream
 r21d` builds the same model with R(2+1)D-34 as its motion stream on
 windows of `--window 9,1` or `33,1` (the factory refuses other k, where
 the JAX CLI's asserts), at any multiple of 32.  `--stream` refuses the
-two-stream backbone, as it refuses --new_model's, and `--quantize` any
-window (item 9a).
+two-stream backbone, as it refuses --new_model's; `--quantize` refuses the
+two-stream model (item 9a) and, as detect_yolo3.py's assertion does,
+--new_model's backbones.
 
 Without `--dataset`, the seeded synthetic mode:
 
@@ -129,7 +135,9 @@ Without `--dataset`, the seeded synthetic mode:
         --window 3,1 --motion_stream flownet --stream_gating add   # the two-stream model
     python -m videoyolo_torch.detect --data_shape 416 --batch_size 16 \
         --window 9,1 --motion_stream r21d --stream_gating mul   # R(2+1)D's (--window 33,1: k=33)
-    python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 128 --quantize int8   # int8_static|int8_dynamic
+    python -m videoyolo_torch.detect --data_shape 416 --batch_size 32 \
+        --window 3,1 --k_join_pos late --corr_pos early --corr_d 4 --quantize int8   # static int8 windows
 
 The model takes seeded random weights.  Each request is a batch of uint8
 images drawn from the seed or, with `--window k[,stride]` and k > 1, a batch
@@ -141,9 +149,11 @@ frames named `<window>_o<t>` with `--mult_out`).  With `--stream`, B
 streams of `--num_requests` frames each (every stream its own seeded clip)
 go through the streaming detector, one frame of every stream a request,
 named `stream<i>/frame<j>`.  `--quantize int8` serves
-the fused-int8 YOLOv3,
-calibrated on the first two request batches as detect_yolo3.py calibrates on
-the first two loader batches.  The command prints one summary line per request
+the fused-int8 YOLOv3 (on a `--window` model, the static one), `int8_static`
+the static model and `int8_dynamic` the dynamic one, of any built-in family
+but the two-stream one; the first two fused and static, calibrated on the
+first two request batches as detect_yolo3.py calibrates on the first two
+loader batches.  The command prints one summary line per request
 and, with --out, writes the detections as {image or window name: [[cls,
 score, x1, y1, x2, y2], ...]} with normalised boxes.
 
@@ -216,7 +226,8 @@ def parse_args(argv=None):
                    help="the two-stream model's motion stream: flownet (--window 3,1) or r21d (--window 9,1 or 33,1)")
     p.add_argument("--stream_gating", default=None, help="the motion stream's gating of darknet: add or mul")
     p.add_argument("--quantize", default=None, choices=["int8", "int8_static", "int8_dynamic"],
-                   help="int8 serving: the fused int8-end-to-end YOLOv3")
+                   help="int8 serving: int8 the fused int8-end-to-end YOLOv3 (static on --window models); "
+                        "int8_static or int8_dynamic force those activation scales")
     p.add_argument("--stream", action="store_true",
                    help="streaming detection over frames in order, one per-frame pass a frame (--window k,1)")
     p.add_argument("--stream_anchor", choices=["trail", "center"], default="trail",
@@ -284,8 +295,8 @@ def check_stream_args(args, window) -> None:
     if args.skip_existing:
         raise ValueError("--skip_existing cannot compose with --stream: the buffers need consecutive frames")
     if args.quantize:
-        raise NotImplementedError("--quantize with --stream (the int8 temporal family) is deferred, see ROADMAP.md "
-                                  "Queue 1 item 9a")
+        raise NotImplementedError("--quantize with --stream (the int8 stream) is deferred, see ROADMAP.md Queue 1 "
+                                  "item 9a")
 
 
 def main(argv=None):
@@ -305,17 +316,11 @@ def main(argv=None):
         rnn_pos=args.rnn_pos, corr_pos=args.corr_pos, corr_d=args.corr_d if args.corr_pos else None,
         temporal=args.temp, t_out=args.mult_out, **backbone_kwargs(args),
     )
-    if args.quantize and args.quantize != "int8":
-        raise NotImplementedError(f"--quantize {args.quantize} is deferred, see ROADMAP.md Queue 1 item 9a")
-    if args.quantize and temporal:
-        raise NotImplementedError(
-            "--quantize with --window (the int8 temporal family) is deferred, see ROADMAP.md Queue 1 item 9a"
-        )
     s = args.data_shape
     requests = list(_requests(np.random.RandomState(args.seed), args.num_requests, args.batch_size, s, k, stride))
     det = Detector(
         cfg, dtype=DTYPES[args.dtype], data_shape=s, device=args.device, seed=args.seed,
-        quantize=args.quantize, calibration=requests[:2] if args.quantize else None,
+        quantize=args.quantize, calibration=requests[:2] if args.quantize not in (None, "int8_dynamic") else None,
     )
     name = "window" if temporal else "image"
     preds = {}
@@ -781,8 +786,13 @@ def main_dataset(args):
                   f"{args.data_shape} px on {stream.device} in {secs:.3f} s ({n / max(secs, 1e-9):.1f} frames/s "
                   "from JPEG on disk)", flush=True)
         else:
+            # --quantize calibrates on the loader's first two batches
+            # (detect_yolo3.py:346-386, 1040-1060); the dynamic mode on none
+            calibration = None
+            if args.quantize and args.quantize != "int8_dynamic":
+                calibration = [b["image"] for b in itertools.islice(iter(loader), 2)]
             det = Detector(cfg, variables, dtype=DTYPES[args.dtype], data_shape=args.data_shape,
-                           device=args.device, seed=args.seed)
+                           device=args.device, seed=args.seed, quantize=args.quantize, calibration=calibration)
             t0 = time.perf_counter()
             boxes = detect_dataset(det, dataset, loader, args.max_do)
             secs = time.perf_counter() - t0

@@ -3,7 +3,9 @@
 Organised, as in the JAX package, into stages that return the
 stride-8/16/32 FPN routes directly.  `quant` "fused" / "fused_calib" builds
 the fused-int8 backbone (models/layers.py): int8 cells, residual joins
-through `QuantResidual`, QTensor routes.  `s2d_stem` evaluates the stem on
+through `QuantResidual`, QTensor routes.  True / "dynamic" and "static"
+build int8 cells that pass real values in `dtype`, with the residual adds
+in `dtype` (darknet.py:88-98).  `s2d_stem` evaluates the stem on
 the space-to-depth grid (`ConvBNLeakyS2D`; weights refold with
 models/s2d.refold_stem_s2d).
 """
@@ -47,13 +49,13 @@ class ConvBNLeakyS2D(nn.Module):
 class DarknetBasicBlock(nn.Module):
     """Residual 1x1-reduce + 3x3-expand block on a 2*channels input (NCHW).
     In the fused-int8 modes both branches are QTensors and join through a
-    `QuantResidual`."""
+    `QuantResidual`; otherwise the join is an add in `dtype`."""
 
     def __init__(self, channels: int, dtype: torch.dtype | None = None, quant=None):
         super().__init__()
         self.ConvBNLeaky_0 = ConvBNLeaky(2 * channels, channels, kernel=1, dtype=dtype, quant=quant)
         self.ConvBNLeaky_1 = ConvBNLeaky(channels, 2 * channels, kernel=3, dtype=dtype, quant=quant)
-        if quant:
+        if quant in ("fused", "fused_calib"):
             self.QuantResidual_0 = QuantResidual(calib=quant == "fused_calib")
 
     def forward(self, x):
@@ -125,6 +127,7 @@ class Darknet53(nn.Module):
         if s2d_stem and pad_stem:
             raise ValueError("s2d_stem and pad_stem exclude each other")
         self.pad_stem, self.s2d_stem, self.remat_stages = pad_stem, s2d_stem, remat_stages
+        self.quant = quant or None
         self.dtype = dtype or torch.float32
         if s2d_stem:
             self.conv0 = ConvBNLeakyS2D(12, channels[0], dtype=dtype)
@@ -145,7 +148,7 @@ class Darknet53(nn.Module):
             x = F.pad(x, (0, 1))
         if self.s2d_stem:
             x = space_to_depth(x)
-        x = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
+        x = self.conv0((x if self.quant else x.to(self.dtype)).permute(0, 3, 1, 2))
         routes = []
         train = self.training and torch.is_grad_enabled()
         for i in range(self.num_stages):
@@ -162,18 +165,20 @@ class Darknet53Stage1(nn.Module):
     """The first FPN slice on its own (darknet.py:197-211), as the temporal
     models route the stages separately: conv0 (3-channel stem) and the
     64/128/256-channel groups.  Input (B, H, W, 3) NHWC -> (B, H/8, W/8, 256)
-    NHWC."""
+    NHWC.  `quant` True / "dynamic" or "static" builds its int8 cells (real
+    values between them); the int8 stem quantises the input as it comes."""
 
-    def __init__(self, dtype: torch.dtype | None = None):
+    def __init__(self, dtype: torch.dtype | None = None, quant=None):
         super().__init__()
         self.dtype = dtype or torch.float32
-        self.conv0 = ConvBNLeaky(3, 32, kernel=3, dtype=dtype)
-        self.stage1 = DarknetStage(32, 64, 1, dtype=dtype)
-        self.stage2 = DarknetStage(64, 128, 2, dtype=dtype)
-        self.stage3 = DarknetStage(128, 256, 8, dtype=dtype)
+        self.quant = quant or None
+        self.conv0 = ConvBNLeaky(3, 32, kernel=3, dtype=dtype, quant=quant)
+        self.stage1 = DarknetStage(32, 64, 1, dtype=dtype, quant=quant)
+        self.stage2 = DarknetStage(64, 128, 2, dtype=dtype, quant=quant)
+        self.stage3 = DarknetStage(128, 256, 8, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv0(x.to(self.dtype).permute(0, 3, 1, 2))
+        x = self.conv0((x if self.quant else x.to(self.dtype)).permute(0, 3, 1, 2))
         return self.stage3(self.stage2(self.stage1(x))).permute(0, 2, 3, 1)
 
 

@@ -17,13 +17,18 @@ The temporal layers (`time_distributed`, `TemporalPooling`, `Corr`,
 take NHWC windows (B, T, H, W, C), as in the JAX package; the conv-RNN's
 cells (`ConvGRUCell`, `ConvLSTMCell`) take NCHW frames.
 
-The fused-int8 path (`quant="fused"`, and its calibration twin
-"fused_calib") keeps activations int8 from cell to cell as `QTensor`s; its
-cells hold the buffers `qkernel` (int8), `wscale`, `bias`, `xscale` and
-`oscale`, named like the flax leaves that ops/quantize.py produces.  The
-convs go to ops/int8_conv.py (CUDA kernels on the card); the elementwise
-joins (the stem's input quantize, `QuantResidual`, `quant_concat`, the int8
-upsample) are torch ops in the JAX package's order of operations.
+The int8 cells hold the buffers `qkernel` (int8), `wscale`, `bias`,
+`xscale` and `oscale`, named like the flax leaves that ops/quantize.py
+produces.  The fused-int8 path (`quant="fused"`, and its calibration twin
+"fused_calib") keeps activations int8 from cell to cell as `QTensor`s.  The
+dynamic (`quant=True` / "dynamic") and static ("static") modes take and
+give real values in `dtype`: each cell quantises its input by a scale per
+image (per window for the 3-D cells; dynamic, its amax recorded while
+`calibrating`) or by its calibrated `xscale` (static), and writes leaky(acc *
+scale + bias).  The convs go to ops/int8_conv.py (CUDA kernels on the
+card); the elementwise joins (the input quantize, `QuantResidual`,
+`quant_concat`, the int8 upsample) are torch ops in the JAX package's order
+of operations.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.correlation import CostVolumePair, correlation
-from ..ops.int8_conv import dequant_leaky, int8_conv, quant_downsample, requantize
+from ..ops.int8_conv import dequant_leaky, int8_conv, int8_conv3d, quant_downsample, requantize
 from ..parallel import multihost
 
 BN_EPS = 1e-5
@@ -46,7 +51,9 @@ BN_EPS = 1e-5
 # momentum is the new batch's weight, 1 - this)
 BN_MOMENTUM = 0.9
 LEAKY_SLOPE = 0.1
-QUANT_MODES = ("fused", "fused_calib")
+QUANT_MODES = (True, "dynamic", "static", "fused", "fused_calib")
+# the modes whose cells take and give real values (the others pass QTensors)
+REAL_MODES = (True, "dynamic", "static")
 # the input rows above which the JAX package keeps a downsample off its
 # Pallas kernel (a VMEM limit of the TPU, layers.py:157-159); mirrored so the
 # outputs stay the JAX package's (lifting it: ROADMAP.md Queue 1 item 9d)
@@ -93,6 +100,14 @@ class Conv2d(nn.Conv2d):
         self.dtype = dtype or torch.float32
         self._cast_cache = {}
 
+    def reset_parameters(self) -> None:
+        """Zeros, where torch would draw a kaiming init on the CPU: every
+        model the port builds gets its kernels from `init_weights` or a load
+        right after, and that draw was most of a model's build time."""
+        nn.init.zeros_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
     def _cast(self, name: str, p: torch.Tensor) -> torch.Tensor:
         if p.dtype == self.dtype:
             return p
@@ -121,6 +136,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     flips it both ways)."""
 
     _cast = Conv2d._cast
+    reset_parameters = Conv2d.reset_parameters
 
     def __init__(self, in_channels: int, out_channels: int, bias: bool = True, dtype: torch.dtype | None = None):
         super().__init__(in_channels, out_channels, 4, stride=2, padding=1, bias=bias)
@@ -304,6 +320,23 @@ def dequantize(x, dtype=None):
     return x
 
 
+_calibrating = False
+
+
+@contextmanager
+def calibrating():
+    """Within the block the dynamic cells record the amax of their inputs
+    (the JAX package's `mutable=["quant_calib"]`); outside it they record
+    nothing, and a served dynamic model pays no reduction for it.  The
+    "fused_calib" cells, which only calibrate, always record."""
+    global _calibrating
+    prev, _calibrating = _calibrating, True
+    try:
+        yield
+    finally:
+        _calibrating = prev
+
+
 def dynamic_scale(amax: torch.Tensor) -> torch.Tensor:
     """`jnp.maximum(amax / 127.0, 1e-12)` as the JAX package computes it."""
     return torch.clamp_min(amax * _INV_127, 1e-12)
@@ -332,13 +365,14 @@ class ConvBNLeaky(_QuantState):
     BN stays its own op in eval, as in the JAX package; folding it into the
     conv would change the bf16 rounding.
 
-    `quant` "fused" / "fused_calib" builds the int8 cell instead (BN folded
-    offline by ops/quantize.py; never initialised, always converted): a
-    QTensor in (or, with `real_input`, a real-valued input quantised by
-    `xscale`), a QTensor out requantised by `oscale` (or, without `qout`,
-    real values in `dtype`).  `ds_conv="pallas"` sends the eligible 3x3 /
-    stride-2 cells to K3, as the JAX package sends them to its Pallas
-    kernel."""
+    `quant` builds the int8 cell instead (BN folded offline by
+    ops/quantize.py; never initialised, always converted).  "fused" /
+    "fused_calib": a QTensor in (or, with `real_input`, a real-valued input
+    quantised by `xscale`), a QTensor out requantised by `oscale` (or,
+    without `qout`, real values in `dtype`); `ds_conv="pallas"` sends the
+    eligible 3x3 / stride-2 cells to K3, as the JAX package sends them to
+    its Pallas kernel.  True / "dynamic" and "static": real values in and
+    out (`qout` and `ds_conv` unused, as in the JAX package)."""
 
     def __init__(
         self,
@@ -363,7 +397,7 @@ class ConvBNLeaky(_QuantState):
             self.BatchNorm_0 = BatchNorm(features)
             return
         if self.quant not in QUANT_MODES:
-            raise NotImplementedError(f"int8 mode {quant!r} (dynamic and static scales) {_DEFERRED} 9a")
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         if ds_conv == "s2d":
             raise NotImplementedError(f"ds_conv='s2d' {_DEFERRED} 9b")
         if ds_conv not in ("direct", "pallas"):
@@ -372,12 +406,12 @@ class ConvBNLeaky(_QuantState):
         self.register_buffer("qkernel", torch.zeros((features, in_channels, kernel, kernel), dtype=torch.int8))
         self.register_buffer("wscale", torch.ones(features))
         self.register_buffer("bias", torch.zeros(features))
-        if self.quant == "fused_calib":
+        if self.quant in (True, "dynamic", "fused_calib"):
             self.calib = {}
             return
-        if real_input:
+        if real_input or self.quant == "static":
             self.register_buffer("xscale", torch.ones(()))
-        if qout:
+        if qout and self.quant == "fused":
             self.register_buffer("oscale", torch.ones(()))
 
     def forward(self, x):
@@ -397,38 +431,49 @@ class ConvBNLeaky(_QuantState):
         )
 
 
+def input_scale(cell: _QuantState, xf: torch.Tensor, dims) -> torch.Tensor:
+    """The scale a real-valued input is quantised by: the cell's calibrated
+    `xscale` (static, fused), or the amax of each image (`dims` of it) over
+    127, the batch's amax recorded by a fused_calib cell, or by a dynamic
+    one while `calibrating` (layers.py:216-226)."""
+    if cell.quant in ("static", "fused"):
+        if not hasattr(cell, "xscale"):
+            raise ValueError("a real-valued input to a fused cell needs its xscale (real_input=True)")
+        return cell.xscale
+    amax = xf.abs().amax(dim=dims, keepdim=True)
+    if _calibrating or cell.quant == "fused_calib":
+        cell._sow("amax", amax.max())
+    return dynamic_scale(amax)
+
+
 def quant_conv_cell(cell: ConvBNLeaky, x):
     """The int8 cell body (layers.py:187-247): quantise a real-valued input,
-    int8 conv with int32 sums, y = leaky(acc * (s_x * wscale) + bias), then
-    requantise by `oscale` (fused) or by the batch's own max (fused_calib,
-    which records the input amax of a real-valued input and the output
-    amax)."""
-    fused = cell.quant == "fused"
+    int8 conv with int32 sums, y = leaky(acc * (s_x * wscale) + bias).
+
+    With one input scale (static, fused) the kernel's epilogue computes y:
+    in `dtype` (static, or a fused cell without `qout`) or requantised by
+    `oscale` (fused).  With a scale per image (dynamic, and the fused_calib
+    pass, which records the input amax of a real-valued input and the
+    output amax) the kernel writes the raw sums and `dequant_leaky` takes
+    them."""
     if isinstance(x, QTensor):
+        if cell.quant in REAL_MODES:
+            raise ValueError("QTensor inputs are a fused-mode contract")
         q, s_x = x.q, x.s
     else:
         xf = x.float()
-        if fused:
-            if not hasattr(cell, "xscale"):
-                raise NotImplementedError(f"real-valued input to a fused cell without xscale (static scales) {_DEFERRED} 9a")
-            s_x = cell.xscale
-        else:
-            amax = xf.abs().amax(dim=(1, 2, 3), keepdim=True)  # per image
-            cell._sow("amax", amax.max())
-            s_x = dynamic_scale(amax)
+        s_x = input_scale(cell, xf, (1, 2, 3))
         q = requantize(xf / s_x)
-    if fused:
+    if cell.quant in ("static", "fused"):
         scale = s_x * cell.wscale
-        if cell.qout:
+        if cell.quant == "fused" and cell.qout:
             out = int8_conv(q, cell.qkernel, cell.stride, scale, cell.bias, cell.oscale)
             return QTensor(out, cell.oscale, cell._host(cell.oscale))
         return int8_conv(q, cell.qkernel, cell.stride, scale, cell.bias, out_dtype=cell.dtype)
-    # calibration: the raw sums from the conv, the epilogue here (its scale
-    # is per image at the stem)
     y = int8_conv(q, cell.qkernel, cell.stride)
     scale = s_x.reshape(-1, 1) * cell.wscale if s_x.dim() else s_x * cell.wscale
     out = dequant_leaky(y, scale, cell.bias)
-    if not cell.qout:
+    if cell.quant != "fused_calib" or not cell.qout:
         return out.to(cell.dtype)
     oamax = out.abs().amax()
     cell._sow("oamax", oamax)
@@ -483,6 +528,7 @@ class Conv3d(nn.Conv3d):
     memory)."""
 
     _cast = Conv2d._cast
+    reset_parameters = Conv2d.reset_parameters
 
     def __init__(self, in_channels: int, out_channels: int, kernel, stride, padding,
                  dtype: torch.dtype | None = None, groups: int = 1):
@@ -495,52 +541,90 @@ class Conv3d(nn.Conv3d):
         return F.conv3d(x, self._cast("weight", self.weight), None, self.stride, self.padding, 1, self.groups)
 
     def _apply(self, fn, recurse=True):
-        # `Module.to(memory_format=torch.channels_last)`, which the entry
-        # points call on whole models, raises on a 5-D tensor: the kernel
-        # then takes the conversion's device and dtype, read off a 4-D
-        # probe, in channels_last_3d memory
-        def convert(t):
-            try:
-                return fn(t)
-            except RuntimeError as e:
-                if t.dim() != 5 or "channels_last" not in str(e):
-                    raise
-                probe = fn(t.new_empty((1, 1, 1, 1)))
-                return t.to(probe.device, probe.dtype, memory_format=torch.channels_last_3d)
-
-        return super()._apply(convert, recurse)
+        return super()._apply(_five_d_safe(fn), recurse)
 
 
-class ConvBNLeaky3D(nn.Module):
+def _five_d_safe(fn):
+    """`Module.to(memory_format=torch.channels_last)`, which the entry
+    points call on whole models, raises on a 5-D tensor: such a tensor then
+    takes the conversion's device and dtype, read off a 4-D probe, in
+    channels_last_3d memory."""
+    def convert(t):
+        try:
+            return fn(t)
+        except RuntimeError as e:
+            if t.dim() != 5 or "channels_last" not in str(e):
+                raise
+            probe = fn(t.new_empty((1, 1, 1, 1)))
+            return t.to(probe.device, probe.dtype, memory_format=torch.channels_last_3d)
+
+    return convert
+
+
+class ConvBNLeaky3D(_QuantState):
     """The 3-D conv-BN-LeakyReLU(0.1) cell over NHWC windows (B, T, H, W, C)
     (layers.py:291-335): a (kt, kh, kw) conv of `stride`, zero-padded by
     `padding` (default k//2 on each axis) on both sides of each axis, no
     bias; BatchNorm over the channels (train mode: the statistics of every
     frame and pixel of the batch, as flax's); leaky.  Returns (B, T', H',
-    W', features).  Float only: the int8 3-D cells raise."""
+    W', features).
+
+    `quant` True / "dynamic" or "static" builds the int8 cell
+    (`quant_conv3d_cell`): buffers `qkernel` (features, C, kt, kh, kw) int8,
+    `wscale`, `bias` and, static, `xscale`; real values in and out, in
+    `dtype`."""
 
     def __init__(self, in_channels: int, features: int, kernel=(3, 3, 3), stride=(1, 1, 1), padding=None,
                  dtype: torch.dtype | None = None, quant=None):
         super().__init__()
-        if quant:
-            raise NotImplementedError(f"the int8 3-D cells (quant={quant!r}) {_DEFERRED} 9a")
         if padding is None:
             padding = tuple(k // 2 for k in kernel)
         self.dtype = dtype or torch.float32
-        self.Conv_0 = Conv3d(in_channels, features, kernel, stride, padding, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(features)
+        self.quant = quant or None
+        if self.quant is None:
+            self.Conv_0 = Conv3d(in_channels, features, kernel, stride, padding, dtype=dtype)
+            self.BatchNorm_0 = BatchNorm(features)
+            return
+        if self.quant not in REAL_MODES:
+            raise ValueError(f"the 3-D int8 cells take quant True, 'dynamic' or 'static', got {quant!r}")
+        self.kernel, self.stride, self.padding = tuple(kernel), tuple(stride), tuple(padding)
+        self.register_buffer("qkernel", torch.zeros((features, in_channels) + self.kernel, dtype=torch.int8))
+        self.register_buffer("wscale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        if self.quant == "static":
+            self.register_buffer("xscale", torch.ones(()))
+        else:
+            self.calib = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is not None:
+            return quant_conv3d_cell(self, x)
         y = leaky(self.BatchNorm_0(self.Conv_0(x.to(self.dtype).permute(0, 4, 1, 2, 3))))
         return y.permute(0, 2, 3, 4, 1)
+
+    def _apply(self, fn, recurse=True):
+        return super()._apply(_five_d_safe(fn), recurse)
+
+
+def quant_conv3d_cell(cell: ConvBNLeaky3D, x: torch.Tensor) -> torch.Tensor:
+    """The 3-D int8 cell body (layers.py:338-366): the window quantised by
+    its calibrated `xscale` (static) or by its own amax (dynamic: one scale
+    a window, axes T, H, W, C; the batch's amax recorded), the int8 conv3d
+    with int32 sums (ops/int8_conv.int8_conv3d), y = leaky(acc * (s_x *
+    wscale) + bias) in `dtype`."""
+    xf = x.float()
+    s_x = input_scale(cell, xf, (1, 2, 3, 4))
+    q = requantize(xf / s_x)
+    scale = s_x.reshape(-1, 1) * cell.wscale if s_x.dim() else s_x * cell.wscale
+    return int8_conv3d(q, cell.qkernel, cell.stride, cell.padding, scale, cell.bias, out_dtype=cell.dtype)
 
 
 class Conv21D(nn.Module):
     """The R(2+1)D factored cell (layers.py:369-401): a (1, k, k) cell of
     spatial stride `stride` and padding (0, p, p) to `mid` channels (default
     `features`), then a (k, 1, 1) cell of temporal stride `stride` and
-    padding (p, 0, 0); each a `ConvBNLeaky3D` (`ConvBNLeaky3D_0`, `_1`).
-    NHWC windows in and out."""
+    padding (p, 0, 0); each a `ConvBNLeaky3D` (`ConvBNLeaky3D_0`, `_1`),
+    each quantising on its own under `quant`.  NHWC windows in and out."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3, mid: Optional[int] = None,
                  padding: int = 1, stride: int = 1, dtype: torch.dtype | None = None, quant=None):

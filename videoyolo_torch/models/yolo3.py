@@ -6,7 +6,10 @@ greedy NMS) works on those compact tensors.  Train mode returns the raw
 heads the loss reads (`decode_predictions`).  Cells run NCHW in
 `channels_last` memory; images and routes come in NHWC.  With `quant`
 "fused" the model is the fused-int8 detector of ops/quantize.py:quantize_fused
-(int8 from cell to cell, real-valued tips into the prediction convs).
+(int8 from cell to cell, real-valued tips into the prediction convs); with
+True / "dynamic" or "static" the int8 detector of
+ops/quantize.py:quantize_static (int8 cells, real values in `dtype` between
+them).
 """
 from __future__ import annotations
 
@@ -26,17 +29,20 @@ FPN_CHANNELS = (512, 256, 128)
 class YOLODetectionBlock(nn.Module):
     """5-conv FPN block + 3x3 tip; returns (route, tip), NCHW.  In the
     fused-int8 modes the tip writes real values in `dtype` (`qout=False`):
-    its one consumer is the prediction conv."""
+    its one consumer is the prediction conv.  `real_input`: the block's
+    input is real-valued (a fused model's routes from outside, the
+    head-only model's), quantised by the first cell's `xscale`."""
 
-    def __init__(self, in_channels: int, channel: int, dtype: torch.dtype | None = None, quant=None):
+    def __init__(self, in_channels: int, channel: int, dtype: torch.dtype | None = None, quant=None,
+                 real_input: bool = False):
         super().__init__()
         if channel % 2:
             raise ValueError(f"channel must be even, got {channel}")
         cells = []
         cin = in_channels
-        for _ in range(2):
+        for n in range(2):
             cells += [
-                ConvBNLeaky(cin, channel, kernel=1, dtype=dtype, quant=quant),
+                ConvBNLeaky(cin, channel, kernel=1, dtype=dtype, quant=quant, real_input=real_input and n == 0),
                 ConvBNLeaky(channel, 2 * channel, kernel=3, dtype=dtype, quant=quant),
             ]
             cin = 2 * channel
@@ -140,7 +146,9 @@ class YOLOv3(nn.Module):
     `quant` "fused" (or its calibration twin "fused_calib") builds the
     fused-int8 model, which ops/quantize.py:quantize_fused converts from a
     float one (never initialised); `ds_conv` "pallas" sends the eligible
-    downsamples to K3.  `init_kwargs` keeps the constructor's arguments, so
+    downsamples to K3.  True / "dynamic" and "static" build the int8 model
+    of ops/quantize.py:quantize_static.  Without the backbone, the first
+    cell of each block quantises its real-valued input.  `init_kwargs` keeps the constructor's arguments, so
     the float model and its int8 twin are built alike."""
 
     def __init__(
@@ -169,11 +177,7 @@ class YOLOv3(nn.Module):
         )
         if remat not in (False, None, True, "full", "stem"):
             raise ValueError(f"remat must be False, True, 'full' or 'stem', got {remat!r}")
-        if quant and not use_backbone:
-            raise NotImplementedError(
-                "the int8 head on real-valued routes (static input scales) is deferred, "
-                "see ROADMAP.md Queue 1 item 9a"
-            )
+        self.quant = quant or None
         self.agnostic = agnostic
         self.use_backbone = use_backbone
         self.return_levels = return_levels
@@ -191,7 +195,8 @@ class YOLOv3(nn.Module):
         strides_rev = list(strides)[::-1]
         cin = route_channels[-1]
         for i in range(3):
-            self.add_module(f"block{i}", YOLODetectionBlock(cin, channels[i], dtype=dtype, quant=quant))
+            self.add_module(f"block{i}", YOLODetectionBlock(cin, channels[i], dtype=dtype, quant=quant,
+                                                            real_input=not use_backbone))
             pairs = [
                 (anchors_rev[i][2 * j], anchors_rev[i][2 * j + 1])
                 for j in range(len(anchors_rev[i]) // 2)
@@ -216,9 +221,11 @@ class YOLOv3(nn.Module):
             routes = self.backbone(x)
         if len(routes) != 3:
             raise ValueError(f"YOLOv3 takes three routes, got {len(routes)}")
+        # an int8 cell quantises its real-valued input as it comes (the
+        # JAX package's concat keeps a float32 route float32)
         routes = [
             r._replace(q=r.q.permute(0, 3, 1, 2)) if isinstance(r, QTensor)
-            else r.to(self.dtype).permute(0, 3, 1, 2)
+            else (r if self.quant else r.to(self.dtype)).permute(0, 3, 1, 2)
             for r in routes
         ]
 

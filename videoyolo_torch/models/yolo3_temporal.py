@@ -58,8 +58,18 @@ The configurations whose JAX forward is at fault raise ValueError (ROADMAP.md
 Queue 3): the conv-RNN or 3-D blocks after an early correlation or on a
 backbone's 4-D routes, and the 3-D funnel.  A backbone of another class
 raises NotImplementedError (the factory builds none: ROADMAP.md item 7
-lists the three).  Not ported yet (NotImplementedError naming the
-ROADMAP.md item): int8 cells (item 9a).
+lists the three).
+
+`quant` True / "dynamic" or "static" builds the int8 models of
+ops/quantize.py:quantize_static (yolo3_temporal.py:190-200, 410-411): every
+conv-BN cell int8 (the stages, the 2-D, 3-D and 2+1D blocks, the
+transitions, the pyramid's `convs1-3`, the funnel's 3-D cells), real values
+in `dtype` between them; the correlation, the conv-RNN (its carry stays
+real: mixed precision) and the prediction convs stay real-valued.  An int8
+cell quantises its input as it comes (a float32 correlation route is not
+cast to `dtype` first, as the JAX package's concat keeps it float32).  Not
+ported yet (NotImplementedError naming the ROADMAP.md item): the
+two-stream int8 backbone (item 9a).
 """
 from __future__ import annotations
 
@@ -76,7 +86,8 @@ from .darknet3d import Darknet3D
 from .h_darknet import HDarknet
 from .ts_darknet import TwoStreamDarknet
 from .layers import (
-    Conv21D, ConvBNLeaky, ConvBNLeaky3D, ConvRNN, Corr, TemporalPooling, nhwc, time_distributed, upsample2x,
+    REAL_MODES, Conv21D, ConvBNLeaky, ConvBNLeaky3D, ConvRNN, Corr, TemporalPooling, nhwc, time_distributed,
+    upsample2x,
 )
 from .yolo3 import FPN_CHANNELS, YOLOOutput, decode_predictions
 
@@ -85,6 +96,18 @@ __all__ = ["YOLOv3T", "YOLOv3Temporal"]
 
 def _anchor_pairs(level_anchors):
     return [(level_anchors[2 * j], level_anchors[2 * j + 1]) for j in range(len(level_anchors) // 2)]
+
+
+def _check_quant(quant) -> None:
+    if quant and quant not in REAL_MODES:
+        raise ValueError(f"the temporal family serves int8 with quant True, 'dynamic' or 'static' (the fused "
+                         f"pipeline is YOLOv3's), got {quant!r}")
+
+
+def _as_input(x: torch.Tensor, dtype: torch.dtype, quant) -> torch.Tensor:
+    """A cell's input: cast to `dtype` as flax's convs cast, or as it comes
+    for an int8 cell, which quantises it from its own dtype."""
+    return x if quant else x.to(dtype)
 
 
 def _fold_time_into_channels(x: torch.Tensor) -> torch.Tensor:
@@ -97,25 +120,27 @@ class _TCell(nn.Module):
     """A conv cell on NHWC input (yolo3_temporal.py:66-92): conv_type '2' a
     2D cell, per frame when 5-D; '3' a (k, k, k) `ConvBNLeaky3D` and '21' a
     `Conv21D` over a window (B, T, H, W, C), a 1x1 cell of either a (1, 1,
-    1) one.  It casts its input to its dtype."""
+    1) one.  It casts its input to its dtype (an int8 cell takes it as it
+    comes)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int, conv_type: str = "2",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant=None):
         super().__init__()
         if conv_type not in ("2", "3", "21"):
             raise ValueError(f"conv_type must be '2', '3' or '21', got {conv_type!r}")
-        self.conv_type, self.dtype = conv_type, dtype or torch.float32
+        self.conv_type, self.dtype, self.quant = conv_type, dtype or torch.float32, quant or None
         if conv_type == "2":
-            self.ConvBNLeaky_0 = ConvBNLeaky(in_channels, features, kernel=kernel, dtype=dtype)
+            self.ConvBNLeaky_0 = ConvBNLeaky(in_channels, features, kernel=kernel, dtype=dtype, quant=quant)
         elif conv_type == "3" or kernel == 1:
             kt = kernel if conv_type == "3" else 1
-            self.ConvBNLeaky3D_0 = ConvBNLeaky3D(in_channels, features, kernel=(kt, kernel, kernel), dtype=dtype)
+            self.ConvBNLeaky3D_0 = ConvBNLeaky3D(in_channels, features, kernel=(kt, kernel, kernel), dtype=dtype,
+                                                 quant=quant)
         else:
-            self.Conv21D_0 = Conv21D(in_channels, features, kernel=kernel, dtype=dtype)
+            self.Conv21D_0 = Conv21D(in_channels, features, kernel=kernel, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv_type == "2":
-            return nhwc(self.ConvBNLeaky_0, x.to(self.dtype))
+            return nhwc(self.ConvBNLeaky_0, _as_input(x, self.dtype, self.quant))
         if x.dim() != 5:
             raise ValueError(f"a 3-D cell takes a window (B, T, H, W, C), got {tuple(x.shape)}")
         return next(iter(self.children()))(x)
@@ -128,7 +153,7 @@ class YOLODetectionBlockT(nn.Module):
     3-D cells."""
 
     def __init__(self, in_channels: int, channel: int, conv_type: str = "2", with_tip: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant=None):
         super().__init__()
         if channel % 2:
             raise ValueError(f"channel must be even, got {channel}")
@@ -140,7 +165,7 @@ class YOLODetectionBlockT(nn.Module):
             specs.append((channel, 2 * channel, 3, conv_type))
         self.with_tip = with_tip
         for n, (cin, cout, kernel, ctype) in enumerate(specs):
-            self.add_module(f"_TCell_{n}", _TCell(cin, cout, kernel, ctype, dtype=dtype))
+            self.add_module(f"_TCell_{n}", _TCell(cin, cout, kernel, ctype, dtype=dtype, quant=quant))
 
     def forward(self, x: torch.Tensor):
         cells = list(self.children())
@@ -252,9 +277,21 @@ class YOLOv3T(nn.Module):
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.init_kwargs = dict(
+            num_classes=num_classes, k=k, k_join_type=k_join_type, k_join_pos=k_join_pos,
+            block_conv_type=block_conv_type, rnn_pos=rnn_pos, corr_pos=corr_pos, corr_d=corr_d, agnostic=agnostic,
+            backbone=backbone, feed=feed, anchors=anchors, strides=strides, channels=channels, quant=quant,
+            dtype=dtype,
+        )
         _validate(k, k_join_type, k_join_pos, block_conv_type, rnn_pos, corr_pos, corr_d)
-        if quant:
-            raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
+        _check_quant(quant)
+        if quant and isinstance(backbone, TwoStreamDarknet):
+            raise NotImplementedError("the two-stream int8 model is deferred, see ROADMAP.md Queue 1 item 9a")
+        if quant and backbone is not None:
+            # YOLOv3T._validate's assertion (yolo3_temporal.py:207-212):
+            # Darknet3D and HDarknet have no int8 cells
+            raise ValueError("a custom backbone must carry the same quant mode (ops/quantize.replace_quant threads "
+                             "it)")
         if backbone is not None and not isinstance(backbone, (Darknet3D, HDarknet, TwoStreamDarknet)):
             raise NotImplementedError("backbones other than Darknet3D, HDarknet and TwoStreamDarknet, the factory's "
                                       "three (ROADMAP.md Queue 1 item 7): not built")
@@ -271,7 +308,7 @@ class YOLOv3T(nn.Module):
         self.k = k or 1
         self.k_join_type, self.k_join_pos, self.rnn_pos = k_join_type, k_join_pos, rnn_pos
         self.corr_pos, self.block_conv_type, self.feed = corr_pos, block_conv_type, feed
-        self.agnostic = agnostic
+        self.agnostic, self.quant = agnostic, quant or None
         # a backbone's routes are 4-D: no join or correlation runs on them
         temporal = self.k > 1 and backbone is None
 
@@ -279,9 +316,9 @@ class YOLOv3T(nn.Module):
         if self.has_backbone:
             self.backbone = backbone
         elif feed is None:
-            self.stage1 = Darknet53Stage1(dtype=dtype)
-            self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
-            self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
+            self.stage1 = Darknet53Stage1(dtype=dtype, quant=quant)
+            self.stage2 = DarknetStage(256, 512, 8, dtype=dtype, quant=quant)
+            self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype, quant=quant)
 
         # which join and correlation run where (yolo3_temporal.py:306-345):
         # the output conv-RNN takes the window's tips unjoined
@@ -313,7 +350,7 @@ class YOLOv3T(nn.Module):
         for i in range(3):
             if feed is None:
                 self.add_module(f"block{i}", YOLODetectionBlockT(
-                    cin, channels[i], block_conv_type, with_tip=rnn_pos != "late", dtype=dtype))
+                    cin, channels[i], block_conv_type, with_tip=rnn_pos != "late", dtype=dtype, quant=quant))
                 if rnn_pos == "late":
                     self.add_module(f"tip_rnn{i}", ConvRNN(channels[i], 2 * channels[i], kernel=(3, 3), dtype=dtype))
             pairs = _anchor_pairs(anchors_rev[i])
@@ -327,7 +364,7 @@ class YOLOv3T(nn.Module):
                 if feed is None:
                     self.add_module(
                         f"transition{i}",
-                        ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype),
+                        ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype, quant=quant),
                     )
                 cin = channels[i + 1] + route_channels[1 - i]
 
@@ -381,8 +418,8 @@ class YOLOv3T(nn.Module):
             if i < 2:
                 y = nhwc(upsample2x, nhwc(getattr(self, f"transition{i}"), y))
                 # a float32 correlation route meets the bf16 cells: cast it
-                # here, as the next conv would
-                y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
+                # here, as the next conv would (an int8 cell takes it as it is)
+                y = torch.cat([y, _as_input(routes[1 - i], y.dtype, self.quant)], dim=-1)
         return tips
 
     def outputs(self, tips):
@@ -415,10 +452,11 @@ def _finish(level_outs, training: bool, agnostic: bool):
     return boxes, scores
 
 
-def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _cell(cell: nn.Module, x: torch.Tensor, dtype: torch.dtype, quant=None) -> torch.Tensor:
     """A 2D cell on an NHWC map or window, its input cast to `dtype` (as
-    flax's convs cast a float32 correlation route)."""
-    return nhwc(cell, x.to(dtype))
+    flax's convs cast a float32 correlation route; an int8 cell takes it as
+    it comes)."""
+    return nhwc(cell, _as_input(x, dtype, quant))
 
 
 class YOLOv3Temporal(nn.Module):
@@ -460,10 +498,13 @@ class YOLOv3Temporal(nn.Module):
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.init_kwargs = dict(
+            num_classes=num_classes, t=t, conv=conv, corr_d=corr_d, t_out=t_out, feed=feed, agnostic=agnostic,
+            anchors=anchors, strides=strides, channels=channels, quant=quant, dtype=dtype,
+        )
         if t not in (1, 5):
             raise ValueError(f"YOLOv3Temporal takes t=1 or t=5 (yolo3_temporal.py:400), got {t}")
-        if quant:
-            raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
+        _check_quant(quant)
         if conv not in (2, 3, 21):
             raise ValueError(f"YOLOv3Temporal's conv must be 2, 3 or 21, got {conv}")
         if conv != 2 and not (t > 1 and t_out):
@@ -479,35 +520,36 @@ class YOLOv3Temporal(nn.Module):
         if feed == "stage1" and not (t > 1 and (corr_d or not t_out)):
             raise ValueError("feed='stage1' is the split of the correlation pyramid and the funnel (t=5)")
         self.t, self.corr_d, self.t_out, self.agnostic, self.feed = t, corr_d, t_out, agnostic, feed
-        self.dtype = dtype or torch.float32
+        self.dtype, self.quant = dtype or torch.float32, quant or None
+        q = dict(dtype=dtype, quant=quant)
         self.path = "single" if t == 1 else ("pyramid" if t_out and corr_d else "per_frame" if t_out else "funnel")
         if feed is None:
-            self.stage1 = Darknet53Stage1(dtype=dtype)
+            self.stage1 = Darknet53Stage1(**q)
         if feed != "routes":
-            self.stage2 = DarknetStage(256, 512, 8, dtype=dtype)
-            self.stage3 = DarknetStage(512, 1024, 4, dtype=dtype)
+            self.stage2 = DarknetStage(256, 512, 8, **q)
+            self.stage3 = DarknetStage(512, 1024, 4, **q)
         route_channels = list(DARKNET53_CHANNELS[-3:])
         if self.path == "pyramid":
             self.corr = Corr(corr_d, t, kernel_size=3, stride=1, keep="none", comp_mid=True)
-            self.convs1 = ConvBNLeaky(num_corr_channels(corr_d, 1), 128, kernel=3, stride=1, dtype=dtype)
-            self.convs2 = ConvBNLeaky(128, 128, kernel=3, stride=2, dtype=dtype)
-            self.convs3 = ConvBNLeaky(128, 128, kernel=3, stride=2, dtype=dtype)
+            self.convs1 = ConvBNLeaky(num_corr_channels(corr_d, 1), 128, kernel=3, stride=1, **q)
+            self.convs2 = ConvBNLeaky(128, 128, kernel=3, stride=2, **q)
+            self.convs3 = ConvBNLeaky(128, 128, kernel=3, stride=2, **q)
             route_channels = [c + 128 for c in route_channels]
         elif self.path == "funnel":
             for name, cin, mid, feat in (("convs1", 256, 256, 512), ("convs2", 512, 512, 1024)):
                 self.add_module(f"{name}_s", ConvBNLeaky3D(cin, mid, kernel=(1, 3, 3), stride=(1, 2, 2),
-                                                           padding=(0, 1, 1), dtype=dtype))
+                                                           padding=(0, 1, 1), **q))
                 self.add_module(f"{name}_t", ConvBNLeaky3D(mid, feat, kernel=(3, 1, 1), stride=(1, 1, 1),
-                                                           padding=(0, 0, 0), dtype=dtype))
+                                                           padding=(0, 0, 0), **q))
         anchors_rev = list(anchors)[::-1]
         strides_rev = list(strides)[::-1]
         cin = route_channels[-1]
         for i in range(3):
-            self.add_module(f"block{i}", YOLODetectionBlockT(cin, channels[i], str(conv), dtype=dtype))
+            self.add_module(f"block{i}", YOLODetectionBlockT(cin, channels[i], str(conv), **q))
             self.add_module(f"output{i}", YOLOOutputConvT(2 * channels[i], num_classes, _anchor_pairs(anchors_rev[i]),
                                                           strides_rev[i], dtype=dtype))
             if i < 2:
-                self.add_module(f"transition{i}", ConvBNLeaky(channels[i], channels[i + 1], kernel=1, dtype=dtype))
+                self.add_module(f"transition{i}", ConvBNLeaky(channels[i], channels[i + 1], kernel=1, **q))
                 cin = channels[i + 1] + route_channels[1 - i]
 
     def frame_routes(self, x: torch.Tensor):
@@ -536,12 +578,12 @@ class YOLOv3Temporal(nn.Module):
         stage2, stage3 = partial(nhwc, self.stage2), partial(nhwc, self.stage3)
         if self.path == "pyramid":
             mid = y[:, self.t // 2]
-            c = _cell(self.convs1, self.corr(y), self.dtype)
+            c = _cell(self.convs1, self.corr(y), self.dtype, self.quant)
             routes = []
             for level in range(3):
                 if level:
                     mid = (stage2 if level == 1 else stage3)(mid)
-                    c = _cell(getattr(self, f"convs{level + 1}"), c, self.dtype)
+                    c = _cell(getattr(self, f"convs{level + 1}"), c, self.dtype, self.quant)
                 rep = mid[:, None].expand((-1, self.t) + mid.shape[1:])
                 routes.append(torch.cat([rep, c], dim=-1))
             return routes
@@ -573,5 +615,5 @@ class YOLOv3Temporal(nn.Module):
             level_outs.append(getattr(self, f"output{i}")(tip))
             if i < 2:
                 y = nhwc(upsample2x, nhwc(getattr(self, f"transition{i}"), y))
-                y = torch.cat([y, routes[1 - i].to(y.dtype)], dim=-1)
+                y = torch.cat([y, _as_input(routes[1 - i], y.dtype, self.quant)], dim=-1)
         return _finish(level_outs, self.training, self.agnostic)

@@ -31,8 +31,9 @@ from torch.nn import functional as F
 from . import cuda_build
 
 SOURCE = cuda_build.PKG / "csrc" / "correlation.cu"
-# no -fmad=false: the kernel is held to its plain version with a tolerance
-NVCC_FLAGS = ()
+# no -fmad=false: the kernel is held to its plain version with a tolerance;
+# -split-compile: its 30 instances optimised in parallel threads
+NVCC_FLAGS = ("-split-compile=0",)
 
 # the kernel's tiling and instances (keep in step with csrc/correlation.cu)
 ROWS = 8  # output rows per tile: one per lane of a quarter-warp

@@ -13,8 +13,17 @@ float32 product is exact, and rounded once to float32.
 a CUDA tensor goes to the CUDA kernel (`int8_conv_kernel`), a CPU tensor to
 the plain version.
 
+`int8_conv3d` is the 3-D int8 cell's conv (layers.py:355-363 of the JAX
+package, XLA's int8 conv3d there): on the card it folds the kt time taps
+into channels (output frame t' stacks its kt input frames, zero frames in
+the time padding, on kt*C channels; the kernel reshaped to (F, kt*C, k, k))
+and makes one launch of the int8 conv kernel over the B*T' frames.  The
+int32 sums are exact whichever order adds them, so it equals the plain
+version, a float64 conv3d, bit for bit.
+
 Layouts: int8 activations (B, C, H, W), kernels (F, C, k, k), as the models
-keep them (NHWC / OHWI in `channels_last` memory); pad k // 2.
+keep them (NHWC / OHWI in `channels_last` memory); pad k // 2.  The 3-D
+conv takes NDHWC windows (B, T, H, W, C) and kernels (F, C, kt, k, k).
 """
 from __future__ import annotations
 
@@ -94,6 +103,80 @@ def int8_conv(q, qkernel, stride=1, scale=None, bias=None, oscale=None, out_dtyp
     if q.device.type == "cuda":
         return int8_conv_kernel.int8_conv(q, qkernel, stride, scale, bias, oscale, out_dtype)
     return int8_conv_plain(q, qkernel, stride, scale, bias, oscale, out_dtype)
+
+
+def _check3d(q: torch.Tensor, qkernel: torch.Tensor, stride, padding):
+    f, c, kt, kh, kw = qkernel.shape
+    if q.dim() != 5 or q.dtype != torch.int8 or q.shape[-1] != c:
+        raise ValueError(f"int8_conv3d takes an int8 window (B, T, H, W, {c}), got {tuple(q.shape)} {q.dtype}")
+    if kh != kw or kh % 2 == 0 or tuple(padding[1:]) != (kh // 2, kw // 2) or stride[1] != stride[2]:
+        raise ValueError(f"int8_conv3d takes a square odd spatial kernel padded k // 2 with one spatial stride, got "
+                         f"kernel {tuple(qkernel.shape[2:])}, stride {tuple(stride)}, padding {tuple(padding)}")
+
+
+def _epilogue_nhwc(y: torch.Tensor, b: int, t_out: int, scale, bias, out_dtype) -> torch.Tensor:
+    """int32 sums (B*T', F, H', W') -> (B, T', H', W', F): raw, or
+    leaky(acc * scale + bias) in `out_dtype` (`scale` (F,) or one a window,
+    (B, F))."""
+    if scale is not None:
+        if scale.dim() == 2:  # one scale a window: repeated over its T' frames
+            scale = scale.repeat_interleave(t_out, dim=0)
+        y = dequant_leaky(y, scale, bias).to(out_dtype)
+    return y.permute(0, 2, 3, 1).reshape((b, t_out) + y.shape[2:] + y.shape[1:2])
+
+
+def int8_conv3d_plain(q: torch.Tensor, qkernel: torch.Tensor, stride=(1, 1, 1), padding=(0, 0, 0), scale=None,
+                      bias=None, out_dtype=torch.float32) -> torch.Tensor:
+    """The 3-D int8 cell's conv, plain (layers.py:355-366): q (B, T, H, W,
+    C) int8, qkernel (F, C, kt, kh, kw) int8, zero padding `padding` on
+    (T, H, W) -> (B, T', H', W', F): the exact int32 sums (float64 sums of
+    int8 products, exact below 2^53) without `scale`, else leaky(acc *
+    scale + bias) rounded once, in `out_dtype`."""
+    _check3d(q, qkernel, stride, padding)
+    y = F.conv3d(q.permute(0, 4, 1, 2, 3).double(), qkernel.double(), stride=tuple(stride), padding=tuple(padding))
+    b, _, t_out = y.shape[:3]
+    y = y.to(torch.int32).permute(0, 2, 1, 3, 4).reshape((b * t_out, y.shape[1]) + y.shape[3:])
+    return _epilogue_nhwc(y, b, t_out, scale, bias, out_dtype)
+
+
+def fold_frames(q: torch.Tensor, kt: int, st: int, pt: int):
+    """(B, T, H, W, C) -> ((B*T', kt*C, H, W) in channels_last memory, T'):
+    output frame t' takes input frames t'*st - pt + j, j < kt, on channels
+    j*C + c, with zero frames outside the window (the time padding)."""
+    b, t, h, w, c = q.shape
+    if pt:
+        pad = q.new_zeros((b, pt, h, w, c))
+        q = torch.cat([pad, q, pad], dim=1)
+    t_out = (t + 2 * pt - kt) // st + 1
+    if t_out < 1:
+        raise ValueError(f"int8_conv3d: no output frame for T={t}, kt={kt}, stride {st}, padding {pt}")
+    x = torch.stack([q[:, j : j + st * (t_out - 1) + 1 : st] for j in range(kt)], dim=4)
+    return x.reshape(b * t_out, h, w, kt * c).permute(0, 3, 1, 2), t_out
+
+
+def fold_kernel(qkernel: torch.Tensor) -> torch.Tensor:
+    """(F, C, kt, kh, kw) -> (F, kt*C, kh, kw) in channels_last memory,
+    channel j*C + c holding tap j of input channel c (`fold_frames`'s)."""
+    f, c, kt, kh, kw = qkernel.shape
+    return qkernel.permute(0, 3, 4, 2, 1).reshape(f, kh, kw, kt * c).contiguous().permute(0, 3, 1, 2)
+
+
+def int8_conv3d(q, qkernel, stride=(1, 1, 1), padding=(0, 0, 0), scale=None, bias=None,
+                out_dtype=torch.float32):
+    """`int8_conv3d_plain`'s function; for CUDA tensors one launch of the
+    int8 conv kernel over the B*T' output frames, the kt time taps folded
+    into channels (`fold_frames`, `fold_kernel`): its fused epilogue for
+    one scale, its raw sums and `dequant_leaky` for a scale a window."""
+    if q.device.type != "cuda":
+        return int8_conv3d_plain(q, qkernel, stride, padding, scale, bias, out_dtype)
+    _check3d(q, qkernel, stride, padding)
+    b = q.shape[0]
+    x, t_out = fold_frames(q, qkernel.shape[2], stride[0], padding[0])
+    k2 = fold_kernel(qkernel)
+    if scale is not None and scale.dim() == 1:
+        y = int8_conv_kernel.int8_conv(x, k2, stride[1], scale, bias, out_dtype=out_dtype)
+        return _epilogue_nhwc(y, b, t_out, None, None, out_dtype)
+    return _epilogue_nhwc(int8_conv_kernel.int8_conv(x, k2, stride[1]), b, t_out, scale, bias, out_dtype)
 
 
 def quant_downsample(q, qkernel, scale, bias, oscale):

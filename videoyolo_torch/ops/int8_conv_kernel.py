@@ -28,8 +28,9 @@ import torch
 from . import cuda_build
 
 SOURCE = cuda_build.PKG / "csrc" / "int8_conv.cu"
-# -fmad=false: no multiply-add contracted beyond the epilogue's explicit fmaf
-NVCC_FLAGS = ("-fmad=false",)
+# -fmad=false: no multiply-add contracted beyond the epilogue's explicit fmaf;
+# -split-compile: its 40 kernels optimised in parallel threads
+NVCC_FLAGS = ("-fmad=false", "-split-compile=0")
 # the epilogues (keep in step with csrc/int8_conv.cu)
 EPI_RAW, EPI_F32, EPI_BF16, EPI_QUANT = 0, 1, 2, 3
 _REAL_EPI = {torch.float32: EPI_F32, torch.bfloat16: EPI_BF16}

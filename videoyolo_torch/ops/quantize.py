@@ -15,9 +15,16 @@ calibration pass ("fused_calib": dynamic scales, recording each cell's input
 and output amax and each residual join's amax) gives every cell its `oscale`
 (and the stem its `xscale`) and every join its `xscale`.
 
-Deferred (ROADMAP.md Queue 1 item 9a): the dynamic and static modes
-(`quant=True` / "static", `calibrate_detector_variables`, `quantize_static`)
-and with them the int8 temporal family.
+`quantize_static` is the static conversion of YOLOv3 and its temporal
+family (YOLOv3T with the built-in stages, YOLOv3Temporal): the dynamic
+model (`quant=True`, a scale per image computed on the fly) runs over the
+calibration batches, and `calibrate_detector_variables` gives every cell
+the `xscale` of the largest amax it saw (numpy's float32 division, copied
+from the JAX package).  The dynamic mode itself needs no calibration: its
+variables are `quantize_detector_variables`'.
+
+Deferred (ROADMAP.md Queue 1 item 9a): the two-stream int8 model (the
+darknet side int8, the motion stream real-valued).
 """
 from __future__ import annotations
 
@@ -26,15 +33,18 @@ from typing import Any, Dict, Iterable
 import numpy as np
 import torch
 
-from ..models.layers import BN_EPS
+from ..models.layers import BN_EPS, calibrating
+from ..models.ts_darknet import TwoStreamDarknet
 from ..models.yolo3 import YOLOv3
-from ..models.yolo3_temporal import YOLOv3T
+from ..models.yolo3_temporal import YOLOv3T, YOLOv3Temporal
 from ..utils.flax_bridge import flax_to_state_dict
 
 __all__ = [
     "fold_bn_cell",
     "quantize_cell",
     "quantize_detector_variables",
+    "calibrate_detector_variables",
+    "quantize_static",
     "quantize_fused",
     "assert_quantizable",
     "replace_quant",
@@ -145,18 +155,26 @@ def _insert_fused_scales(params, calib):
 
 
 def assert_quantizable(model):
-    """One predicate for 'can this model take the int8 path' (YOLOv3; the
-    int8 temporal family is deferred)."""
-    if type(model) is YOLOv3:
+    """One predicate for 'can this model take the int8 path' (ops/quantize.py:127-150):
+    YOLOv3, YOLOv3Temporal, and YOLOv3T with the built-in stages (the
+    conv-RNN configurations in mixed precision).  A new_model backbone
+    fails the JAX package's assertion with its message; the two-stream one
+    is deferred."""
+    if type(model) in (YOLOv3, YOLOv3Temporal):
         return
     if type(model) is YOLOv3T:
-        raise NotImplementedError(
-            "the int8 temporal family (static scales) is deferred, see ROADMAP.md Queue 1 item 9a"
+        backbone = getattr(model, "backbone", None)
+        if isinstance(backbone, TwoStreamDarknet):
+            raise NotImplementedError("the two-stream int8 model is deferred, see ROADMAP.md Queue 1 item 9a")
+        assert backbone is None, (
+            "int8 temporal backbones: built-in (2D/3D/2+1D blocks) or the "
+            "two-stream family (darknet side int8, motion stream bf16)"
         )
+        return
     raise AssertionError("int8 serving supports yolo3_darknet53 and its temporal variants")
 
 
-def replace_quant(model: YOLOv3, quant, **overrides) -> YOLOv3:
+def replace_quant(model, quant, **overrides):
     """A new model like `model` (its constructor arguments, `init_kwargs`)
     with `quant` and any `overrides`, in eval mode, not initialised."""
     return type(model)(**{**model.init_kwargs, "quant": quant, **overrides}).eval()
@@ -171,15 +189,70 @@ def _calibration_tree(model) -> Dict[str, Any]:
         if not record:
             continue
         node = tree
-        for part in name.split("."):
+        for part in name.split(".") if name else ():
             node = node.setdefault(part, {})
         node.update({k: np.float32(v.item()) for k, v in record.items()})
     return tree
 
 
+def _device(batch) -> torch.device:
+    """The device of a calibration batch: a tensor, or the head-only model's
+    tuple of routes."""
+    return batch.device if isinstance(batch, torch.Tensor) else _device(batch[0])
+
+
 def _load(model, params, device):
     model.load_state_dict(flax_to_state_dict({"params": params}), strict=True)
     return model.to(device, memory_format=torch.channels_last)
+
+
+def calibrate_detector_variables(qmodel_dynamic, qvars: Dict[str, Any], batches: Iterable[torch.Tensor]):
+    """Dynamic-quant variables -> static-quant variables (ops/quantize.py:239-280):
+    `qvars` loaded into `qmodel_dynamic` (a `quant=True` model, not
+    initialised) on the batches' device, the model run over `batches`, and
+    every cell given `xscale` = max(amax / 127, 1e-12) of the largest amax
+    it recorded, in numpy float32 as the JAX package computes it on the
+    host."""
+    batches = list(batches)
+    if not batches:
+        raise ValueError("need at least one calibration batch")
+    model = _load(qmodel_dynamic, qvars["params"], _device(batches[0]))
+    with torch.inference_mode(), calibrating():
+        for x in batches:
+            model(x)
+    amax_tree = _calibration_tree(model)
+
+    def insert(p, c):
+        if hasattr(p, "items"):
+            if "qkernel" in p:
+                amax = c["amax"]
+                if isinstance(amax, (tuple, list)):
+                    amax = amax[0]
+                xscale = np.maximum(np.float32(amax) / 127.0, 1e-12)
+                return {**p, "xscale": np.float32(xscale)}
+            return {
+                k: insert(v, c[k]) if hasattr(c, "items") and k in c else v
+                for k, v in p.items()
+            }
+        return p
+
+    return {"params": insert(qvars["params"], amax_tree)}
+
+
+def quantize_static(model, variables: Dict[str, Any], batches: Iterable[torch.Tensor], dtype=None):
+    """The static int8 conversion (ops/quantize.py:153-160): a float model
+    (YOLOv3 or its temporal family, for its configuration), its variables in
+    the JAX package's layout and calibration batches (normalised NHWC images
+    or windows on the device to calibrate on) -> (quant="static" model,
+    converted variables {"params": ...}).  The int8 model lies on the
+    batches' device, in `dtype` (default: the float model's)."""
+    assert_quantizable(model)
+    batches = list(batches)
+    kw = {} if dtype is None else {"dtype": dtype}
+    qvars = quantize_detector_variables(variables)
+    qvars = calibrate_detector_variables(replace_quant(model, True, **kw), qvars, batches)
+    qmodel = _load(replace_quant(model, "static", **kw), qvars["params"], _device(batches[0]))
+    return qmodel, qvars
 
 
 def quantize_fused(model: YOLOv3, variables: Dict[str, Any], batches: Iterable[torch.Tensor],
@@ -194,10 +267,13 @@ def quantize_fused(model: YOLOv3, variables: Dict[str, Any], batches: Iterable[t
     card.  The int8 model lies on that device too, in `dtype` (default: the
     float model's), with `ds_conv` "direct" or "pallas" (K3)."""
     assert_quantizable(model)
+    if type(model) is not YOLOv3:
+        raise ValueError("the fused int8 pipeline covers YOLOv3 (the temporal family serves with "
+                         "quant='static' / 'dynamic': quantize_static)")
     batches = list(batches)
     if not batches:
         raise ValueError("quantize_fused needs at least one calibration batch")
-    device = batches[0].device
+    device = _device(batches[0])
     kw = {} if dtype is None else {"dtype": dtype}
     params = quantize_detector_variables(variables)["params"]
     calib_model = _load(replace_quant(model, "fused_calib", **kw), params, device)

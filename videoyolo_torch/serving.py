@@ -6,8 +6,11 @@ batch, or a batch of k-frame windows when `cfg.k > 1` (t-frame windows,
 t = k or 5, for YOLOv3Temporal), to detections: forward, two-stage top-k,
 greedy NMS (the CUDA kernel on the card), boxes clipped to the image.
 Per-timestep outputs (`t_out`) go through `postprocess_tout`: T folded
-into the batch, one NMS call on the B*T images.  With `quantize="int8"` it serves the fused-int8
-YOLOv3 of `ops/quantize.py:quantize_fused` (detect_yolo3.py:346-386).
+into the batch, one NMS call on the B*T images.  `quantize` serves an int8
+model as detect_yolo3.py:346-386 converts one: "int8" the fused-int8 YOLOv3
+of `ops/quantize.py:quantize_fused`, and on the temporal family the static
+model; "int8_static" the static model of `quantize_static` (any built-in
+family); "int8_dynamic" the dynamic one (a scale per image, no calibration).
 """
 from __future__ import annotations
 
@@ -22,12 +25,15 @@ from .device import resolve_device
 from .models.factory import YoloConfig, build_model
 from .models.layers import init_weights
 from .models.s2d import pad_stem_cin
-from .models.yolo3 import postprocess_tout
-from .ops.quantize import quantize_fused, replace_quant
+from .models.yolo3 import YOLOv3, postprocess_tout
+from .ops.quantize import (
+    assert_quantizable, quantize_detector_variables, quantize_fused, quantize_static, replace_quant,
+)
 from .utils.flax_bridge import flax_to_state_dict, state_dict_to_flax, walk
 
 NMS_THRESH = 0.45
 NMS_TOPK = 400
+QUANTIZE = (None, "int8", "int8_static", "int8_dynamic")
 
 
 class Detector:
@@ -45,14 +51,18 @@ class Detector:
     `dtype` (when given) replaces `cfg.dtype`.  `device` None means CUDA, and
     raises where there is none.
 
-    `quantize="int8"` serves YOLOv3 fused-int8 in `dtype` (its tips and
-    prediction convs).  Float variables (or the random init, drawn in
-    float32) are quantised, calibrated on `calibration` (image batches, uint8
-    or normalised, as requests are); the JAX package's int8 variables (the
-    output of its `quantize_fused`) load as they are.  `ds_conv` "pallas"
-    sends the eligible downsamples to K3; the default "direct" is the JAX
-    package's.  Like the JAX package, the Detector keeps `ds_conv` and the
-    calibration on the model, not in the config."""
+    `quantize` serves int8, real values in `dtype` where a cell writes
+    them: "int8" the fused-int8 YOLOv3, or the static model of the temporal
+    family; "int8_static" the static model of any built-in family;
+    "int8_dynamic" the dynamic one (detect_yolo3.py:366-385).  Float
+    variables (or the random init, drawn in float32) are quantised and,
+    fused or static, calibrated on `calibration` (batches of images or
+    windows, uint8 or normalised, as requests are); the JAX package's int8
+    variables (the output of its `quantize_fused`, `quantize_static` or
+    `quantize_detector_variables`) load as they are.  `ds_conv` "pallas"
+    sends the eligible downsamples of the fused model to K3; the default
+    "direct" is the JAX package's.  Like the JAX package, the Detector keeps
+    `ds_conv` and the calibration on the model, not in the config."""
 
     def __init__(
         self,
@@ -77,28 +87,44 @@ class Detector:
         self._mean = torch.tensor(MEAN, dtype=torch.float32, device=self.device)
         self._std = torch.tensor(STD, dtype=torch.float32, device=self.device)
         int8_vars = variables is not None and any(p[-1] == "qkernel" for p, _ in walk(variables))
-        if quantize in ("int8_static", "int8_dynamic"):
-            raise NotImplementedError(f"quantize={quantize!r} is deferred, see ROADMAP.md Queue 1 item 9a")
-        if quantize not in (None, "int8"):
-            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
-        if quantize and self.frames is not None:
-            raise NotImplementedError("the int8 temporal family is deferred, see ROADMAP.md Queue 1 item 9a")
+        if quantize not in QUANTIZE:
+            raise ValueError(f"quantize must be one of {QUANTIZE}, got {quantize!r}")
         if int8_vars and not quantize:
-            raise ValueError("int8 variables serve with quantize='int8'")
+            raise ValueError("int8 variables serve with quantize='int8', 'int8_static' or 'int8_dynamic'")
         if not quantize:
             model = self._float_model(cfg, variables, seed)
-        elif int8_vars:
-            model = replace_quant(build_model(cfg), "fused", ds_conv=ds_conv)
-            model.load_state_dict(flax_to_state_dict(variables), strict=True)
         else:
-            if not calibration:
-                raise ValueError("quantize='int8' calibrates: pass `calibration` image batches")
-            fmodel = self._float_model(dataclasses.replace(cfg, dtype=torch.float32), variables, seed)
-            batches = [self._normalized(b) for b in calibration]
-            model, _ = quantize_fused(
-                fmodel, state_dict_to_flax(fmodel.state_dict()), batches, ds_conv=ds_conv, dtype=self.dtype
-            )
+            model = self._int8_model(cfg, variables, seed, quantize, int8_vars, calibration, ds_conv)
         self.model = model.eval().to(self.device, memory_format=torch.channels_last)
+
+    def _int8_model(self, cfg: YoloConfig, variables, seed: int, quantize: str, int8_vars: bool, calibration,
+                    ds_conv: str):
+        """The int8 model of `quantize` (detect_yolo3.py:366-385): fused for
+        "int8" on YOLOv3, static for "int8" on the temporal family and for
+        "int8_static", dynamic for "int8_dynamic"."""
+        fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+        with torch.device("meta"):
+            template = build_model(fcfg)
+        assert_quantizable(template)
+        fused = quantize == "int8" and type(template) is YOLOv3
+        mode = "fused" if fused else True if quantize == "int8_dynamic" else "static"
+        kw = dict(ds_conv=ds_conv) if fused else {}
+        if int8_vars:
+            model = replace_quant(template, mode, dtype=self.dtype, **kw)
+            model.load_state_dict(flax_to_state_dict(variables), strict=True)
+            return model
+        fmodel = self._float_model(fcfg, variables, seed)
+        fvars = state_dict_to_flax(fmodel.state_dict())
+        if mode is True:
+            model = replace_quant(fmodel, True, dtype=self.dtype)
+            model.load_state_dict(flax_to_state_dict(quantize_detector_variables(fvars)), strict=True)
+            return model
+        if not calibration:
+            raise ValueError(f"quantize={quantize!r} calibrates: pass `calibration` batches")
+        batches = [self._normalized(b) for b in calibration]
+        if fused:
+            return quantize_fused(fmodel, fvars, batches, ds_conv=ds_conv, dtype=self.dtype)[0]
+        return quantize_static(fmodel, fvars, batches, dtype=self.dtype)[0]
 
     def _float_model(self, cfg: YoloConfig, variables, seed: int):
         model = build_model(cfg)

@@ -105,6 +105,8 @@ def split_temporal_variables(variables: Mapping, names=_STAGE_NAMES) -> Tuple[Di
 
 
 def _check_streamable(model) -> None:
+    if getattr(model, "quant", None):
+        raise NotImplementedError("the int8 stream is deferred, see ROADMAP.md Queue 1 item 9a")
     if type(model) is YOLOv3Temporal:
         if not model.t > 1:
             raise ValueError("streaming needs a temporal window (t=5)")

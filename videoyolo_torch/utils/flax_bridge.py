@@ -16,7 +16,8 @@ the tree and renames leaves only:
                   reversed in kh and kw                 a transposed conv
               scale         -> weight (BatchNorm)
               bias          -> bias
-              qkernel (HWIO int8) -> qkernel (OIHW)    the fused-int8 leaves
+              qkernel (HWIO int8) -> qkernel (OIHW)    the int8 leaves
+              qkernel (DHWIO int8) -> qkernel (O, I, kt, kh, kw)   a 3-D int8 cell
               wscale, xscale, oscale -> the same names (buffers)
   batch_stats mean          -> running_mean (+ num_batches_tracked = 0)
               var           -> running_var
@@ -83,7 +84,7 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
             t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
             if leaf == "kernel" and t.dim() == 2:
                 t = t.T
-            elif leaf == "kernel" and t.dim() == 5:
+            elif leaf in ("kernel", "qkernel") and t.dim() == 5:
                 t = t.permute(4, 3, 0, 1, 2)
             elif leaf == "kernel" and t.dim() == 4 and mods[-1].startswith(_TRANSPOSED):
                 t = t.flip(0, 1).permute(2, 3, 0, 1)
@@ -106,7 +107,7 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
     variables: Dict = {"params": {}, "batch_stats": {}}
     for key, t in state.items():
         *mods, leaf = key.split(".")
-        arr = t.detach().cpu()
+        arr = t.detach()  # laid out on its own device, then copied to the host once
         if leaf == "num_batches_tracked":
             continue
         if leaf in ("running_mean", "running_var"):
@@ -128,5 +129,5 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor]) -> Dict:
         node = variables[coll]
         for m in mods:
             node = node.setdefault(m, {})
-        node[name] = np.ascontiguousarray(arr.float().numpy())
+        node[name] = arr.float().contiguous().cpu().numpy()
     return variables
